@@ -4,8 +4,10 @@ The layout follows `seeme_tpu/` module for module. This package imports
 torch, numpy and the standard library only; the JAX package is the reference
 it is tested against (`tests/test_torch_*.py`), never a dependency.
 
-Slice one covers the EgoBody flagship sampling path: interactee VAE encode
+Two sampling paths are ported: the EgoBody flagship (interactee VAE encode
 and PointNet scene encode -> DDIM-50 over the MD-transformer denoiser -> VAE
-decode -> SMPL FK -> ego metrics. Its three hand-written CUDA kernels live in
-`csrc/` and are bound through `ops/`.
+decode -> SMPL FK -> ego metrics), and HumanML3D text-to-motion (pooled text
+embedding -> DDIM-50 over the token-concat denoiser -> VAE decode -> RIC
+joints -> MR metrics). Their hand-written CUDA kernels live in `csrc/` and
+are bound through `ops/`.
 """

@@ -4,9 +4,10 @@
 `from_jax_params({"vae": ..., "denoiser": ..., "scene_encoder": ...,
 "output_scene": ...})`, each a flax `{"params": ...}` tree of numpy arrays,
 gives a state dict that `SeeMeSystem.load_state_dict` takes (keys `vae.*`,
-`denoiser.*`, `proscene.scene_enc.*`, `output_scene.1.*`). The scene
-encoder's split halves join back into one `fc_0` / `shortcut` over
-[x; pooled].
+`denoiser.*`, `proscene.scene_enc.*`, `output_scene.1.*`); a text-to-motion
+tree (`vae`, `denoiser` with plain encoder layers) gives one that
+`T2MSystem.load_state_dict` takes. The scene encoder's split halves join
+back into one `fc_0` / `shortcut` over [x; pooled].
 """
 
 from __future__ import annotations
@@ -109,7 +110,8 @@ def denoiser_state_dict(p: Tree, prefix: str = "denoiser") -> Dict:
     _linear(sd, f"{prefix}.time_embedding.linear_1", p["time_embedding"]["linear_1"])
     _linear(sd, f"{prefix}.time_embedding.linear_2", p["time_embedding"]["linear_2"])
     _pe(sd, f"{prefix}.query_pos.pe", p["query_pos"])
-    _skip_stack(sd, f"{prefix}.encoder", p["encoder"], _md_layer)
+    md_trans = "sa_block" in p["encoder"]["middle"]
+    _skip_stack(sd, f"{prefix}.encoder", p["encoder"], _md_layer if md_trans else _encoder_layer)
     if "emb_proj_dense" in p:
         _linear(sd, f"{prefix}.emb_proj.1", p["emb_proj_dense"])
     return sd

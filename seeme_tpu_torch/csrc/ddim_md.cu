@@ -29,16 +29,13 @@
 // is bound by each SM's L2 read rate; bf16 weights, wgmma and CTA clusters
 // that share one weight read are the next steps.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
 #include <algorithm>
 #include <initializer_list>
 
+#include "ddim_common.cuh"
+
 namespace {
 
-constexpr int NT = 512;
-constexpr int NWARP = NT / 32;
 constexpr int R = 4;  // latent rows per CTA
 
 // Order of the weight pointers of one MD layer in the pointer table; every
@@ -49,100 +46,6 @@ enum {
   CANG, CANB, WQC, BQC, CASG, CASB, CAOW, CAOB,
   WF1, BF1, WF2, BF2, FSG, FSB, FOW, FOB, PER_LAYER
 };
-enum { ACT_NONE, ACT_RELU, ACT_GELU };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == ACT_RELU) return fmaxf(v, 0.f);
-  if (act == ACT_GELU) return 0.5f * v * (1.f + erff(v * 0.7071067811865475f));
-  return v;
-}
-
-// out[r][c] = act(sum_k A[r][k] W[k][c] + bias[c]) for the CTA's R rows.
-// A (R, K) in shared memory with row stride lda; W (K, N) row-major in device
-// memory. Thread t takes column quad t % (N/4) and the K slice t / (N/4) of
-// NT / (N/4) interleaved slices; partials meet in red (4 * NT * R floats).
-__device__ void dense(const float* A, int lda, int K, const float* __restrict__ W,
-                      const float* __restrict__ bias, int N, float* out, int ldo,
-                      float* red, int act) {
-  const int nq = N >> 2, ks = NT / nq, tid = threadIdx.x;
-  const int q = tid % nq, s = tid / nq;
-  const float4* W4 = reinterpret_cast<const float4*>(W) + q;
-  float acc[R][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-  int k = s;
-  for (; k + 7 * ks < K; k += 8 * ks) {
-    float4 w[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) w[u] = __ldg(W4 + (size_t)(k + u * ks) * nq);
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float a = A[r * lda + k + u * ks];
-        acc[r][0] = fmaf(a, w[u].x, acc[r][0]);
-        acc[r][1] = fmaf(a, w[u].y, acc[r][1]);
-        acc[r][2] = fmaf(a, w[u].z, acc[r][2]);
-        acc[r][3] = fmaf(a, w[u].w, acc[r][3]);
-      }
-  }
-  for (; k < K; k += ks) {
-    const float4 w = __ldg(W4 + (size_t)k * nq);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float a = A[r * lda + k];
-      acc[r][0] = fmaf(a, w.x, acc[r][0]);
-      acc[r][1] = fmaf(a, w.y, acc[r][1]);
-      acc[r][2] = fmaf(a, w.z, acc[r][2]);
-      acc[r][3] = fmaf(a, w.w, acc[r][3]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    *reinterpret_cast<float4*>(red + (s * R + r) * N + 4 * q) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  __syncthreads();
-  for (int i = tid; i < R * N; i += NT) {
-    const int r = i / N, c = i - r * N;
-    float v = 0.f;
-    for (int t = 0; t < ks; ++t) v += red[(t * R + r) * N + c];
-    out[r * ldo + c] = activate(v + bias[c], act);
-  }
-  __syncthreads();
-}
-
-// out = LayerNorm(in) * g + b over D per row (eps 1e-5), one warp per row;
-// in and out may alias.
-__device__ void layernorm(const float* in, float* out, int D, const float* __restrict__ g,
-                          const float* __restrict__ b) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < R; r += NWARP) {
-    const float* x = in + r * D;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += x[c];
-    const float mean = warp_sum(s) / D;
-    float v = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = x[c] - mean;
-      v += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(v) / D + 1e-5f);
-    for (int c = lane; c < D; c += 32) out[r * D + c] = (x[c] - mean) * inv * g[c] + b[c];
-  }
-  __syncthreads();
-}
 
 // In-place softmax over D per row, one warp per row.
 __device__ void softmax_rows(float* x, int D) {
@@ -164,12 +67,6 @@ __device__ void softmax_rows(float* x, int D) {
   __syncthreads();
 }
 
-__device__ __forceinline__ float dot_warp(const float* a, const float* b, int D) {
-  float s = 0.f;
-  for (int c = threadIdx.x & 31; c < D; c += 32) s = fmaf(a[c], b[c], s);
-  return warp_sum(s);
-}
-
 struct Smem {
   float *red, *z, *x, *q, *k, *v, *o, *t, *skip, *lg;
 };
@@ -178,13 +75,13 @@ struct Smem {
 // block with its emb_linear row (scale | shift) precomputed. Clobbers h, o.
 __device__ void stylize_add(const float* const* P, int ng, int nb_, int ow, int ob,
                             const float* __restrict__ eo, float* h, Smem& m, int D) {
-  layernorm(h, m.o, D, P[ng], P[nb_]);
+  layernorm(h, m.o, D, P[ng], P[nb_], R);
   for (int i = threadIdx.x; i < R * D; i += NT) {
     const int c = i % D;
     m.o[i] = silu(m.o[i] * (1.f + eo[c]) + eo[D + c]);
   }
   __syncthreads();
-  dense(m.o, D, D, P[ow], P[ob], D, h, D, m.red, ACT_NONE);
+  dense<R>(m.o, D, D, P[ow], P[ob], D, h, D, m.red, ACT_NONE, R);
   for (int i = threadIdx.x; i < R * D; i += NT) m.x[i] += h[i];
   __syncthreads();
 }
@@ -198,9 +95,9 @@ __device__ void md_layer(const float* const* P, const float* const* cond,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int S = NC + 2;
   // self-attention of the latent row over [latent; cond; time]
-  dense(m.x, D, D, P[WQ], P[BQ], D, m.q, D, m.red, ACT_NONE);
-  dense(m.x, D, D, P[WK], P[BK], D, m.k, D, m.red, ACT_NONE);
-  dense(m.x, D, D, P[WV], P[BV], D, m.v, D, m.red, ACT_NONE);
+  dense<R>(m.x, D, D, P[WQ], P[BQ], D, m.q, D, m.red, ACT_NONE, R);
+  dense<R>(m.x, D, D, P[WK], P[BK], D, m.k, D, m.red, ACT_NONE, R);
+  dense<R>(m.x, D, D, P[WV], P[BV], D, m.v, D, m.red, ACT_NONE, R);
   const float scale = rsqrtf((float)D);
   for (int p = warp; p < R * S; p += NWARP) {
     const int r = p / S, j = p - r * S;
@@ -229,19 +126,19 @@ __device__ void md_layer(const float* const* P, const float* const* cond,
     m.t[i] = fmaf(a[NC + 1], step[D + c], val);
   }
   __syncthreads();
-  dense(m.t, D, D, P[WO], P[BO], D, m.o, D, m.red, ACT_NONE);
+  dense<R>(m.t, D, D, P[WO], P[BO], D, m.o, D, m.red, ACT_NONE, R);
   for (int i = tid; i < R * D; i += NT) m.o[i] += m.x[i];
   __syncthreads();
-  layernorm(m.o, m.x, D, P[LN1G], P[LN1B]);
+  layernorm(m.o, m.x, D, P[LN1G], P[LN1B], R);
   // post-norm ReLU FFN of the self-attention block
-  dense(m.x, D, D, P[W1], P[B1], F1, m.t, F1, m.red, ACT_RELU);
-  dense(m.t, F1, F1, P[W2], P[B2], D, m.o, D, m.red, ACT_NONE);
+  dense<R>(m.x, D, D, P[W1], P[B1], F1, m.t, F1, m.red, ACT_RELU, R);
+  dense<R>(m.t, F1, F1, P[W2], P[B2], D, m.o, D, m.red, ACT_NONE, R);
   for (int i = tid; i < R * D; i += NT) m.o[i] += m.x[i];
   __syncthreads();
-  layernorm(m.o, m.x, D, P[LN2G], P[LN2B]);
+  layernorm(m.o, m.x, D, P[LN2G], P[LN2B], R);
   // linear cross-attention: softmax(query) . softmax_tokens(key) -> value mix
-  layernorm(m.x, m.o, D, P[CANG], P[CANB]);
-  dense(m.o, D, D, P[WQC], P[BQC], D, m.q, D, m.red, ACT_NONE);
+  layernorm(m.x, m.o, D, P[CANG], P[CANB], R);
+  dense<R>(m.o, D, D, P[WQC], P[BQC], D, m.q, D, m.red, ACT_NONE, R);
   softmax_rows(m.q, D);
   for (int p = warp; p < R * NC; p += NWARP) {
     const int r = p / NC, n = p - r * NC;
@@ -258,8 +155,8 @@ __device__ void md_layer(const float* const* P, const float* const* cond,
   __syncthreads();
   stylize_add(P, CASG, CASB, CAOW, CAOB, step + 2 * D, m.t, m, D);
   // stylized GELU FFN
-  dense(m.x, D, D, P[WF1], P[BF1], FF, m.t, FF, m.red, ACT_GELU);
-  dense(m.t, FF, FF, P[WF2], P[BF2], D, m.k, D, m.red, ACT_NONE);
+  dense<R>(m.x, D, D, P[WF1], P[BF1], FF, m.t, FF, m.red, ACT_GELU, R);
+  dense<R>(m.t, FF, FF, P[WF2], P[BF2], D, m.k, D, m.red, ACT_NONE, R);
   stylize_add(P, FSG, FSB, FOW, FOB, step + 4 * D, m.k, m, D);
 }
 
@@ -317,7 +214,7 @@ ddim_md_t1_kernel(const float* __restrict__ z0, float* __restrict__ z_out,
           m.t[r * 2 * D + D + c] = sk[i];
         }
         __syncthreads();
-        dense(m.t, 2 * D, 2 * D, G[2 * j], G[2 * j + 1], D, m.x, D, m.red, ACT_NONE);
+        dense<R>(m.t, 2 * D, 2 * D, G[2 * j], G[2 * j + 1], D, m.x, D, m.red, ACT_NONE, R);
       }
       const float* cond[R];
       for (int r = 0; r < R; ++r) cond[r] = cond_row[r] + l * layer_cond;
@@ -328,7 +225,7 @@ ddim_md_t1_kernel(const float* __restrict__ z0, float* __restrict__ z_out,
         __syncthreads();
       }
     }
-    layernorm(m.x, m.o, D, G[2 * nb], G[2 * nb + 1]);  // eps rows
+    layernorm(m.x, m.o, D, G[2 * nb], G[2 * nb + 1], R);  // eps rows
     const float at = acp_t[it], ap = acp_prev[it];
     const float c_eps = sqrtf(1.f - at), inv_sa = 1.f / sqrtf(at);
     const float sa_prev = sqrtf(ap), c_prev = sqrtf(1.f - ap);

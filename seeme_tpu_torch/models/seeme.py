@@ -29,12 +29,20 @@ from ..core.smpl import SmplModel, smpl_joints24
 from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
-from ..ops.denoiser_fused import KernelWeights, ddim_fused
+from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid
 from ..ops.pointnet_fused import pointnet_forward, pointnet_weights
 from .denoiser import Denoiser
 from .vae import MotionVae
 
 WEARER, INTERACTEE = 0, 1  # actor indices in the 2-person batch layout
+
+
+def tensor_versions(*modules: nn.Module) -> tuple:
+    """Storage address and version counter of every tensor of the modules:
+    it changes with `load_state_dict`, an in-place update or a move, so it
+    keys the kernel-layout weight copies."""
+    return tuple((t.data_ptr(), t._version)
+                 for m in modules for t in itertools.chain(m.parameters(), m.buffers()))
 
 
 @dataclass(frozen=True)
@@ -51,6 +59,9 @@ class SeeMeConfig:
     num_inference_timesteps: int = 50
     scene_points: int = 20000
     scene_feat_dim: int = 512
+    # the DDIM entry, as `seeme_tpu/models/seeme.py:80`: "loop" (`ddim_fused`)
+    # or "grid" (`ddim_fused_grid`); both launch `csrc/ddim_md.cu`
+    fused_variant: str = "loop"
     pose_feats = 72  # a constant, not a field: 23-joint EgoBody pose + global orientation
 
     @property
@@ -73,6 +84,8 @@ class SeeMeSystem(nn.Module):
         dev = resolve_device(device)
         if not set(cfg.condition) <= {"interactee", "scene"}:
             raise ValueError(f"conditions {cfg.condition} are not ported yet")
+        if cfg.fused_variant not in ("loop", "grid"):
+            raise ValueError(f"fused_variant {cfg.fused_variant!r} is not 'loop' or 'grid'")
         self.cfg = cfg
         d = cfg.latent_dim[-1]
         # one attention head, as the reference hard-codes (`mld_vae.py:51-53`);
@@ -104,9 +117,7 @@ class SeeMeSystem(nn.Module):
         denoiser or the scene encoder changed since they were made (by
         `load_state_dict`, an in-place update or a move), as its storage
         address and version counter show."""
-        mods = [self.denoiser] + ([self.proscene] if self.use_scene else [])
-        key = tuple((t.data_ptr(), t._version)
-                    for m in mods for t in itertools.chain(m.parameters(), m.buffers()))
+        key = tensor_versions(self.denoiser, *([self.proscene] if self.use_scene else []))
         if self._kernel_operands is None or self._kernel_operands[0] != key:
             sd = self.denoiser.state_dict()
             scene = pointnet_weights(self.proscene["scene_enc"]) if self.use_scene else None
@@ -167,7 +178,8 @@ class SeeMeSystem(nn.Module):
     def sample_from_cond(self, cond_full: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          z_init: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Reverse diffusion (the fused DDIM kernel) + VAE decode. z_init
+        """Reverse diffusion (the fused DDIM kernel, through the entry
+        `cfg.fused_variant` names) + VAE decode. z_init
         (B, 1, D) replaces the drawn initial noise. Returns normalized
         features (B, T, nfeats)."""
         cfg = self.cfg
@@ -176,10 +188,11 @@ class SeeMeSystem(nn.Module):
         if z_init is None:
             z_init = torch.randn(shape, generator=generator, device=self.device)
         sd, weights, _ = self.kernel_operands()
-        z = ddim_fused(sd, cond_full.contiguous(),
-                       z_init.to(self.device, torch.float32).contiguous(), self.schedule,
-                       cfg.num_inference_timesteps, cfg.num_layers, cfg.guidance_scale,
-                       weights=weights)
+        ddim = ddim_fused_grid if cfg.fused_variant == "grid" else ddim_fused
+        z = ddim(sd, cond_full.contiguous(),
+                 z_init.to(self.device, torch.float32).contiguous(), self.schedule,
+                 cfg.num_inference_timesteps, cfg.num_layers, cfg.guidance_scale,
+                 weights=weights)
         return self.vae.decode(z, cfg.motion_length)
 
     @torch.no_grad()

@@ -53,10 +53,13 @@ class MotionVae(nn.Module):
         dist = self.encoder(xseq, key_valid_mask=aug_mask)[:, : dist_tokens.shape[1]]
         return dist[:, : self.latent_size], dist[:, self.latent_size:]
 
-    def decode(self, z: torch.Tensor, nframes: int) -> torch.Tensor:
-        """(B, latent_size, D) latent -> (B, nframes, nfeats) motion features,
-        every frame valid."""
+    def decode(self, z: torch.Tensor, nframes: int,
+               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, latent_size, D) latent -> (B, nframes, nfeats) motion features.
+        Frames past `lengths` (every frame when None) are masked as keys of
+        the decoder's self-attention."""
         B = z.shape[0]
-        mask = torch.ones(B, nframes, dtype=torch.bool, device=z.device)
+        mask = (lengths_to_mask(lengths.to(z.device), nframes) if lengths is not None
+                else torch.ones(B, nframes, dtype=torch.bool, device=z.device))
         queries = self.query_pos_decoder(z.new_zeros(B, nframes, self.d_model))
         return self.final_layer(self.decoder(queries, z, tgt_valid_mask=mask))

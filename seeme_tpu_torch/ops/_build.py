@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-One `nvcc` call compiles every `seeme_tpu_torch/csrc/*.cu` for `sm_90a` into
-one shared library with a plain C interface, which `ctypes` loads. The
-library goes to `seeme_tpu_torch/_build/` (git-ignored), named by a hash of
-the sources and flags, and is built at first use. No PyTorch headers are
+One `nvcc` per `seeme_tpu_torch/csrc/*.cu`, all started together, compiles
+the sources for `sm_90a`; one more links the objects into one shared library
+with a plain C interface, which `ctypes` loads. The library goes to
+`seeme_tpu_torch/_build/` (git-ignored), named by a hash of the sources,
+headers and flags, and is built at first use. No PyTorch headers are
 included, so the build takes seconds.
 """
 
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -24,7 +26,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +36,9 @@ SIGNATURES = {
     "pointnet_input_block": [_P] * 10 + [_I] * 3 + [_P],
     "pointnet_split_block": [_P] * 8 + [_I] * 3 + [_P],
     "ddim_md_t1": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    "ddim_tok_t1": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
 }
+BUILD_TIMEOUT = 600  # seconds for the compiles together, and again for the link
 
 _lock = threading.Lock()
 _lib = None
@@ -80,16 +84,9 @@ def load_library() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            build_log = _build(path)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-            os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -99,6 +96,41 @@ def load_library() -> ctypes.CDLL:
         lib.seeme_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def _build(path: Path) -> str:
+    """Compile every source in parallel, link, and move the library into
+    place; return the compilers' output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        deadline = time.monotonic() + BUILD_TIMEOUT
+        log, failed = [], []
+        try:
+            for src, proc in zip(_sources(), procs):
+                out, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                log.append(f"== {src.name}\n{out}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(log))
+        lib = Path(tmp) / path.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                              capture_output=True, text=True, timeout=BUILD_TIMEOUT)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "".join(log))
+        os.replace(lib, path)
+    return "".join(log)
 
 
 def check(err: int, name: str) -> None:

@@ -2,15 +2,23 @@
 
 * `denoiser_apply_pure(sd, x, timesteps, cond)`: a plain twin of
   `models.denoiser.Denoiser` for one latent token (T=1), reading the
-  denoiser's state dict, with the step-invariant condition projections
-  hoisted (`md_step_invariants`). Single head, as the JAX twin.
+  denoiser's state dict. md_trans=True: the MD stylization stack, with the
+  step-invariant condition projections hoisted (`md_step_invariants`).
+  md_trans=False: the plain post-norm GELU stack over [x; time; cond].
+  Single head, as the JAX twin.
 * `ddim_fused_plain`: `diffusion/sampling.py::ddim_sample` (eta 0,
-  epsilon prediction, CFG mix) over `denoiser_apply_pure`.
-* `ddim_fused`: launches `csrc/ddim_md.cu` for CUDA tensors (all steps, all
-  layers, the CFG mix and the DDIM update in one kernel), after the
-  per-window precompute (`_window_precompute`, `md_step_invariants`) in
-  PyTorch, as `ddim_fused_grid` does in XLA. For CPU tensors it runs
-  `ddim_fused_plain`. Its launches are counted in `ddim_fused.launches`.
+  epsilon prediction, CFG mix) over `denoiser_apply_pure`, for either block
+  type, with the per-window precompute of the kernels.
+* `ddim_fused` and `ddim_fused_grid` (md_trans=True) launch
+  `csrc/ddim_md.cu`; `ddim_fused_tok` (md_trans=False) launches
+  `csrc/ddim_tok.cu`. Each runs all steps, all layers, the CFG mix and the
+  DDIM update in one kernel, after the per-window precompute
+  (`_window_precompute`: condition projection and every step's time token,
+  plus `md_step_invariants` for the MD stack) in PyTorch, as the JAX
+  package's `ddim_fused_grid` does in XLA. The TPU's grid variant differs
+  from its loop variant only in where that precompute runs, so both MD
+  entries share one CUDA kernel; each counts its own launches
+  (`.launches`). For CPU tensors they run `ddim_fused_plain`.
 
 GELU is the exact erf form throughout, as in the flax `Denoiser`.
 """
@@ -39,10 +47,10 @@ def _ln(sd: StateDict, name: str, x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x, (x.shape[-1],), sd[f"{name}.weight"], sd[f"{name}.bias"], 1e-5)
 
 
-def _qkv(sd: StateDict, layer: str):
-    """(w, b) pairs of the q, k, v projections of a layer's sa_block."""
-    w = sd[f"{layer}.sa_block.self_attn.in_proj_weight"]
-    b = sd[f"{layer}.sa_block.self_attn.in_proj_bias"]
+def _qkv(sd: StateDict, attn: str):
+    """(w, b) pairs of the q, k, v projections of an attention module."""
+    w = sd[f"{attn}.in_proj_weight"]
+    b = sd[f"{attn}.in_proj_bias"]
     return tuple(zip(w.chunk(3), b.chunk(3)))
 
 
@@ -61,7 +69,7 @@ def md_step_invariants(sd: StateDict, xf: torch.Tensor, num_layers: int,
     time-token k/v and both stylization emb_linear rows."""
     inv = {}
     for name in layer_names(num_layers):
-        (_, _), (wk, bk), (wv, bv) = _qkv(sd, name)
+        (_, _), (wk, bk), (wv, bv) = _qkv(sd, f"{name}.sa_block.self_attn")
         ca = f"{name}.ca_block"
         xfn = _ln(sd, f"{ca}.text_norm", xf)
         d = {
@@ -90,7 +98,7 @@ def _md_layer_t1(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
                  emb: torch.Tensor) -> torch.Tensor:
     """One MD layer for a single latent token (`denoiser_fused.py:213-281`).
     x (B, 1, D); emb (B, 1, D) is the time token."""
-    (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, name)
+    (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, f"{name}.sa_block.self_attn")
     D = x.shape[-1]
     k_e = F.linear(emb[:, 0], wk, bk)
     v_e = F.linear(emb[:, 0], wv, bv)
@@ -125,8 +133,34 @@ def _md_layer_t1(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
     return x + _stylization_eo(sd, f"{ffn}.proj_out", h, ffn_eo)
 
 
+def _encoder_layer(sd: StateDict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Post-norm GELU encoder layer over each sample's tokens (B, S, D),
+    single-head attention within the sample (`denoiser_fused.py:94-146`)."""
+    (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, f"{name}.self_attn")
+    q, k, v = F.linear(x, wq, bq), F.linear(x, wk, bk), F.linear(x, wv, bv)
+    attn = torch.softmax(q @ k.transpose(1, 2) / math.sqrt(x.shape[-1]), dim=-1)
+    x = _ln(sd, f"{name}.norm1", x + _lin(sd, f"{name}.self_attn.out_proj", attn @ v))
+    h = _lin(sd, f"{name}.linear2", F.gelu(_lin(sd, f"{name}.linear1", x)))
+    return _ln(sd, f"{name}.norm2", x + h)
+
+
+def _uskip(sd: StateDict, h: torch.Tensor, num_layers: int, layer) -> torch.Tensor:
+    """The U-skip stack: input blocks, middle, output blocks each after a
+    skip_linear over [h; popped skip], then the final LayerNorm."""
+    nb = (num_layers - 1) // 2
+    skips = []
+    for i, name in enumerate(layer_names(num_layers)):
+        if i > nb:
+            h = _lin(sd, f"encoder.linear_blocks.{i - nb - 1}", torch.cat([h, skips.pop()], dim=-1))
+        h = layer(name, h)
+        if i < nb:
+            skips.append(h)
+    return _ln(sd, "encoder.norm", h)
+
+
 def _time_tokens(sd: StateDict, timesteps: torch.Tensor) -> torch.Tensor:
-    """Sinusoid (width of time_embedding.linear_1's input) -> MLP."""
+    """Sinusoid (width of time_embedding.linear_1's input: the text width
+    when emb_proj exists) -> MLP."""
     freq_dim = sd["time_embedding.linear_1.weight"].shape[1]
     t_emb = sinusoidal_timestep_embedding(timesteps, freq_dim)
     return _lin(sd, "time_embedding.linear_2",
@@ -139,30 +173,27 @@ def _project_cond(sd: StateDict, cond: torch.Tensor) -> torch.Tensor:
     return cond
 
 
-def denoiser_apply_pure(sd: StateDict, x: torch.Tensor, timesteps: torch.Tensor,
-                        cond: torch.Tensor, num_layers: int = 5,
-                        md_invariants: Dict | None = None) -> torch.Tensor:
+def denoiser_apply_pure(sd: StateDict, x: torch.Tensor, timesteps: torch.Tensor | None,
+                        cond: torch.Tensor | None, num_layers: int = 5, md_trans: bool = True,
+                        md_invariants: Dict | None = None,
+                        time_token: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of `Denoiser.forward` for x (B, 1, D). md_invariants, from
-    `md_step_invariants`, may carry the condition invariants; then cond is
-    unused."""
+    `md_step_invariants`, may carry the MD stack's condition invariants; then
+    cond is unused. time_token (B, 1, D), the embedded time token, replaces
+    the timestep MLP; then timesteps is unused."""
     if x.shape[1] != 1:
         raise ValueError("denoiser_apply_pure covers the one-latent-token path")
-    emb = _time_tokens(sd, timesteps)[:, None]
+    emb = time_token if time_token is not None else _time_tokens(sd, timesteps)[:, None]
+    pe = sd["query_pos.pe"][:, 0]
+    if not md_trans:
+        xseq = torch.cat([x, emb, _project_cond(sd, cond)], dim=1)
+        h = xseq + pe[: xseq.shape[1]][None]
+        return _uskip(sd, h, num_layers, lambda name, h: _encoder_layer(sd, name, h))[:, :1]
     inv = md_invariants
     if inv is None:
         inv = md_step_invariants(sd, _project_cond(sd, cond), num_layers)
-    names = layer_names(num_layers)
-    nb = (num_layers - 1) // 2
-    h = x + sd["query_pos.pe"][:1, 0][None]
-    skips = []
-    for i, name in enumerate(names):
-        if i > nb:
-            j = i - nb - 1
-            h = _lin(sd, f"encoder.linear_blocks.{j}", torch.cat([h, skips.pop()], dim=-1))
-        h = _md_layer_t1(sd, name, h, inv[name], emb)
-        if i < nb:
-            skips.append(h)
-    return _ln(sd, "encoder.norm", h)
+    return _uskip(sd, x + pe[:1][None], num_layers,
+                  lambda name, h: _md_layer_t1(sd, name, h, inv[name], emb))
 
 
 def ddim_schedule_arrays(schedule, num_steps: int, device="cpu"):
@@ -177,14 +208,21 @@ def ddim_schedule_arrays(schedule, num_steps: int, device="cpu"):
 
 def ddim_fused_plain(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
                      schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
-                     guidance_scale: float = 1.0) -> torch.Tensor:
-    """The `ddim_sample` loop over `denoiser_apply_pure`, with the condition
-    invariants hoisted; cond is [uncond; cond] (2B rows) when
-    guidance_scale > 1."""
-    inv = md_step_invariants(sd, _project_cond(sd, cond), num_layers)
-    return ddim_sample(
-        lambda x, t: denoiser_apply_pure(sd, x, t, None, num_layers, md_invariants=inv),
-        schedule, tuple(z_init.shape), num_steps, guidance_scale, z_init=z_init)
+                     guidance_scale: float = 1.0, md_trans: bool = True) -> torch.Tensor:
+    """The `ddim_sample` loop over `denoiser_apply_pure`, with the kernels'
+    per-window precompute (every step's time token; the MD stack's condition
+    invariants); cond is [uncond; cond] (2B rows) when guidance_scale > 1."""
+    timesteps = ddim_schedule_arrays(schedule, num_steps, z_init.device)[0]
+    cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
+    tokens = dict(zip(timesteps.tolist(), time_tokens))
+    inv = md_step_invariants(sd, cond_p, num_layers) if md_trans else None
+
+    def denoiser(x, t):
+        token = tokens[int(t[0])].expand(x.shape[0], 1, -1)
+        return denoiser_apply_pure(sd, x, None, cond, num_layers, md_trans, inv, token)
+
+    return ddim_sample(denoiser, schedule, tuple(z_init.shape), num_steps, guidance_scale,
+                       z_init=z_init)
 
 
 def _window_precompute(sd: StateDict, cond: torch.Tensor, timesteps: torch.Tensor):
@@ -193,28 +231,34 @@ def _window_precompute(sd: StateDict, cond: torch.Tensor, timesteps: torch.Tenso
 
 
 class KernelWeights:
-    """The denoiser's weights in the kernel's layout: every matrix as a fresh
+    """The denoiser's weights in a kernel's layout: every matrix as a fresh
     contiguous (in, out) f32 tensor, and a device table of their pointers in
-    the order of the enum in `csrc/ddim_md.cu`."""
-
-    PER_LAYER = 32
+    the order of the enum in `csrc/ddim_md.cu` (md_trans=True, 32 per layer)
+    or `csrc/ddim_tok.cu` (md_trans=False, its first 16, per layer), then the
+    skip_linears, the final norm and query_pos row 0."""
 
     @torch.no_grad()
-    def __init__(self, sd: StateDict, num_layers: int):
+    def __init__(self, sd: StateDict, num_layers: int, md_trans: bool = True):
         t = lambda x: x.detach().t().contiguous().clone()  # noqa: E731
         c = lambda x: x.detach().contiguous().clone()  # noqa: E731
+
+        def encoder_layer(p):
+            (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, f"{p}.self_attn")
+            return [t(wq), c(bq), t(wk), c(bk), t(wv), c(bv),
+                    t(sd[f"{p}.self_attn.out_proj.weight"]), c(sd[f"{p}.self_attn.out_proj.bias"]),
+                    c(sd[f"{p}.norm1.weight"]), c(sd[f"{p}.norm1.bias"]),
+                    t(sd[f"{p}.linear1.weight"]), c(sd[f"{p}.linear1.bias"]),
+                    t(sd[f"{p}.linear2.weight"]), c(sd[f"{p}.linear2.bias"]),
+                    c(sd[f"{p}.norm2.weight"]), c(sd[f"{p}.norm2.bias"])]
+
         tensors = []
         for name in layer_names(num_layers):
-            (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, name)
-            sa, ca, ffn = f"{name}.sa_block", f"{name}.ca_block", f"{name}.ffn"
+            if not md_trans:
+                tensors += encoder_layer(name)
+                continue
+            ca, ffn = f"{name}.ca_block", f"{name}.ffn"
             g = lambda n: sd[n]  # noqa: E731
-            tensors += [
-                t(wq), c(bq), t(wk), c(bk), t(wv), c(bv),
-                t(g(f"{sa}.self_attn.out_proj.weight")), c(g(f"{sa}.self_attn.out_proj.bias")),
-                c(g(f"{sa}.norm1.weight")), c(g(f"{sa}.norm1.bias")),
-                t(g(f"{sa}.linear1.weight")), c(g(f"{sa}.linear1.bias")),
-                t(g(f"{sa}.linear2.weight")), c(g(f"{sa}.linear2.bias")),
-                c(g(f"{sa}.norm2.weight")), c(g(f"{sa}.norm2.bias")),
+            tensors += encoder_layer(f"{name}.sa_block") + [
                 c(g(f"{ca}.norm.weight")), c(g(f"{ca}.norm.bias")),
                 t(g(f"{ca}.query.weight")), c(g(f"{ca}.query.bias")),
                 c(g(f"{ca}.proj_out.norm.weight")), c(g(f"{ca}.proj_out.norm.bias")),
@@ -231,44 +275,54 @@ class KernelWeights:
                         c(sd[f"encoder.linear_blocks.{j}.bias"])]
         tensors += [c(sd["encoder.norm.weight"]), c(sd["encoder.norm.bias"]),
                     c(sd["query_pos.pe"][0, 0])]
-        assert len(tensors) == num_layers * self.PER_LAYER + 2 * ((num_layers - 1) // 2) + 3
+        per_layer = 32 if md_trans else 16
+        assert len(tensors) == num_layers * per_layer + 2 * ((num_layers - 1) // 2) + 3
         self.tensors = tensors
         self.num_layers = num_layers
+        self.md_trans = md_trans
         self.d_model = sd["encoder.norm.weight"].shape[0]
-        self.sa_ff = sd[f"{layer_names(num_layers)[0]}.sa_block.linear1.weight"].shape[0]
-        self.ff = sd[f"{layer_names(num_layers)[0]}.ffn.linear1.weight"].shape[0]
+        first = layer_names(num_layers)[0]
+        # FFN widths: an MD layer's sa_block ReLU FFN and stylized GELU FFN;
+        # a plain layer's one GELU FFN
+        self.sa_ff = sd[f"{first}.sa_block.linear1.weight" if md_trans
+                        else f"{first}.linear1.weight"].shape[0]
+        self.ff = sd[f"{first}.ffn.linear1.weight"].shape[0] if md_trans else self.sa_ff
         self.table = torch.tensor([x.data_ptr() for x in tensors], dtype=torch.int64,
                                   device=tensors[0].device)
 
 
-def ddim_fused(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
-               schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
-               guidance_scale: float = 1.0, weights: KernelWeights | None = None) -> torch.Tensor:
-    """Whole DDIM reverse process (eps prediction, eta 0), as `ddim_sample`:
-    z_init (B, 1, D) is unit noise, scaled by init_noise_sigma here; cond
-    (B, NC, text_dim), or (2B, ...) as [uncond; cond] when guidance_scale > 1.
-    Returns z (B, 1, D)."""
-    if z_init.device.type == "cpu":
-        return ddim_fused_plain(sd, cond, z_init, schedule, num_steps, num_layers,
-                                guidance_scale)
-    dev = z_init.device
+def _check_call(name: str, sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
+                num_layers: int, guidance_scale: float, weights: KernelWeights | None,
+                md_trans: bool) -> KernelWeights:
+    """Raise on any input the kernels do not take; return the weights."""
     B, T, D = z_init.shape
-    cfg = guidance_scale > 1.0
     if T != 1:
-        raise ValueError("ddim_fused: the kernel covers one latent token")
-    if cond.shape[0] != (2 * B if cfg else B):
-        raise ValueError(f"ddim_fused: cond has {cond.shape[0]} rows for batch {B}"
+        raise ValueError(f"{name}: the kernel covers one latent token")
+    if cond.dim() != 3 or cond.shape[0] != (2 * B if guidance_scale > 1.0 else B):
+        raise ValueError(f"{name}: cond of shape {tuple(cond.shape)} for batch {B}"
                          f" at guidance {guidance_scale}")
-    for name, x in (("z_init", z_init), ("cond", cond)):
-        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"ddim_fused: {name} must be contiguous float32 on {dev}")
+    for arg, x in (("z_init", z_init), ("cond", cond)):
+        if x.device != z_init.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous float32 on {z_init.device}")
     if weights is None:
-        weights = KernelWeights(sd, num_layers)
-    if weights.num_layers != num_layers or weights.d_model != D:
-        raise ValueError("ddim_fused: kernel weights do not match the call")
+        weights = KernelWeights(sd, num_layers, md_trans)
+    if (weights.num_layers != num_layers or weights.d_model != D
+            or weights.md_trans != md_trans or weights.tensors[0].device != z_init.device):
+        raise ValueError(f"{name}: kernel weights do not match the call")
+    return weights
+
+
+def _launch_ddim_md(wrapper, sd, cond, z_init, schedule, num_steps, num_layers,
+                    guidance_scale, weights):
+    """Run `csrc/ddim_md.cu` (MD stack, T=1) after the per-window precompute,
+    counting the launch on `wrapper`."""
+    name = wrapper.__name__
+    weights = _check_call(name, sd, cond, z_init, num_layers, guidance_scale, weights, True)
+    dev = z_init.device
+    B, _, D = z_init.shape
     for n in (D, weights.sa_ff, weights.ff):
         if n < 4 or n % 4 or 512 % (n // 4):
-            raise ValueError(f"ddim_fused: width {n} is not supported by the kernel")
+            raise ValueError(f"{name}: width {n} is not supported by the kernel")
     timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
     with torch.no_grad():
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
@@ -283,13 +337,92 @@ def ddim_fused(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
     z0 = (z_init * schedule.init_noise_sigma).reshape(B, D).contiguous()
     z_out = torch.empty(B, D, device=dev)
     lib = _build.load_library()
-    ddim_fused.launches += 1
+    wrapper.launches += 1
     _build.check(lib.ddim_md_t1(
         z0.data_ptr(), z_out.data_ptr(), inv_cond.data_ptr(), inv_step.data_ptr(),
         weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(),
         B, cond.shape[0], cond.shape[1], D, weights.sa_ff, weights.ff, num_layers, num_steps,
-        float(guidance_scale), int(cfg), _build.stream_ptr(dev)), "ddim_md_t1")
+        float(guidance_scale), int(guidance_scale > 1.0), _build.stream_ptr(dev)), "ddim_md_t1")
     return z_out.reshape(B, 1, D)
 
 
+def ddim_fused(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
+               schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
+               guidance_scale: float = 1.0, weights: KernelWeights | None = None) -> torch.Tensor:
+    """Whole DDIM reverse process (eps prediction, eta 0) over the MD stack,
+    as `ddim_sample`: z_init (B, 1, D) is unit noise, scaled by
+    init_noise_sigma here; cond (B, NC, text_dim), or (2B, ...) as
+    [uncond; cond] when guidance_scale > 1. Returns z (B, 1, D)."""
+    if z_init.device.type == "cpu":
+        return ddim_fused_plain(sd, cond, z_init, schedule, num_steps, num_layers,
+                                guidance_scale)
+    return _launch_ddim_md(ddim_fused, sd, cond, z_init, schedule, num_steps, num_layers,
+                           guidance_scale, weights)
+
+
 ddim_fused.launches = 0
+
+
+def ddim_fused_grid(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
+                    schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
+                    guidance_scale: float = 1.0,
+                    weights: KernelWeights | None = None) -> torch.Tensor:
+    """`ddim_fused` under the name of the JAX package's grid variant
+    (`SeeMeConfig.fused_variant="grid"`), which differs from the loop
+    variant only in running the per-window precompute outside its kernel,
+    as the port always does: it launches the same `csrc/ddim_md.cu` kernel
+    and counts its launches in `ddim_fused_grid.launches`."""
+    if z_init.device.type == "cpu":
+        return ddim_fused_plain(sd, cond, z_init, schedule, num_steps, num_layers,
+                                guidance_scale)
+    return _launch_ddim_md(ddim_fused_grid, sd, cond, z_init, schedule, num_steps,
+                           num_layers, guidance_scale, weights)
+
+
+ddim_fused_grid.launches = 0
+
+TOK_MAX_COND = 8  # condition tokens the token kernel takes, as the JAX fused route
+
+
+def ddim_fused_tok(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
+                   schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
+                   guidance_scale: float = 1.0,
+                   weights: KernelWeights | None = None) -> torch.Tensor:
+    """Whole DDIM reverse process over the plain token-concat stack
+    (md_trans=False, the JAX package's `ddim_fused(md_trans=False)`): as
+    `ddim_fused`, with cond (B or 2B, NC <= 8, text_dim). Launches
+    `csrc/ddim_tok.cu` for CUDA tensors, counted in `ddim_fused_tok.launches`."""
+    if z_init.device.type == "cpu":
+        return ddim_fused_plain(sd, cond, z_init, schedule, num_steps, num_layers,
+                                guidance_scale, md_trans=False)
+    weights = _check_call("ddim_fused_tok", sd, cond, z_init, num_layers, guidance_scale,
+                          weights, False)
+    dev = z_init.device
+    B, _, D = z_init.shape
+    NC = cond.shape[1]
+    if D != 256:
+        raise ValueError(f"ddim_fused_tok: latent width {D} is not 256")
+    if not 1 <= NC <= TOK_MAX_COND:
+        raise ValueError(f"ddim_fused_tok: {NC} condition tokens; the kernel takes 1 to "
+                         f"{TOK_MAX_COND}")
+    if weights.ff < 4 or weights.ff % 4 or 512 % (weights.ff // 4) or weights.ff > 2 * D:
+        raise ValueError(f"ddim_fused_tok: feed-forward width {weights.ff} is not supported")
+    timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
+    with torch.no_grad():
+        cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
+        pe = sd["query_pos.pe"][: NC + 2, 0]
+        cond_in = (cond_p + pe[2:]).contiguous()           # (Bc, NC, D), positions 2..
+        time_in = (time_tokens + pe[1]).contiguous()        # (steps, D), position 1
+    z0 = (z_init * schedule.init_noise_sigma).reshape(B, D).contiguous()
+    z_out = torch.empty(B, D, device=dev)
+    lib = _build.load_library()
+    ddim_fused_tok.launches += 1
+    _build.check(lib.ddim_tok_t1(
+        z0.data_ptr(), z_out.data_ptr(), cond_in.data_ptr(), time_in.data_ptr(),
+        weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(),
+        B, NC, weights.ff, num_layers, num_steps, float(guidance_scale),
+        int(guidance_scale > 1.0), _build.stream_ptr(dev)), "ddim_tok_t1")
+    return z_out.reshape(B, 1, D)
+
+
+ddim_fused_tok.launches = 0

@@ -4,7 +4,8 @@ Marked `gpu`: each test needs an NVIDIA card with nvcc and skips without
 one (a CUDA kernel has no interpret mode). Run on the card with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Shapes are small but
 exercise the kernels' edges: a ragged last point tile at two point counts,
-a batch that leaves the last DDIM CTA partly empty, and the CFG path.
+a batch that leaves the last DDIM CTA partly empty, the CFG path, and the
+token kernel at 1, 3 and 8 condition tokens (up to 20 token rows a CTA).
 """
 
 import pytest
@@ -71,6 +72,52 @@ def test_ddim_kernel(cuda, batch, guidance):
     assert dfu.ddim_fused.launches == before + 1
     ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance)
     assert rel_err(z, ref) < 1e-3
+    before = dfu.ddim_fused_grid.launches
+    grid = dfu.ddim_fused_grid(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance)
+    assert dfu.ddim_fused_grid.launches == before + 1
+    assert torch.equal(grid, z)  # the same CUDA kernel on the same inputs
+
+
+def t2m_denoiser(device):
+    """The text-to-motion denoiser at full width: latent 256, ff 128, 5
+    layers, text width 768 (emb_proj)."""
+    den = Denoiser((1, 256), ff_size=128, num_layers=5, text_encoded_dim=768, md_trans=False)
+    return seeded(den, 6, device).state_dict()
+
+
+@pytest.mark.parametrize("n_cond,guidance", [(1, 1.0), (1, 7.5), (3, 1.0), (3, 7.5), (8, 7.5)])
+def test_ddim_tok_kernel(cuda, n_cond, guidance):
+    sd = t2m_denoiser(cuda)
+    batch = 5
+    g = torch.Generator().manual_seed(7)
+    z0 = torch.randn(batch, 1, 256, generator=g).to(cuda)
+    cond = torch.randn((2 if guidance > 1 else 1) * batch, n_cond, 768, generator=g).to(cuda)
+    if guidance > 1:
+        cond[:batch] = 0.0  # the uncond half, as T2MSystem.sample builds it
+    sched = (DiffusionSchedule(), 10)
+    before = dfu.ddim_fused_tok.launches
+    z = dfu.ddim_fused_tok(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance)
+    assert dfu.ddim_fused_tok.launches == before + 1
+    ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance,
+                               md_trans=False)
+    assert rel_err(z, ref) < 1e-3
+
+
+def test_ddim_tok_refuses_bad_input(cuda):
+    sd = t2m_denoiser(cuda)
+    z0 = torch.randn(2, 1, 256, device=cuda)
+    sched = (DiffusionSchedule(), 4)
+    before = dfu.ddim_fused_tok.launches
+    for cond, match in ((torch.randn(2, 9, 768, device=cuda), "condition tokens"),
+                        (torch.randn(2, 1, 768, device=cuda).double(), "contiguous float32"),
+                        (torch.randn(2, 2, 768, device=cuda)[:, :1], "contiguous"),
+                        (torch.randn(3, 1, 768, device=cuda), "for batch 2")):
+        with pytest.raises(ValueError, match=match):
+            dfu.ddim_fused_tok(sd, cond, z0, *sched, num_layers=5)
+    with pytest.raises(ValueError, match="do not match"):
+        dfu.ddim_fused_tok(sd, torch.randn(2, 1, 768, device=cuda), z0, *sched, num_layers=5,
+                           weights=dfu.KernelWeights(sd, 3, md_trans=False))
+    assert dfu.ddim_fused_tok.launches == before
 
 
 def test_kernel_wrappers_refuse_bad_input(cuda):

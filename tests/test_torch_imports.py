@@ -16,6 +16,7 @@ import seeme_tpu_torch
 from seeme_tpu_torch._device import resolve_device
 from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
+from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
 from seeme_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,17 +52,21 @@ def test_hygiene_check_matches_names_exactly(tmp_path):
 
 def test_every_module_imports():
     names = [m.name for m in pkgutil.walk_packages(seeme_tpu_torch.__path__, "seeme_tpu_torch.")]
-    assert "seeme_tpu_torch.ops.denoiser_fused" in names
+    assert {"seeme_tpu_torch.ops.denoiser_fused", "seeme_tpu_torch.models.t2m",
+            "seeme_tpu_torch.core.ric", "seeme_tpu_torch.data.humanml",
+            "seeme_tpu_torch.eval.t2m_metrics"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
 
 def test_no_library_kernel_or_torch_build_route():
-    text = "\n".join(p.read_text() for p in sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")))
+    text = "\n".join(p.read_text() for p in sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+                     + sorted(PKG.rglob("*.cuh")))
     for banned in ("cpp_extension", "torch.compile", "scaled_dot_product_attention",
                    "torch/extension.h", "import triton"):
         assert banned not in text, banned
-    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == ["ddim_md.cu", "pointnet.cu"]
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
+        "ddim_md.cu", "ddim_tok.cu", "pointnet.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -72,6 +77,8 @@ def test_entry_points_raise_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SeeMeSystem(SeeMeConfig(), synthetic_smpl(32), np.zeros(75), np.ones(75))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T2MSystem(T2MConfig(), np.zeros(263), np.ones(263))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

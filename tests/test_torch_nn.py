@@ -147,3 +147,48 @@ def test_denoiser_condition_projection():
                     text_encoded_dim=24)
     ref = jax.jit(ref.apply)(params, *map(jnp.asarray, (x, t, cond)))
     close(den(*map(torch.as_tensor, (x, t, cond))), ref)
+
+
+def test_vae_decode_with_lengths():
+    """Frames past each length are masked as keys of the decoder's
+    self-attention (`seeme_tpu/models/vae.py:135-165`)."""
+    vae, jvae, params = _vae_pair()
+    z, lengths = rand(15, 3, 1, 32), np.array([20, 11, 4])
+    out = vae.decode(torch.as_tensor(z), 20, torch.as_tensor(lengths))
+    ref = jax.jit(lambda p, z, n: jvae.apply(p, z, 20, n, method=jvae.decode))(
+        params, jnp.asarray(z), jnp.asarray(lengths))
+    close(out, ref)
+    assert not np.allclose(out.detach().numpy(), vae.decode(torch.as_tensor(z), 20).detach().numpy(),
+                           atol=1e-3)
+
+
+@pytest.mark.parametrize("text_dim", [32, 48], ids=["no_emb_proj", "emb_proj"])
+def test_token_denoiser(text_dim):
+    """md_trans=False: plain GELU encoder layers over [sample; time; cond],
+    the first n_latent outputs kept (`seeme_tpu/models/denoiser.py:180-188`)."""
+    den = seeded(Denoiser((1, 32), ff_size=16, num_layers=3, text_encoded_dim=text_dim,
+                          md_trans=False), 9)
+    assert hasattr(den, "emb_proj") == (text_dim != 32)
+    params = tree(cc.convert_mld_checkpoint(sd_np(den, "denoiser."))["denoiser"])
+    x, cond, t = rand(16, 3, 1, 32), rand(17, 3, 2, text_dim), np.array([981, 501, 21])
+    ref = JDenoiser(nfeats=263, latent_dim=(1, 32), ff_size=16, num_layers=3, dropout=0.0,
+                    text_encoded_dim=text_dim, md_trans=False)
+    ref = jax.jit(ref.apply)(params, *map(jnp.asarray, (x, t, cond)))
+    close(den(*map(torch.as_tensor, (x, t, cond))), ref)
+
+
+def test_token_denoiser_cond_mask():
+    """cond_mask excludes padded condition tokens as attention keys."""
+    den = seeded(Denoiser((1, 32), ff_size=16, num_layers=3, text_encoded_dim=48,
+                          md_trans=False), 10)
+    params = tree(cc.convert_mld_checkpoint(sd_np(den, "denoiser."))["denoiser"])
+    x, cond, t = rand(18, 3, 1, 32), rand(19, 3, 4, 48), np.array([901, 301, 1])
+    mask = valid_mask(3, 4)
+    ref = JDenoiser(nfeats=263, latent_dim=(1, 32), ff_size=16, num_layers=3, dropout=0.0,
+                    text_encoded_dim=48, md_trans=False)
+    ref = jax.jit(lambda p, *a: ref.apply(p, *a[:3], cond_mask=a[3]))(
+        params, *map(jnp.asarray, (x, t, cond, mask)))
+    ours = den(*map(torch.as_tensor, (x, t, cond)), cond_mask=torch.as_tensor(mask))
+    close(ours, ref)
+    assert not np.allclose(ours.detach().numpy(),
+                           den(*map(torch.as_tensor, (x, t, cond))).detach().numpy(), atol=1e-3)

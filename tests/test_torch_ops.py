@@ -1,7 +1,8 @@
 """Port parity of the modules that hold kernels: the plain versions of the
 fused PointNet blocks (`ops/pointnet_fused.py`) and of the fused DDIM
-sampler (`ops/denoiser_fused.py`) against the JAX package on the CPU, f32
-against f32. On a CPU tensor each wrapper runs its plain version and counts
+samplers (`ops/denoiser_fused.py`: the MD stack behind `ddim_fused` and
+`ddim_fused_grid`, the token-concat stack behind `ddim_fused_tok`) against
+the JAX package on the CPU, f32 against f32. On a CPU tensor each wrapper runs its plain version and counts
 no launch. The interpret-mode Pallas comparisons are marked slow, as
 tests/test_pallas_ops.py marks its own.
 """
@@ -10,6 +11,7 @@ from unittest import mock
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.special
 import numpy as np
 import pytest
 import torch
@@ -227,4 +229,154 @@ def test_ddim_against_pallas_interpret(denoiser_pair, guidance):
     ours = dfu.ddim_fused(sd, torch.as_tensor(cond), torch.as_tensor(z0),
                           DiffusionSchedule(), NS, num_layers=3,
                           guidance_scale=guidance).numpy()
+    np.testing.assert_allclose(ours, ref, atol=0.02 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("guidance", [1.0, 2.5])
+def test_ddim_fused_grid_matches_exact_jax_path(denoiser_pair, guidance):
+    """The grid entry runs the same plain version on CPU tensors, counting no
+    launch, and meets the exact JAX path as `ddim_fused` does."""
+    sd, params, jden = denoiser_pair
+    B = 3
+    z0 = rand(20, B, 1, D)
+    cond = rand(21, 2 * B if guidance > 1 else B, 2, D)
+    if guidance > 1:
+        cond[:B] = 0.0
+    ref = _exact_jax_ddim(params, jden, cond, z0, guidance)
+    before = dfu.ddim_fused_grid.launches
+    ours = dfu.ddim_fused_grid(sd, torch.as_tensor(cond), torch.as_tensor(z0), DiffusionSchedule(),
+                               NS, num_layers=3, guidance_scale=guidance).numpy()
+    assert dfu.ddim_fused_grid.launches == before
+    np.testing.assert_allclose(ours, ref, atol=1e-4 * float(np.abs(ref).max()))
+
+
+TEXT = 48  # text width of the small token-path denoiser (emb_proj 48 -> 32)
+
+
+@pytest.fixture(scope="module")
+def token_pair():
+    den = seeded(Denoiser((1, D), ff_size=16, num_layers=3, text_encoded_dim=TEXT,
+                          md_trans=False), 14)
+    sd = den.state_dict()
+    params = tree(cc.convert_mld_checkpoint(
+        {f"denoiser.{k}": v.numpy() for k, v in sd.items()})["denoiser"])
+    jden = JDenoiser(nfeats=263, latent_dim=(1, D), ff_size=16, num_layers=3, dropout=0.0,
+                     text_encoded_dim=TEXT, md_trans=False)
+    return sd, params, jden
+
+
+def _exact_gelu(x, approximate=False):
+    return 0.5 * x * (1.0 + jax.scipy.special.erf(x / np.sqrt(2.0)).astype(x.dtype))
+
+
+def test_denoiser_apply_pure_token_path(token_pair):
+    """The token-concat twin against the JAX twin (`denoiser_fused.py:416-432`),
+    whose tanh GELU (a Mosaic workaround) is set to the exact erf form here,
+    and against the flax module, both within 1e-4. The precomputed
+    time_token path gives the same result."""
+    sd, params, jden = token_pair
+    x, cond, t = rand(22, 4, 1, D), rand(23, 4, 3, TEXT), np.array([981, 601, 201, 1])
+    ours = dfu.denoiser_apply_pure(sd, torch.as_tensor(x), torch.as_tensor(t),
+                                   torch.as_tensor(cond), num_layers=3, md_trans=False)
+    with mock.patch.object(jax.nn, "gelu", _exact_gelu):
+        ref = j_df.denoiser_apply_pure(params, *map(jnp.asarray, (x, t, cond)), 3,
+                                       md_trans=False)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4)
+    flax_out = jax.jit(jden.apply)(params, *map(jnp.asarray, (x, t, cond)))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(flax_out), atol=1e-4)
+    token = dfu._time_tokens(sd, torch.as_tensor(t))[:, None]
+    again = dfu.denoiser_apply_pure(sd, torch.as_tensor(x), None, torch.as_tensor(cond),
+                                    num_layers=3, md_trans=False, time_token=token)
+    torch.testing.assert_close(again, ours, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("guidance", [1.0, 7.5])
+def test_ddim_fused_tok_matches_exact_jax_path(token_pair, guidance):
+    """The flax token-concat `Denoiser` inside `ddim_sample(z_init=...)` is
+    the reference; tolerance 1e-4 x max|z|. The uncond half is a zero
+    embedding, which relu -> emb_proj turns into the projection's bias."""
+    sd, params, jden = token_pair
+    B = 3
+    z0 = rand(24, B, 1, D)
+    text = rand(25, B, 1, TEXT)
+    cond = np.concatenate([np.zeros_like(text), text]) if guidance > 1 else text
+    ref = _exact_jax_ddim(params, jden, cond, z0, guidance)
+    before = dfu.ddim_fused_tok.launches
+    ours = dfu.ddim_fused_tok(sd, torch.as_tensor(cond), torch.as_tensor(z0), DiffusionSchedule(),
+                              NS, num_layers=3, guidance_scale=guidance).numpy()
+    assert dfu.ddim_fused_tok.launches == before  # CPU tensors: plain version, no launch
+    np.testing.assert_allclose(ours, ref, atol=1e-4 * float(np.abs(ref).max()))
+    np.testing.assert_array_equal(
+        ours, dfu.ddim_fused_plain(sd, torch.as_tensor(cond), torch.as_tensor(z0),
+                                   DiffusionSchedule(), NS, num_layers=3,
+                                   guidance_scale=guidance, md_trans=False).numpy())
+
+
+def test_token_kernel_weights_layout(token_pair):
+    """The pointer table's order is the enum of csrc/ddim_tok.cu: 16 operands
+    per encoder layer, (in, out) matrices, then skip_linears, final norm, pe row."""
+    sd, _, _ = token_pair
+    kw = dfu.KernelWeights(sd, 3, md_trans=False)
+    assert len(kw.tensors) == 3 * 16 + 2 + 3 == kw.table.numel()
+    assert kw.table.tolist() == [t.data_ptr() for t in kw.tensors]
+    w = sd["encoder.input_blocks.0.self_attn.in_proj_weight"]
+    torch.testing.assert_close(kw.tensors[2], w[D:2 * D].t(), rtol=0, atol=0)  # WK
+    torch.testing.assert_close(kw.tensors[16 + 12], sd["encoder.middle_block.linear2.weight"].t())
+    torch.testing.assert_close(kw.tensors[48], sd["encoder.linear_blocks.0.weight"].t())
+    torch.testing.assert_close(kw.tensors[-1], sd["query_pos.pe"][0, 0])
+    assert (kw.d_model, kw.ff, kw.md_trans) == (D, 16, False)
+
+
+def test_token_wrapper_checks_its_inputs(token_pair):
+    """Off the CPU the wrapper validates before it builds or launches
+    anything (meta tensors stand in for the card's)."""
+    sd, _, _ = token_pair
+    meta = {k: v.to("meta") for k, v in sd.items()}
+    z0 = torch.empty(2, 1, D, device="meta")
+    sched = (DiffusionSchedule(), NS)
+    before = dfu.ddim_fused_tok.launches
+    with pytest.raises(ValueError, match="latent width"):
+        dfu.ddim_fused_tok(meta, torch.empty(2, 1, TEXT, device="meta"), z0, *sched,
+                           num_layers=3)
+    with pytest.raises(ValueError, match="for batch 2"):
+        dfu.ddim_fused_tok(meta, torch.empty(2, 1, TEXT, device="meta"), z0, *sched,
+                           num_layers=3, guidance_scale=7.5)
+    with pytest.raises(ValueError, match="one latent token"):
+        dfu.ddim_fused_tok(meta, torch.empty(2, 1, TEXT, device="meta"),
+                           torch.empty(2, 2, D, device="meta"), *sched, num_layers=3)
+    assert dfu.ddim_fused_tok.launches == before
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("guidance", [1.0, 7.5])
+def test_ddim_tok_against_pallas_interpret(token_pair, guidance):
+    """The Pallas `ddim_fused(md_trans=False)` keeps bf16 weights and uses
+    tanh GELU: bound 0.02 x max|z|, as tests/test_pallas_ops.py holds it."""
+    sd, params, _ = token_pair
+    B = 3
+    z0, text = rand(26, B, 1, D), rand(27, B, 1, TEXT)
+    cond = np.concatenate([np.zeros_like(text), text]) if guidance > 1 else text
+    jarr = j_df.ddim_schedule_arrays(JSchedule(), NS)
+    ref = np.asarray(j_df.ddim_fused(params, jnp.asarray(cond), jnp.asarray(z0), *jarr,
+                                     num_steps=NS, num_layers=3, guidance_scale=guidance,
+                                     md_trans=False, interpret=True))
+    ours = dfu.ddim_fused_tok(sd, torch.as_tensor(cond), torch.as_tensor(z0),
+                              DiffusionSchedule(), NS, num_layers=3,
+                              guidance_scale=guidance).numpy()
+    np.testing.assert_allclose(ours, ref, atol=0.02 * float(np.abs(ref).max()))
+
+
+@pytest.mark.slow
+def test_ddim_grid_against_pallas_interpret(denoiser_pair):
+    """The Pallas `ddim_fused_grid`, bf16 weights and tanh GELU: 0.02 x max|z|."""
+    sd, params, _ = denoiser_pair
+    B = 3
+    z0, cond = rand(28, B, 1, D), rand(29, 2 * B, 2, D)
+    jarr = j_df.ddim_schedule_arrays(JSchedule(), NS)
+    ref = np.asarray(j_df.ddim_fused_grid(params, jnp.asarray(cond), jnp.asarray(z0), *jarr,
+                                          num_steps=NS, num_layers=3, guidance_scale=2.5,
+                                          interpret=True))
+    ours = dfu.ddim_fused_grid(sd, torch.as_tensor(cond), torch.as_tensor(z0),
+                               DiffusionSchedule(), NS, num_layers=3,
+                               guidance_scale=2.5).numpy()
     np.testing.assert_allclose(ours, ref, atol=0.02 * float(np.abs(ref).max()))

@@ -7,6 +7,8 @@ the reference is composed here: `encode_conditioning`, then
 `eval_fk`, then `ego_sequence_metrics`. The same numpy noise goes to both.
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +24,10 @@ from seeme_tpu_torch.convert import from_jax_params
 from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
 from seeme_tpu_torch.eval.metrics import ego_sequence_metrics
+from seeme_tpu_torch.models import seeme as seeme_module
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
 from seeme_tpu_torch.nn.init import perturb_parameters_
+from seeme_tpu_torch.ops import denoiser_fused as dfu
 from tools.convert_checkpoint import convert_mld_checkpoint
 
 B, W, STEPS, POINTS = 3, 32, 5, 64
@@ -126,3 +130,25 @@ def test_kernel_operands_follow_the_parameters():
     assert not torch.equal(system.scene_features(scene), other.scene_features(scene))
     assert not torch.equal(system.kernel_operands()[1].tensors[0],
                            other.kernel_operands()[1].tensors[0])
+
+
+def test_fused_variant_selects_the_ddim_entry():
+    """`fused_variant="grid"` routes `sample_from_cond` through
+    `ddim_fused_grid` (on the CPU its plain version, as the loop entry's),
+    with the loop variant's result; an unknown variant is refused."""
+    data = SyntheticEgoDataset(B, 60, scene_points=POINTS, seed=0)
+    make = lambda variant: SeeMeSystem(  # noqa: E731
+        SeeMeConfig(fused_variant=variant, **SMALL), synthetic_smpl(256), data.mean, data.std,
+        device="cpu", seed=1)
+    loop, grid = make("loop"), make("grid")
+    rng = np.random.RandomState(9)
+    cond = torch.as_tensor(rng.randn(B, 2, W).astype(np.float32))
+    z0 = torch.as_tensor(rng.randn(B, 1, W).astype(np.float32))
+    calls = []
+    with mock.patch.object(seeme_module, "ddim_fused_grid",
+                           side_effect=lambda *a, **k: calls.append(1) or dfu.ddim_fused_grid(*a, **k)):
+        got = grid.sample_from_cond(cond, z_init=z0)
+    assert calls == [1]
+    assert torch.equal(got, loop.sample_from_cond(cond, z_init=z0))
+    with pytest.raises(ValueError, match="fused_variant"):
+        make("scan")
