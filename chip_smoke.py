@@ -7,14 +7,17 @@
 Phases, each printing one line with its seconds as soon as it ends:
   1. the card: `nvidia-smi` name and power limit, `torch.cuda.get_device_name`;
   2. the nvcc build of `seeme_tpu_torch/csrc/*.cu` (one nvcc per source, in
-     parallel);
+     parallel), with ptxas' registers and spills for every kernel;
   3. each CUDA kernel against its plain PyTorch version at its path's
      shapes (PointNet blocks at B=64, N=20 000, H=512; the MD DDIM-50 kernel
      at B=64, guidance 1.0 and 2.5, and its grid entry at both; the token
-     DDIM-50 kernel at the T2M width, B=64, guidance 1.0 and 7.5): max-abs
+     DDIM-50 kernel at the T2M width, B=64, guidance 1.0 and 7.5; both DDIM
+     kernels again at B=1, one request, at their path's guidance): max-abs
      and relative error against the stated tolerance, the kernel's and the
      plain version's ms (CUDA events, after a warm-up), and the least time
-     the card could take (bound_ms);
+     the card could take (bound_ms); for each DDIM launch, its cluster
+     configuration (CTAs a cluster, grid, clusters that fit at once, shared
+     memory), which must be a cluster of at least 2 CTAs that fits;
   4. the EgoBody slice at full width on a seeded synthetic batch of 64:
      `encode_conditioning` -> `sample_from_cond` -> `eval_fk` -> ego
      metrics, with every kernel's launch count set to 0 just before and read
@@ -137,8 +140,8 @@ def main() -> int:
     # ---- 2. build
     t = time.perf_counter()
     _build.load_library()
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+    for line in _build.build_log.splitlines():  # ptxas -v: each kernel, its registers, spills
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("    " + line.strip(), flush=True)
     phase(f"build: {_build.library_path().name} (nvcc {_build.build_seconds or 0.0:.1f} s)", t)
 
@@ -227,6 +230,7 @@ def main() -> int:
         torch.cuda.synchronize()
         label = f"{fn.__name__} guidance {g}"
         err = compare(label, z_k, z_p, float(z_p.abs().max()), DDIM_RTOL)
+        print_launch(dfu.cluster_launch(True, B, c.shape[1], weights, g))
         ms = time_ms(lambda: fn(*args, weights=weights), 3)
         plain_ms = time_ms(lambda: dfu.ddim_fused_plain(*args), 2)
         flops = ddim_flops(sd, cfg.num_layers, c.shape[0], c.shape[1], steps)
@@ -240,6 +244,21 @@ def main() -> int:
                                 + ("597" if name == "ddim_md_t1" else "757"),
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
                                 flops=flops))
+
+    # one request's latency: batch 1 at the path's guidance
+    t = time.perf_counter()
+    args = (sd, cond[:1].contiguous(), z0[:1].contiguous(), system.schedule, steps,
+            cfg.num_layers, cfg.guidance_scale)
+    z_p = dfu.ddim_fused_plain(*args)
+    compare("ddim_fused B=1", dfu.ddim_fused(*args, weights=weights), z_p,
+            float(z_p.abs().max()), DDIM_RTOL)
+    print_launch(dfu.cluster_launch(True, 1, cond.shape[1], weights, cfg.guidance_scale))
+    ms = time_ms(lambda: dfu.ddim_fused(*args, weights=weights), 3)
+    flops = ddim_flops(sd, cfg.num_layers, 1, cond.shape[1], steps)
+    nbytes = 4 * (sum(v.numel() for v in sd.values()) + args[1].numel() + 2 * args[2].numel()
+                  + 2 * steps)
+    phase(f"kernel ddim_md_t1 at B=1, guidance {cfg.guidance_scale}: {ms:.3f} ms, bound "
+          f"{bound_ms(flops, nbytes):.4f} ms", t)
 
     # the T2M set-up comes after the EgoBody kernels' timings: allocated
     # before them, it moves where the EgoBody weights sit in device memory,
@@ -269,6 +288,7 @@ def main() -> int:
         z_p = dfu.ddim_fused_plain(*args, md_trans=False)
         torch.cuda.synchronize()
         err = compare(f"ddim_tok guidance {g}", z_k, z_p, float(z_p.abs().max()), DDIM_RTOL)
+        print_launch(dfu.cluster_launch(False, B, c.shape[1], t2m_weights, g))
         ms = time_ms(lambda: dfu.ddim_fused_tok(*args, weights=t2m_weights), 3)
         plain_ms = time_ms(lambda: dfu.ddim_fused_plain(*args, md_trans=False), 2)
         flops = tok_flops(t2m_sd, t2m_cfg.num_layers, c.shape[0], c.shape[1], steps)
@@ -283,6 +303,20 @@ def main() -> int:
                                 replaces="seeme_tpu/ops/denoiser_fused.py:597",
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
                                 flops=flops))
+    # one request's latency: batch 1 ([uncond; cond] rows of sample 0) at the path's guidance
+    g = t2m_cfg.guidance_scale
+    args = (t2m_sd, torch.cat([torch.zeros_like(text[:1]), text[:1]]).contiguous(),
+            z0[:1].contiguous(), t2m.schedule, steps, t2m_cfg.num_layers, g)
+    z_p = dfu.ddim_fused_plain(*args, md_trans=False)
+    compare("ddim_tok B=1", dfu.ddim_fused_tok(*args, weights=t2m_weights), z_p,
+            float(z_p.abs().max()), DDIM_RTOL)
+    print_launch(dfu.cluster_launch(False, 1, text.shape[1], t2m_weights, g))
+    ms = time_ms(lambda: dfu.ddim_fused_tok(*args, weights=t2m_weights), 3)
+    flops = tok_flops(t2m_sd, t2m_cfg.num_layers, 2, text.shape[1], steps)
+    nbytes = 4 * (sum(v.numel() for v in t2m_sd.values()) + args[1].numel()
+                  + 2 * args[2].numel() + 2 * steps)
+    phase(f"kernel ddim_tok_t1 at B=1, guidance {g}: {ms:.3f} ms, bound "
+          f"{bound_ms(flops, nbytes):.4f} ms", t)
     del z_k, z_p
 
     counters = {"pointnet_input_block": pfu.fused_input_block,
@@ -417,6 +451,17 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def print_launch(info: dict) -> None:
+    """Print a DDIM kernel's cluster launch; fail unless it is a cluster of
+    at least 2 CTAs of which at least one fits on the card."""
+    clusters = info["grid"] // info["cluster"]
+    print(f"    launch: clusters of {info['cluster']} CTAs, grid {info['grid']} CTAs "
+          f"({clusters} clusters), {info['active_clusters']} clusters fit at once, "
+          f"{info['smem_bytes']} B shared memory a CTA", flush=True)
+    require(info["cluster"] >= 2 and info["active_clusters"] >= 1,
+            f"cluster launch {info}")
 
 
 def bound_ms(flops: float, nbytes: float) -> float:

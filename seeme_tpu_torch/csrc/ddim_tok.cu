@@ -22,19 +22,27 @@
 // Mosaic workaround; here attention loops within a sample. Its tanh GELU was
 // too (Mosaic has no erf); here GELU is exact, as in the flax `Denoiser`.
 //
-// What bounds it on the H100: latency. At batch 64 and guidance 7.5 a step is
-// 384 token rows through 5 layers of dependent small products (about 0.66
-// MFLOP per row per layer, 73 GFLOP per call with the skips), which the FMA
-// units would finish in about 1.1 ms, while the f32 weights (about 7.6 MB,
-// read every step) sit in the 50 MB L2.
+// The design: a cluster of CLUSTER (8) CTAs of 512 threads carries spc whole
+// samples through all steps and layers: all S token rows of each, and under
+// CFG of its uncond twin too, at most MAX_ROWS (30) rows. spc is the fewest
+// samples that let all of the batch's clusters run at once (15 clusters of 8
+// on an H100: batch 64 runs 13 clusters of 5 samples, 30 rows under CFG with
+// the text-to-motion model's one condition token). Each product is split by
+// columns over the cluster (`cluster_dense` in ddim_common.cuh): a CTA
+// streams its eighth of the weight matrix once per step for all of the
+// cluster's rows and pushes its slice of the output (with the residual add,
+// where there is one) into every CTA's shared memory; q, k and v share one
+// exchange, and the skip_linear reads [x; skip] from its two buffers.
+// Attention, the norms, the mix and the update are repeated in every CTA,
+// one warp a row.
 //
-// This first design gives each CTA of 512 threads one sample: its S token
-// rows, and under CFG also the S rows of its uncond twin, so the mix needs no
-// other CTA (up to 20 rows). The rows' activations stay in shared memory; each
-// product streams its weight matrix from L2 as in `ddim_md.cu`, in passes of
-// up to 8 rows. Every CTA re-reads all weights every step, so the kernel is
-// bound by each SM's L2 read rate; bf16 weights on wgmma and CTA clusters
-// that share one weight read are the next steps.
+// What bounds it on the H100: at batch 64 and guidance 7.5 a step is 384
+// token rows through 5 layers of dependent small products (about 0.66 MFLOP
+// per row per layer, 73 GFLOP per call with the skips), which the FMA units
+// would finish in about 1.1 ms; the f32 weights (about 7.6 MB per step) stay
+// in the 50 MB L2. The FMAs are a small part of a CTA's time; most of it is
+// its weight slice's dependent round trips from L2, then the pushes and the
+// 22 cluster barriers of a step (PERF.md).
 
 #include <algorithm>
 
@@ -42,9 +50,10 @@
 
 namespace {
 
-constexpr int D = 256;     // latent width
-constexpr int RC = 8;      // rows per pass of a dense product
-constexpr int MAX_NC = 8;  // condition tokens
+constexpr int D = 256;        // latent width
+constexpr int MAX_NC = 8;     // condition tokens
+constexpr int MAX_ROWS = 30;  // token rows a cluster
+constexpr int MAX_SPC = 8;    // samples a cluster
 
 // Order of the weight pointers of one encoder layer in the pointer table; every
 // weight is (in, out) row-major. After num_layers such groups come the
@@ -55,52 +64,76 @@ struct Smem {
   float *red, *z, *e, *x, *q, *k, *hid, *skip, *lg;
 };
 
-// One post-norm GELU encoder layer over the CTA's R token rows, which are
-// R / S groups (uncond, cond) of one sample's S tokens; attention stays within
-// a group. m.hid holds v during attention, then the FFN's hidden rows.
-__device__ void encoder_layer(const float* const* P, Smem& m, int R, int S, int FF) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* v = m.hid;
-  dense<RC>(m.x, D, D, P[WQ], P[BQ], D, m.q, D, m.red, ACT_NONE, R);
-  dense<RC>(m.x, D, D, P[WK], P[BK], D, m.k, D, m.red, ACT_NONE, R);
-  dense<RC>(m.x, D, D, P[WV], P[BV], D, v, D, m.red, ACT_NONE, R);
+// out = act(A W + b) (+ res) for the R rows, through the cluster.
+__device__ void dense(const Operand& A, int K, const float* W, const float* b, int N,
+                      float* out, float* red, int act, int R, const float* res = nullptr) {
+  const Product p[1] = {{W, b, out, N, N, act, res}};
+  cluster_dense(A, K, p, red, R);
+}
+
+constexpr int PL = D / 32;  // columns a lane holds of a row
+
+// Single-head attention of each token row over the S tokens of its group
+// (scale 1/sqrt(D)), from m.q, m.k and v into m.q; one warp a row. A warp
+// reads only its own row of m.q before it writes it.
+__device__ void attend(const Smem& m, const float* v, int R, int S) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float scale = rsqrtf((float)D);
-  for (int p = warp; p < R * S; p += NWARP) {
-    const int r = p / S, j = p - r * S;
-    const float d = dot_warp(m.q + r * D, m.k + (r - r % S + j) * D, D);
-    if (lane == 0) m.lg[p] = d * scale;
-  }
-  __syncthreads();
-  if (tid < R) {
-    float* l = m.lg + tid * S;
-    float mx = l[0];
-    for (int j = 1; j < S; ++j) mx = fmaxf(mx, l[j]);
-    float sum = 0.f;
+  for (int r = warp; r < R; r += NWARP) {
+    const int g0 = r - r % S;  // the group's first row
+    float* lg = m.lg + r * S;
     for (int j = 0; j < S; ++j) {
-      l[j] = expf(l[j] - mx);
-      sum += l[j];
+      const float d = dot_warp<D>(m.q + r * D, m.k + (g0 + j) * D);
+      if (lane == 0) lg[j] = d * scale;
     }
-    for (int j = 0; j < S; ++j) l[j] /= sum;
+    __syncwarp();
+    float mx = lg[0];
+    for (int j = 1; j < S; ++j) mx = fmaxf(mx, lg[j]);
+    float sum = 0.f;
+    for (int j = 0; j < S; ++j) sum += expf(lg[j] - mx);
+    float o[PL] = {};
+    for (int j = 0; j < S; ++j) {
+      const float a = expf(lg[j] - mx) / sum;
+#pragma unroll
+      for (int i = 0; i < PL; ++i) o[i] = fmaf(a, v[(g0 + j) * D + lane + 32 * i], o[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < PL; ++i) m.q[r * D + lane + 32 * i] = o[i];
+    __syncwarp();
   }
   __syncthreads();
-  for (int i = tid; i < R * D; i += NT) {
-    const int r = i / D, c = i - r * D;
-    const float* a = m.lg + r * S;
-    const float* vg = v + (r - r % S) * D + c;
-    float o = 0.f;
-    for (int j = 0; j < S; ++j) o = fmaf(a[j], vg[j * D], o);
-    m.q[i] = o;
-  }
-  __syncthreads();
-  dense<RC>(m.q, D, D, P[WO], P[BO], D, m.k, D, m.red, ACT_NONE, R);
-  for (int i = tid; i < R * D; i += NT) m.k[i] += m.x[i];
-  __syncthreads();
-  layernorm(m.k, m.x, D, P[LN1G], P[LN1B], R);
-  dense<RC>(m.x, D, D, P[W1], P[B1], FF, m.hid, FF, m.red, ACT_GELU, R);
-  dense<RC>(m.hid, FF, FF, P[W2], P[B2], D, m.k, D, m.red, ACT_NONE, R);
-  for (int i = tid; i < R * D; i += NT) m.k[i] += m.x[i];
-  __syncthreads();
-  layernorm(m.k, m.x, D, P[LN2G], P[LN2B], R);
+}
+
+// One post-norm GELU encoder layer over the cluster's R token rows, which are
+// R / S groups (a sample's uncond or cond half) of S tokens; attention stays
+// within a group. m.hid holds v during attention, then the FFN's hidden rows.
+// No product writes its own input (see cluster_dense); the residual adds
+// ride on the products' pushes.
+__device__ void encoder_layer(const float* const* P, Smem& m, int R, int S, int FF) {
+  float* v = m.hid;
+  const Product qkv[3] = {{P[WQ], P[BQ], m.q, D, D, ACT_NONE},
+                          {P[WK], P[BK], m.k, D, D, ACT_NONE},
+                          {P[WV], P[BV], v, D, D, ACT_NONE}};
+  cluster_dense(rows_of(m.x, D), D, qkv, m.red, R);
+  attend(m, v, R, S);
+  dense(rows_of(m.q, D), D, P[WO], P[BO], D, m.k, m.red, ACT_NONE, R, m.x);
+  layernorm<D>(m.k, m.x, P[LN1G], P[LN1B], R);
+  dense(rows_of(m.x, D), D, P[W1], P[B1], FF, m.hid, m.red, ACT_GELU, R);
+  dense(rows_of(m.hid, FF), FF, P[W2], P[B2], D, m.k, m.red, ACT_NONE, R, m.x);
+  layernorm<D>(m.k, m.x, P[LN2G], P[LN2B], R);
+}
+
+// Floats of red for R rows: the widest partials of the kernel's products.
+__host__ __device__ int red_size(int R, int FF) {
+  const int a = red_floats(D, R), b = red_floats(FF, R);
+  return a > b ? a : b;
+}
+
+// Shared-memory floats for the cluster's spc samples of H halves of S rows.
+size_t smem_floats(int spc, int H, int S, int FF, int L) {
+  const int nb = (L - 1) / 2, R = spc * H * S;
+  const int lg = (R * S + 3) / 4 * 4;
+  return (size_t)red_size(R, FF) + spc * D + spc * H * D + 4 * R * D + nb * R * D + lg;
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -108,36 +141,40 @@ ddim_tok_t1_kernel(const float* __restrict__ z0, float* __restrict__ z_out,
                    const float* __restrict__ cond_in, const float* __restrict__ time_in,
                    const float* const* __restrict__ P, const float* __restrict__ acp_t,
                    const float* __restrict__ acp_prev, int B, int NC, int FF, int L, int steps,
-                   float guidance, int cfg) {
-  const int nb = (L - 1) / 2, S = NC + 2, H = cfg ? 2 : 1, R = H * S;
-  const int s = blockIdx.x;  // the CTA's sample
-  const int HW = max(FF, 2 * D);
+                   float guidance, int cfg, int spc) {
+  const int nb = (L - 1) / 2, S = NC + 2, H = cfg ? 2 : 1, R = spc * H * S;
+  const int s0 = blockIdx.x / CLUSTER * spc;  // the cluster's first sample
   extern __shared__ __align__(16) float smem[];
   Smem m;
   m.red = smem;
-  m.z = m.red + 4 * NT * RC;
-  m.e = m.z + D;
-  m.x = m.e + 2 * D;
+  m.z = m.red + red_size(R, FF);
+  m.e = m.z + spc * D;
+  m.x = m.e + spc * H * D;
   m.q = m.x + R * D;
   m.k = m.q + R * D;
-  m.hid = m.k + R * D;
-  m.skip = m.hid + R * HW;
+  m.hid = m.k + R * D;  // v (R x D), then the FFN's hidden rows (R x FF <= R x D)
+  m.skip = m.hid + R * D;
   m.lg = m.skip + nb * R * D;
 
-  for (int i = threadIdx.x; i < D; i += NT) m.z[i] = z0[(size_t)s * D + i];
+  // sample s0 + i past the batch end computes a copy of the last sample and
+  // is never written out
+  for (int i = threadIdx.x; i < spc * D; i += NT)
+    m.z[i] = z0[(size_t)min(s0 + i / D, B - 1) * D + i % D];
   __syncthreads();
   const float* const* G = P + L * PER_LAYER;  // skip linears, final norm, pe row 0
   const float* pe0 = G[2 * nb + 2];
   for (int it = 0; it < steps; ++it) {
-    // rows h * S + j: [x; time; cond] of group h (0 = uncond under CFG)
+    // row (i * H + h) * S + j: token j [x; time; cond] of half h (0 = uncond
+    // under CFG) of the cluster's sample i
     for (int i = threadIdx.x; i < R * D; i += NT) {
-      const int r = i / D, c = i - r * D, h = r / S, j = r - h * S;
+      const int r = i / D, c = i - r * D, g = r / S, j = r - g * S, li = g / H, h = g - li * H;
       float val;
       if (j == 0) {
-        val = m.z[c] + pe0[c];
+        val = m.z[li * D + c] + pe0[c];
       } else if (j == 1) {
         val = time_in[(size_t)it * D + c];
       } else {
+        const int s = min(s0 + li, B - 1);
         const int row = h ? B + s : s;
         val = cond_in[((size_t)row * NC + j - 2) * D + c];
       }
@@ -147,14 +184,11 @@ ddim_tok_t1_kernel(const float* __restrict__ z0, float* __restrict__ z_out,
     for (int l = 0; l < L; ++l) {
       if (l > nb) {  // output block j: skip_linear over [x; skip of input block nb-1-j]
         const int j = l - nb - 1;
-        const float* sk = m.skip + (nb - 1 - j) * R * D;
-        for (int i = threadIdx.x; i < R * D; i += NT) {
-          const int r = i / D, c = i - r * D;
-          m.hid[r * 2 * D + c] = m.x[i];
-          m.hid[r * 2 * D + D + c] = sk[i];
-        }
-        __syncthreads();
-        dense<RC>(m.hid, 2 * D, 2 * D, G[2 * j], G[2 * j + 1], D, m.x, D, m.red, ACT_NONE, R);
+        const Operand xs{m.x, m.skip + (nb - 1 - j) * R * D, D, D, D};
+        dense(xs, 2 * D, G[2 * j], G[2 * j + 1], D, m.q, m.red, ACT_NONE, R);
+        float* x = m.q;  // the same swap in every CTA: the buffers keep their offsets
+        m.q = m.x;
+        m.x = x;
       }
       encoder_layer(P + l * PER_LAYER, m, R, S, FF);
       if (l < nb) {
@@ -162,23 +196,53 @@ ddim_tok_t1_kernel(const float* __restrict__ z0, float* __restrict__ z_out,
         __syncthreads();
       }
     }
-    // final LayerNorm of each group's token 0: the eps rows
-    for (int i = threadIdx.x; i < H * D; i += NT) m.q[i] = m.x[(i / D) * S * D + i % D];
+    // final LayerNorm of each half's token 0: the eps rows
+    for (int i = threadIdx.x; i < spc * H * D; i += NT) m.q[i] = m.x[(i / D) * S * D + i % D];
     __syncthreads();
-    layernorm(m.q, m.e, D, G[2 * nb], G[2 * nb + 1], H);
+    layernorm<D>(m.q, m.e, G[2 * nb], G[2 * nb + 1], spc * H);
     const float at = acp_t[it], ap = acp_prev[it];
     const float c_eps = sqrtf(1.f - at), inv_sa = 1.f / sqrtf(at);
     const float sa_prev = sqrtf(ap), c_prev = sqrtf(1.f - ap);
-    for (int i = threadIdx.x; i < D; i += NT) {
-      float e = m.e[i];
-      if (cfg) e = e + guidance * (m.e[D + i] - e);
+    for (int i = threadIdx.x; i < spc * D; i += NT) {
+      const int li = i / D, c = i - li * D;
+      const float* eu = m.e + li * H * D + c;
+      float e = eu[0];
+      if (cfg) e = e + guidance * (eu[D] - e);
       const float x0 = (m.z[i] - c_eps * e) * inv_sa;
       m.z[i] = sa_prev * x0 + c_prev * e;
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < D; i += NT) z_out[(size_t)s * D + i] = m.z[i];
+  if (blockIdx.x % CLUSTER == 0)  // every CTA of the cluster holds the same z
+    for (int i = threadIdx.x; i < spc * D; i += NT) {
+      const int s = s0 + i / D;
+      if (s < B) z_out[(size_t)s * D + i % D] = m.z[i];
+    }
 }
+
+// The shapes the kernel takes: both product widths split over the cluster.
+bool takes(int NC, int FF, int L, int B) {
+  return splits(D) && splits(FF) && FF <= D && L % 2 == 1 && NC >= 1 && NC <= MAX_NC && B >= 1;
+}
+
+// The launch for B samples of NC condition tokens (cfg: two halves each):
+// samples a cluster so that all clusters fit on the card at once, within
+// MAX_ROWS token rows and MAX_SPC samples.
+struct Plan {
+  int spc;
+  size_t smem;
+  cudaError_t err;
+  Plan(int B, int NC, int FF, int L, int cfg) {
+    const int H = cfg ? 2 : 1, S = NC + 2;
+    const int most = std::max(1, std::min(MAX_SPC, MAX_ROWS / (H * S)));
+    int fit = 0;
+    err = ClusterLaunch(1, smem_floats(most, H, S, FF, L) * sizeof(float), nullptr)
+              .active(&ddim_tok_t1_kernel, &fit);
+    spc = samples_per_cluster(B, fit, most);
+    smem = smem_floats(spc, H, S, FF, L) * sizeof(float);
+  }
+  int clusters(int B) const { return (B + spc - 1) / spc; }
+};
 
 }  // namespace
 
@@ -191,18 +255,25 @@ extern "C" int ddim_tok_t1(const float* z0, float* z_out, const float* cond_in,
                            const float* time_in, const void* wptr, const float* acp_t,
                            const float* acp_prev, int B, int NC, int FF, int L, int steps,
                            float guidance, int cfg, void* stream) {
-  if (FF % 4 != 0 || FF / 4 > NT || NT % (FF / 4) != 0 || FF > 2 * D) return cudaErrorInvalidValue;
-  if (L % 2 != 1 || NC < 1 || NC > MAX_NC || B < 1 || steps < 1) return cudaErrorInvalidValue;
-  const int nb = (L - 1) / 2, S = NC + 2, R = (cfg ? 2 : 1) * S;
-  const int HW = std::max(FF, 2 * D);
-  const int lg = (R * S + 3) / 4 * 4;
-  const size_t smem =
-      (size_t)(4 * NT * RC + 3 * D + 3 * R * D + R * HW + nb * R * D + lg) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ddim_tok_t1_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!takes(NC, FF, L, B) || steps < 1) return cudaErrorInvalidValue;
+  const Plan plan(B, NC, FF, L, cfg);
+  if (plan.err != cudaSuccess) return plan.err;
+  const ClusterLaunch launch(plan.clusters(B), plan.smem, stream);
+  cudaError_t err = launch.setup(&ddim_tok_t1_kernel);
   if (err != cudaSuccess) return err;
-  ddim_tok_t1_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      z0, z_out, cond_in, time_in, static_cast<const float* const*>(wptr), acp_t, acp_prev, B,
-      NC, FF, L, steps, guidance, cfg);
+  err = cudaLaunchKernelEx(&launch.config, &ddim_tok_t1_kernel, z0, z_out, cond_in, time_in,
+                           static_cast<const float* const*>(wptr), acp_t, acp_prev, B, NC, FF,
+                           L, steps, guidance, cfg, plan.spc);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The launch `ddim_tok_t1` makes for these arguments, without launching:
+// info[4] = CTAs per cluster, CTAs in the grid, clusters that fit at once,
+// dynamic shared memory bytes per CTA.
+extern "C" int ddim_tok_t1_info(int B, int NC, int FF, int L, int cfg, int* info) {
+  if (!takes(NC, FF, L, B)) return cudaErrorInvalidValue;
+  const Plan plan(B, NC, FF, L, cfg);
+  if (plan.err != cudaSuccess) return plan.err;
+  return ClusterLaunch(plan.clusters(B), plan.smem, nullptr).describe(&ddim_tok_t1_kernel, info);
 }

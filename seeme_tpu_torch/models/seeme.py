@@ -160,6 +160,9 @@ class SeeMeSystem(nn.Module):
             tokens.append(mu)
         if self.use_scene:
             tokens.append(self.encode_scene(batch["scene"]))
+        if not tokens:  # an empty condition set: one zero token, as the JAX package
+            feats = batch["feats"]
+            tokens.append(feats.new_zeros(feats.shape[0], 1, self.cfg.latent_dim[-1]))
         return torch.cat(tokens, dim=1)
 
     @torch.no_grad()

@@ -37,6 +37,8 @@ SIGNATURES = {
     "pointnet_split_block": [_P] * 8 + [_I] * 3 + [_P],
     "ddim_md_t1": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
     "ddim_tok_t1": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "ddim_md_t1_info": [_I] * 7 + [_P],
+    "ddim_tok_t1_info": [_I] * 5 + [_P],
 }
 BUILD_TIMEOUT = 600  # seconds for the compiles together, and again for the link
 
@@ -87,15 +89,20 @@ def load_library() -> ctypes.CDLL:
             t0 = time.perf_counter()
             build_log = _build(path)
             build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.seeme_error_string.argtypes = [ctypes.c_int]
-        lib.seeme_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        _lib = open_library(path)
+        return _lib
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its launchers' C signatures."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.seeme_error_string.argtypes = [ctypes.c_int]
+    lib.seeme_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _build(path: Path) -> str:

@@ -12,7 +12,9 @@
 * `ddim_fused` and `ddim_fused_grid` (md_trans=True) launch
   `csrc/ddim_md.cu`; `ddim_fused_tok` (md_trans=False) launches
   `csrc/ddim_tok.cu`. Each runs all steps, all layers, the CFG mix and the
-  DDIM update in one kernel, after the per-window precompute
+  DDIM update in one kernel launched as clusters of `CLUSTER_CTAS` CTAs that
+  split every weight matrix by columns (`csrc/ddim_common.cuh`; a width
+  that does not split is refused), after the per-window precompute
   (`_window_precompute`: condition projection and every step's time token,
   plus `md_step_invariants` for the MD stack) in PyTorch, as the JAX
   package's `ddim_fused_grid` does in XLA. The TPU's grid variant differs
@@ -25,6 +27,7 @@ GELU is the exact erf form throughout, as in the flax `Denoiser`.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, List
 
@@ -312,6 +315,38 @@ def _check_call(name: str, sd: StateDict, cond: torch.Tensor, z_init: torch.Tens
     return weights
 
 
+CLUSTER_CTAS = 8  # CTAs per cluster of both DDIM kernels (CLUSTER in csrc/ddim_common.cuh)
+
+
+def _check_split(name: str, n: int) -> None:
+    """Raise unless width n splits over the cluster as the kernels need
+    (`splits` in csrc/ddim_common.cuh): as an output, n / CLUSTER_CTAS
+    columns a CTA in whole float4 quads whose count divides a warp; as the
+    next product's depth, whole blocks of 4 rows for each of up to 16 warps."""
+    quads = n // (4 * CLUSTER_CTAS)
+    if n <= 0 or n % 64 or 32 % quads:
+        raise ValueError(f"{name}: width {n} does not split into {CLUSTER_CTAS} column "
+                         f"slices of whole float4 quads")
+
+
+def cluster_launch(md_trans: bool, batch: int, n_cond: int, weights: KernelWeights,
+                   guidance_scale: float) -> Dict[str, int]:
+    """The cluster launch `ddim_fused` (md_trans) or `ddim_fused_tok` makes
+    for these shapes, asked of the CUDA runtime without launching: CTAs per
+    cluster, CTAs in the grid, clusters that fit on the card at once, and
+    dynamic shared memory bytes per CTA."""
+    info = (ctypes.c_int * 4)()
+    lib = _build.load_library()
+    cfg = int(guidance_scale > 1.0)
+    if md_trans:
+        err = lib.ddim_md_t1_info(batch, n_cond, weights.d_model, weights.sa_ff, weights.ff,
+                                  weights.num_layers, cfg, info)
+    else:
+        err = lib.ddim_tok_t1_info(batch, n_cond, weights.ff, weights.num_layers, cfg, info)
+    _build.check(err, "ddim_md_t1_info" if md_trans else "ddim_tok_t1_info")
+    return dict(zip(("cluster", "grid", "active_clusters", "smem_bytes"), info))
+
+
 def _launch_ddim_md(wrapper, sd, cond, z_init, schedule, num_steps, num_layers,
                     guidance_scale, weights):
     """Run `csrc/ddim_md.cu` (MD stack, T=1) after the per-window precompute,
@@ -320,9 +355,10 @@ def _launch_ddim_md(wrapper, sd, cond, z_init, schedule, num_steps, num_layers,
     weights = _check_call(name, sd, cond, z_init, num_layers, guidance_scale, weights, True)
     dev = z_init.device
     B, _, D = z_init.shape
-    for n in (D, weights.sa_ff, weights.ff):
-        if n < 4 or n % 4 or 512 % (n // 4):
-            raise ValueError(f"{name}: width {n} is not supported by the kernel")
+    if D != 256:
+        raise ValueError(f"{name}: latent width {D} is not 256")
+    for n in (weights.sa_ff, weights.ff):
+        _check_split(name, n)
     timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
     with torch.no_grad():
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
@@ -405,8 +441,9 @@ def ddim_fused_tok(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
     if not 1 <= NC <= TOK_MAX_COND:
         raise ValueError(f"ddim_fused_tok: {NC} condition tokens; the kernel takes 1 to "
                          f"{TOK_MAX_COND}")
-    if weights.ff < 4 or weights.ff % 4 or 512 % (weights.ff // 4) or weights.ff > 2 * D:
-        raise ValueError(f"ddim_fused_tok: feed-forward width {weights.ff} is not supported")
+    _check_split("ddim_fused_tok", weights.ff)
+    if weights.ff > D:
+        raise ValueError(f"ddim_fused_tok: feed-forward width {weights.ff} is over {D}")
     timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
     with torch.no_grad():
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)

@@ -3,9 +3,12 @@
 Marked `gpu`: each test needs an NVIDIA card with nvcc and skips without
 one (a CUDA kernel has no interpret mode). Run on the card with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Shapes are small but
-exercise the kernels' edges: a ragged last point tile at two point counts,
-a batch that leaves the last DDIM CTA partly empty, the CFG path, and the
-token kernel at 1, 3 and 8 condition tokens (up to 20 token rows a CTA).
+exercise the kernels' edges: a ragged last point tile at two point counts;
+for both DDIM kernels, batches that fill their last cluster of 4 samples
+partly or not at all (1, 3, 5, 17, 64), with and without CFG; the token
+kernel at 1, 3 and 8 condition tokens (up to 20 token rows a cluster) and at
+the action-to-motion shape (text width 256, no emb_proj); and widths that do
+not split into the cluster's column slices.
 """
 
 import pytest
@@ -59,7 +62,11 @@ def test_pointnet_blocks(cuda, points):
     assert pfu.fused_split_block.launches == n_split + 4
 
 
-@pytest.mark.parametrize("batch,guidance", [(5, 1.0), (3, 2.5)])
+BATCHES = [1, 3, 5, 17, 64]  # the last cluster of 4 samples partly filled or full
+
+
+@pytest.mark.parametrize("guidance", [1.0, 2.5])
+@pytest.mark.parametrize("batch", BATCHES)
 def test_ddim_kernel(cuda, batch, guidance):
     den = seeded(Denoiser((1, 256), ff_size=128, num_layers=5), 3, cuda)
     sd = den.state_dict()
@@ -78,20 +85,41 @@ def test_ddim_kernel(cuda, batch, guidance):
     assert torch.equal(grid, z)  # the same CUDA kernel on the same inputs
 
 
-def t2m_denoiser(device):
+def test_cluster_launch(cuda):
+    """Both DDIM kernels launch as clusters of 8 CTAs, and carry enough
+    samples a cluster that a batch of 17 runs in one wave of the clusters
+    that fit on the card at once."""
+    md = dfu.KernelWeights(seeded(Denoiser((1, 256), ff_size=128, num_layers=5), 3,
+                                  cuda).state_dict(), 5)
+    tok = dfu.KernelWeights(t2m_denoiser(cuda), 5, md_trans=False)
+    for md_trans, w, n_cond, guidance in ((True, md, 2, 1.0), (True, md, 2, 2.5),
+                                          (False, tok, 1, 1.0), (False, tok, 1, 7.5)):
+        info = dfu.cluster_launch(md_trans, 17, n_cond, w, guidance)
+        clusters = info["grid"] // info["cluster"]
+        assert info["cluster"] == dfu.CLUSTER_CTAS == 8 and info["grid"] % 8 == 0
+        assert 1 <= clusters <= info["active_clusters"] and info["smem_bytes"] <= 227 * 1024
+
+
+def t2m_denoiser(device, text_dim=768):
     """The text-to-motion denoiser at full width: latent 256, ff 128, 5
-    layers, text width 768 (emb_proj)."""
-    den = Denoiser((1, 256), ff_size=128, num_layers=5, text_encoded_dim=768, md_trans=False)
-    return seeded(den, 6, device).state_dict()
+    layers, text width 768 (emb_proj); at text width 256 there is no
+    emb_proj, the action-to-motion shape."""
+    den = Denoiser((1, 256), ff_size=128, num_layers=5, text_encoded_dim=text_dim,
+                   md_trans=False)
+    sd = seeded(den, 6, device).state_dict()
+    assert ("emb_proj.1.weight" in sd) == (text_dim != 256)
+    return sd
 
 
-@pytest.mark.parametrize("n_cond,guidance", [(1, 1.0), (1, 7.5), (3, 1.0), (3, 7.5), (8, 7.5)])
-def test_ddim_tok_kernel(cuda, n_cond, guidance):
-    sd = t2m_denoiser(cuda)
-    batch = 5
+@pytest.mark.parametrize("n_cond,guidance,batch,text_dim",
+                         [(1, g, b, 768) for g in (1.0, 7.5) for b in BATCHES]
+                         + [(3, 1.0, 5, 768), (3, 7.5, 5, 768), (8, 7.5, 5, 768), (8, 1.0, 3, 768)]
+                         + [(1, g, b, 256) for g in (1.0, 7.5) for b in (3, 64)])
+def test_ddim_tok_kernel(cuda, n_cond, guidance, batch, text_dim):
+    sd = t2m_denoiser(cuda, text_dim)
     g = torch.Generator().manual_seed(7)
     z0 = torch.randn(batch, 1, 256, generator=g).to(cuda)
-    cond = torch.randn((2 if guidance > 1 else 1) * batch, n_cond, 768, generator=g).to(cuda)
+    cond = torch.randn((2 if guidance > 1 else 1) * batch, n_cond, text_dim, generator=g).to(cuda)
     if guidance > 1:
         cond[:batch] = 0.0  # the uncond half, as T2MSystem.sample builds it
     sched = (DiffusionSchedule(), 10)
@@ -128,3 +156,15 @@ def test_kernel_wrappers_refuse_bad_input(cuda):
         pfu.fused_input_block(pts.double(), *args)
     with pytest.raises(ValueError, match="contiguous float32"):
         pfu.fused_input_block(pts.transpose(0, 1).contiguous().transpose(0, 1), *args)
+    # feed-forward width 96: 12 columns a CTA, 3 float4 quads, which do not divide a warp
+    sched = (DiffusionSchedule(), 4)
+    z0 = torch.randn(2, 1, 256, device=cuda)
+    md = seeded(Denoiser((1, 256), ff_size=96, num_layers=3), 8, cuda).state_dict()
+    tok = seeded(Denoiser((1, 256), ff_size=96, num_layers=3, md_trans=False), 9,
+                 cuda).state_dict()
+    before = dfu.ddim_fused.launches, dfu.ddim_fused_grid.launches, dfu.ddim_fused_tok.launches
+    for fn, sd in ((dfu.ddim_fused, md), (dfu.ddim_fused_grid, md), (dfu.ddim_fused_tok, tok)):
+        with pytest.raises(ValueError, match="width 96 does not split"):
+            fn(sd, torch.randn(2, 1, 256, device=cuda), z0, *sched, num_layers=3)
+    assert before == (dfu.ddim_fused.launches, dfu.ddim_fused_grid.launches,
+                      dfu.ddim_fused_tok.launches)

@@ -175,6 +175,32 @@ def test_ddim_fused_plain_matches_exact_jax_path(denoiser_pair, guidance):
                                    num_layers=3, guidance_scale=guidance).numpy())
 
 
+@pytest.mark.parametrize("width,splits", [(64, True), (128, True), (256, True), (1024, True),
+                                          (32, False), (96, False), (100, False), (2048, False)])
+def test_cluster_column_split(width, splits):
+    """Both DDIM kernels split each product's output width over 8 CTAs in
+    whole float4 quads whose count divides a warp, and its depth over 16
+    warps in blocks of 4 rows (`splits` in csrc/ddim_common.cuh); the
+    wrappers refuse any other width."""
+    if splits:
+        dfu._check_split("ddim", width)
+    else:
+        with pytest.raises(ValueError, match=f"width {width} does not split"):
+            dfu._check_split("ddim", width)
+
+
+def test_ddim_profile_instruments_both_kernels():
+    """`ops/ddim_profile.py` finds every anchor it patches in the current DDIM
+    sources (it raises when one is missing), so its counters stay in step
+    with the kernels."""
+    from seeme_tpu_torch.ops import ddim_profile
+
+    src = ddim_profile.instrumented_sources()
+    assert "g_prof" in src["ddim_common.cuh"]
+    assert all(f"PROF_ADD({i}," in src["ddim_common.cuh"] for i in range(6))
+    assert all("PROF_ADD(6, k1 - k0)" in src[k] for k in ("ddim_md.cu", "ddim_tok.cu"))
+
+
 def test_kernel_weights_layout(denoiser_pair):
     """The pointer table's order is the enum of csrc/ddim_md.cu: 32 operands
     per MD layer, (in, out) matrices, then skip_linears, final norm, pe row."""

@@ -35,28 +35,31 @@ SMALL = dict(latent_dim=(1, W), ff_size=16, num_layers=3, num_inference_timestep
              scene_points=POINTS, scene_feat_dim=W)
 
 
-def build(guidance):
+def build(guidance, condition=("interactee", "scene")):
     data = SyntheticEgoDataset(B, 60, scene_points=POINTS, seed=0)
-    system = SeeMeSystem(SeeMeConfig(guidance_scale=guidance, **SMALL),
+    system = SeeMeSystem(SeeMeConfig(guidance_scale=guidance, condition=condition, **SMALL),
                          synthetic_smpl(256), data.mean, data.std, device="cpu", seed=1)
     perturb_parameters_(system, torch.Generator().manual_seed(2))
-    jsystem = JSystem(JConfig(guidance_scale=guidance, **SMALL), j_synthetic_smpl(256),
-                      data.mean, data.std)
+    jsystem = JSystem(JConfig(guidance_scale=guidance, condition=condition, **SMALL),
+                      j_synthetic_smpl(256), data.mean, data.std)
     params = jax.tree.map(jnp.asarray, convert_mld_checkpoint(
         {k: v.numpy() for k, v in system.state_dict().items()}))
     return data, system, jsystem, params
 
 
 @pytest.mark.parametrize("guidance", [1.0, 2.5])
-def test_slice_matches_jax_composition(guidance):
-    data, system, jsystem, params = build(guidance)
+@pytest.mark.parametrize("condition", [(), ("interactee",), ("scene",), ("interactee", "scene")],
+                         ids=["none", "interactee", "scene", "both"])
+def test_slice_matches_jax_composition(guidance, condition):
+    """Each condition set; an empty one gives the JAX package's one zero token."""
+    data, system, jsystem, params = build(guidance, condition)
     nb = data.batch(0, B)
     tb, jb = to_torch(nb, "cpu"), {k: jnp.asarray(v) for k, v in nb.items()}
     z0 = np.random.RandomState(3).randn(B, 1, W).astype(np.float32)
 
     cond = system.encode_conditioning(tb)
     jcond = jax.jit(jsystem.encode_conditioning)(params, jb)
-    assert cond.shape == ((2 if guidance > 1 else 1) * B, 2, W)
+    assert cond.shape == ((2 if guidance > 1 else 1) * B, max(len(condition), 1), W)
     np.testing.assert_allclose(cond.numpy(), np.asarray(jcond), atol=1e-4)
 
     feats = system.sample_from_cond(cond, z_init=torch.as_tensor(z0))
