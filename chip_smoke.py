@@ -29,7 +29,31 @@ Phases, each printing one line with its seconds as soon as it ends:
      text embeddings -> `T2MSystem.sample` -> `feats_to_joints` ->
      `MRMetrics`, counted the same way (expected: token kernel 1, nothing
      else); then the same weights on the CPU's plain path at B=2, with the
-     joints' gap split into the RIC recovery's own and the features' carried.
+     joints' gap split into the RIC recovery's own and the features' carried;
+  6. training stage 1 (`vae_egobody`, full width, B=64) through the CLI's
+     `main` for 2 epochs of the synthetic 256-sample split into a temporary
+     directory: losses finite, the last epoch's mean below the first's, ms
+     per step (CUDA events, after one warm-up step), peak memory, no kernel
+     launched;
+  7. training stage 2 (`mld_egobody`) set up as `main` sets it up, with the
+     stage-1 checkpoint as its pretrained VAE: the frozen scene-feature cache
+     (expected: input block 5, split block 3 x 5, over 256 + 64 samples in
+     chunks of 64), then 2 epochs and a validation (expected: no launch);
+     `vae.*` and `proscene.*` bitwise as loaded, the denoiser and
+     `output_scene.1.*` changed, the val loss with fixed draws and dropout
+     off lower after training than before; ms per step, peak memory, the
+     cache fill's time and the PointNet kernels' device time inside it
+     (`torch.profiler`, on a second fill that is not counted);
+  8. 2 stage-2 steps at guidance 2.5 (no cache; expected per step: input
+     block 1, split block 3);
+  9. `sample_from_cond` on the trained stage-2 weights (expected: DDIM 1),
+     the kernel within 1e-3 of max|z| of its plain version on the same
+     updated weights, which shows the kernel-layout copies followed AdamW's
+     in-place update;
+ 10. one step of each stage at the CPU tests' small size (d=32, 3 layers, 64
+     points, B=3, dropout 0) on the card and on the CPU with the same draws:
+     loss within 1e-4 relative, every gradient within 1e-3 of its tensor's
+     max |g|, the updated parameters alike; TF32 must be off.
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, `{"ok": true, "device": {...}}`. Any failed check exits non-zero
 at once. Random weights: the seeded init plus a seeded perturbation, so the
@@ -42,8 +66,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH = 64
@@ -53,6 +79,10 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 POINTNET_RTOL = 1e-4     # max |kernel - plain| / max |plain|
 DDIM_RTOL = 1e-3         # max |kernel - plain| / max |z|
 SLICE_RTOL = 1e-3        # card slice vs CPU slice (or grid vs loop), relative to max |features|
+TRAIN_LOSS_RTOL = 1e-4   # one train step's loss, card vs CPU
+TRAIN_GRAD_RTOL = 1e-3   # its gradients, card vs CPU, relative to each tensor's max |g|
+GRAD_FLOOR = 1e-8        # absolute bound for a gradient that is zero but for f32 rounding
+TRAIN_LR = 1e-3          # the card-vs-CPU step's learning rate
 
 _t0 = time.perf_counter()
 
@@ -440,9 +470,15 @@ def main() -> int:
           f"{carried / scale:.3e} (relative to {scale:.4g})", flush=True)
     phase("t2m reference: card path agrees with the CPU plain path (B=2)", t)
 
+    del system, t2m, cpu_t2m, t2m_batch, batch
+    torch.cuda.empty_cache()
+    by_path = train_phases(dev, counted, counters)
+
     for k in kernels:
         flops, nbytes = k.pop("flops"), k.pop("bytes")
         k["launches"] = launches[k["name"]]
+        if k["name"] in by_path:  # each training phase's own count, beside the sampling path's
+            k["launches_by_path"] = by_path[k["name"]]
         k["bound_ms"] = bound_ms(flops, nbytes)
         k["bound_by"] = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         k["library_ms"] = None  # no single PyTorch call computes any of these functions
@@ -451,6 +487,284 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def train_phases(dev, counted, counters) -> dict:
+    """Phases 6-10: the EgoBody main path's two training stages on the card.
+    Returns each kernel's launches in each training phase."""
+    import torch
+
+    from seeme_tpu_torch.core.smpl import synthetic_smpl
+    from seeme_tpu_torch.data.batch import eval_batches
+    from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
+    from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.train.__main__ import Trainer, main, parse_args
+    from seeme_tpu_torch.train.loop import train_step, validate
+    from seeme_tpu_torch.train.state import make_optimizer, set_stage
+
+    none = {k: 0 for k in counters}
+    by_path = {"pointnet_input_block": {}, "pointnet_split_block": {}, "ddim_md_t1": {}}
+
+    def record(path, counts):
+        for k in by_path:
+            by_path[k][path] = counts[k]
+
+    def step_summary(trainer):
+        losses = [s["total"] for r in trainer.history for s in r["steps"]]
+        ms = sorted(m for r in trainer.history for m in r["step_ms"][int(r is trainer.history[0]):])
+        require(all(math.isfinite(v) for v in losses), f"losses not finite: {losses}")
+        return losses, ms
+
+    def fixed_eval_loss(trainer):
+        """The val loss with dropout off and the validation's fixed draws."""
+        set_stage(trainer.system, None)
+        out = validate(trainer.system, trainer.stage,
+                       eval_batches(trainer.datamodule, "val", trainer.batch_size))["total"]
+        set_stage(trainer.system, trainer.stage)
+        return out
+
+    work = tempfile.mkdtemp(prefix="seeme_train_")
+    try:
+        # ---- 6. stage 1
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        s1, counts = counted(lambda: main(["--preset", "vae_egobody", "--epochs", "2",
+                                           "--out", os.path.join(work, "s1")]))
+        peak = torch.cuda.max_memory_allocated()
+        require(counts == none, f"stage 1 launch counts {counts}")
+        losses, ms = step_summary(s1)
+        first, last = s1.history[0]["means"]["total"], s1.history[-1]["means"]["total"]
+        require(len(losses) == 8, f"stage 1 took {len(losses)} steps")
+        require(last < first, f"stage 1 epoch losses {first} -> {last} did not fall")
+        phase(f"train stage 1 (vae_egobody, B={s1.batch_size}): {len(losses)} steps, losses "
+              f"{[round(v, 5) for v in losses]}, epoch means {first:.5f} -> {last:.5f}, "
+              f"{ms[len(ms) // 2]:.3f} ms a step (median of {len(ms)}, min {ms[0]:.3f}, max "
+              f"{ms[-1]:.3f}), peak memory {peak} B, launches {counts}", t)
+
+        # ---- 7. stage 2: set-up, cache fill, epochs, validation
+        t = time.perf_counter()
+        argv = ["--preset", "mld_egobody", "--epochs", "2", "--out", os.path.join(work, "s2"),
+                "--pretrained_vae", s1.checkpoints[-1], "train.val_every_steps=2"]
+        s2 = Trainer(parse_args(argv))
+        sd1 = s1.system.state_dict()
+        loaded = {k: v.clone() for k, v in s2.system.state_dict().items()}
+        require(all(torch.equal(loaded[k], v) for k, v in sd1.items() if k.startswith("vae.")),
+                "stage 2 did not load the stage-1 VAE")
+        s2.system.kernel_operands()  # DDIM copies of the untrained denoiser, to be outdated
+        torch.cuda.reset_peak_memory_stats()
+        fill_s, counts = counted(s2.fill_feature_cache)
+        expected = {**none, "pointnet_input_block": 5, "pointnet_split_block": 15}
+        require(counts == expected, f"cache fill launch counts {counts}")
+        record("train_stage2_cache_fill", counts)
+        val_before = fixed_eval_loss(s2)
+        _, counts = counted(s2.fit)
+        peak = torch.cuda.max_memory_allocated()
+        require(counts == none, f"stage 2 epochs launch counts {counts}")
+        record("train_stage2_cached_steps", counts)
+        losses, ms = step_summary(s2)
+        require(len(losses) == 8 and "val" in s2.history[-1], "stage 2 steps or validation")
+        val_after = fixed_eval_loss(s2)
+        require(val_after < val_before, f"stage 2 fixed-draw val loss {val_before} -> {val_after}")
+        after = s2.system.state_dict()
+        for k, v in after.items():
+            if k.startswith(("vae.", "proscene.")):
+                require(torch.equal(v, loaded[k]), f"frozen {k} changed")
+            elif k.startswith("output_scene.1."):
+                require(not torch.equal(v, loaded[k]), f"trainable {k} did not change")
+        require(any(not torch.equal(v, loaded[k]) for k, v in after.items()
+                    if k.startswith("denoiser.")), "the denoiser did not change")
+        first, last = s2.history[0]["means"]["total"], s2.history[-1]["means"]["total"]
+        phase(f"train stage 2 (mld_egobody, B={s2.batch_size}): cache fill {fill_s:.3f} s, "
+              f"launches {expected}; {len(losses)} steps, losses {[round(v, 5) for v in losses]}, "
+              f"epoch means {first:.5f} -> {last:.5f}, val {s2.history[-1]['val']['total']:.5f}, "
+              f"fixed-draw val {val_before:.5f} -> {val_after:.5f}, {ms[len(ms) // 2]:.3f} ms a "
+              f"step (median of {len(ms)}, min {ms[0]:.3f}, max {ms[-1]:.3f}), peak memory "
+              f"{peak} B", t)
+
+        t = time.perf_counter()
+        for name, trainer in (("stage 1", s1), ("stage 2", s2)):
+            busy, wall, events = device_busy(trainer, 3)
+            print(f"    {name}: device busy {busy:.3f} of {wall:.3f} ms over 3 more steps "
+                  f"(torch.profiler on, {events} device kernels and copies): idle share "
+                  f"{1 - busy / wall:.3f}", flush=True)
+        phase("training steps' device idle share (extra steps after the checks, not counted)", t)
+
+        t = time.perf_counter()
+        kernel_ms = profile_fill(s2)
+        phase(f"cache fill, PointNet kernels' device time (torch.profiler, second fill): "
+              f"{json.dumps(kernel_ms)}", t)
+
+        # ---- 8. CFG training at guidance 2.5 (no cache)
+        t = time.perf_counter()
+        cfg_run = Trainer(parse_args(["--preset", "mld_egobody", "--out",
+                                      os.path.join(work, "s2_cfg"), "--pretrained_vae",
+                                      s1.checkpoints[-1], "model.guidance_scale=2.5"]))
+        require(cfg_run.fill_feature_cache() is None, "the cache filled at guidance 2.5")
+        batches = cfg_run.train_batches(0)
+        for i in range(2):
+            b = to_torch(next(batches), dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            terms, counts = counted(lambda: train_step(
+                cfg_run.system, "diffusion", cfg_run.optimizer, cfg_run.schedule, i, b,
+                cfg_run.generator))
+            end.record()
+            end.synchronize()
+            require(counts == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3},
+                    f"guidance 2.5 step launch counts {counts}")
+            require(math.isfinite(terms["total"]), f"guidance 2.5 loss {terms}")
+            phase(f"train stage 2 at guidance 2.5, step {i}: loss {terms['total']:.5f}, "
+                  f"{start.elapsed_time(end):.3f} ms, launches {counts}", t)
+            t = time.perf_counter()
+        record("train_stage2_cfg_step", counts)
+        del cfg_run, batches, b
+
+        # ---- 9. sampling on the trained weights
+        t = time.perf_counter()
+        system = s2.system
+        set_stage(system, None)
+        vb = to_torch(next(s2.datamodule.batches("val", s2.batch_size, shuffle=False)), dev)
+        cond = system.encode_conditioning(vb)
+        z0 = torch.randn(cond.shape[0], 1, system.cfg.latent_dim[-1],
+                         generator=torch.Generator().manual_seed(SEED + 11)).to(dev)
+        feats, counts = counted(lambda: system.sample_from_cond(cond, z_init=z0))
+        require(counts == {**none, "ddim_md_t1": 1}, f"sampling launch counts {counts}")
+        record("sample_after_training", counts)
+        sd, weights, _ = system.kernel_operands()
+        args = (sd, cond, z0, system.schedule, system.cfg.num_inference_timesteps,
+                system.cfg.num_layers, system.cfg.guidance_scale)
+        z_p = dfu.ddim_fused_plain(*args)
+        compare("ddim_fused on the trained weights", dfu.ddim_fused(*args, weights=weights), z_p,
+                float(z_p.abs().max()), DDIM_RTOL)
+        plain_feats = system.vae.decode(z_p, system.cfg.motion_length)
+        compare("sampled features on the trained weights", feats, plain_feats,
+                float(plain_feats.abs().max()), SLICE_RTOL)
+        phase(f"sampling after training (B={cond.shape[0]}): launches {counts}", t)
+        del s1, s2, system
+        torch.cuda.empty_cache()
+
+        # ---- 10. one step of each stage, card vs CPU
+        t = time.perf_counter()
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        print(f"    torch.backends.cuda.matmul.allow_tf32={flags[0]}, "
+              f"torch.backends.cudnn.allow_tf32={flags[1]}", flush=True)
+        require(flags == (False, False), "TF32 is on; the card-vs-CPU step needs f32 products")
+        small = dict(latent_dim=(1, 32), ff_size=16, num_layers=3, scene_points=64,
+                     scene_feat_dim=32, dropout=0.0)
+        for stage, condition in (("vae", ()), ("diffusion", ("interactee", "scene"))):
+            data = SyntheticEgoDataset(3, 60, scene_points=64, with_scene=bool(condition),
+                                       seed=SEED)
+            runs = {}
+            for device in ("cpu", dev):
+                s = SeeMeSystem(SeeMeConfig(condition=condition, **small),
+                                synthetic_smpl(256, seed=SEED), data.mean, data.std,
+                                device=device, seed=SEED)
+                perturb_parameters_(s, torch.Generator().manual_seed(SEED + 12))
+                runs[str(device)] = (s, *make_optimizer(stage, s, lr=TRAIN_LR))
+            cpu_batch = to_torch(data.batch(0, 3), "cpu")
+            draws = runs["cpu"][0].loss_draws(stage, cpu_batch,
+                                              torch.Generator().manual_seed(SEED + 13))
+            out = {}
+            for device, (s, opt, sched) in runs.items():
+                on = {k: v.to(device) for k, v in cpu_batch.items()}
+                terms = train_step(s, stage, opt, sched, 0, on,
+                                   draws={k: v.to(device) for k, v in draws.items()})
+                out[device] = terms["total"]
+            compare_step(stage, runs["cpu"][0], runs[str(dev)][0], out["cpu"], out[str(dev)],
+                         TRAIN_LR)
+        phase("card vs CPU: one step of each stage at the small size agrees", t)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return by_path
+
+
+def compare_step(stage, cpu, card, loss_cpu, loss_card, lr: float) -> None:
+    """One train step's loss, gradients and updated parameters, card vs CPU.
+    A first AdamW step moves each element by lr * g / (|g| + eps), about
+    lr * sign(g), so the updated parameters are compared where the
+    gradient's sign is settled (|g| above 1e-6 and above 10 times its card
+    vs CPU gap), within 2e-6; elsewhere only Adam's own bound of 2 lr holds."""
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"    {stage}: loss card {loss_card:.7f}, CPU {loss_cpu:.7f}, relative {rel:.3e} "
+          f"(tolerance {TRAIN_LOSS_RTOL:.0e})", flush=True)
+    require(rel <= TRAIN_LOSS_RTOL, f"{stage}: the loss differs card vs CPU")
+    worst_grad = worst_param = 0.0
+    settled = total = floored = 0
+    card_params = dict(card.named_parameters())
+    for name, p in cpu.named_parameters():
+        q = card_params[name]
+        if p.grad is None:
+            require(q.grad is None, f"{stage}: {name} has a gradient on the card only")
+            continue
+        g, gap = p.grad, (p.grad - q.grad.cpu()).abs()
+        scale = float(g.abs().max())
+        require(float(gap.max()) <= max(TRAIN_GRAD_RTOL * scale, GRAD_FLOOR),
+                f"{stage}: {name} gradient differs card vs CPU by {float(gap.max()):.3e} "
+                f"of {scale:.3e}")
+        if TRAIN_GRAD_RTOL * scale >= GRAD_FLOOR:
+            worst_grad = max(worst_grad, float(gap.max()) / scale)
+        else:
+            floored += 1
+        d = (p.detach() - q.detach().cpu()).abs()
+        firm = (g.abs() > 1e-6) & (g.abs() > 10 * gap)
+        require(bool((d[firm] <= 2e-6).all()) and bool((d <= 2 * lr + 2e-6).all()),
+                f"{stage}: updated {name} differs card vs CPU by {float(d.max()):.3e}")
+        worst_param = max(worst_param, float(d[firm].max()) if bool(firm.any()) else 0.0)
+        settled, total = settled + int(firm.sum()), total + firm.numel()
+    print(f"    {stage}: worst gradient gap {worst_grad:.3e} of its tensor's max |g| "
+          f"(tolerance {TRAIN_GRAD_RTOL:.0e}; {floored} tensors with max |g| under "
+          f"{GRAD_FLOOR / TRAIN_GRAD_RTOL:.0e} held to {GRAD_FLOOR:.0e} instead); worst updated-parameter gap {worst_param:.3e} "
+          f"(tolerance 2e-6) over the {settled} of {total} elements whose gradient sign is "
+          f"settled", flush=True)
+
+
+def device_busy(trainer, steps: int):
+    """(device-busy ms, wall ms, device events) over `steps` more train
+    steps under `torch.profiler`: the union of the device's kernel and copy
+    intervals in the trace, against the host clock around the steps."""
+    import itertools
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from seeme_tpu_torch.train.loop import run_epoch
+
+    batches = itertools.islice(trainer.train_batches(trainer.preset.train.end_epoch), steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step = run_epoch(trainer.system, trainer.stage, trainer.optimizer,
+                                 trainer.schedule, trainer.step, batches, trainer.generator)[0]
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the intervals, in microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, wall, len(spans)
+
+
+def profile_fill(trainer) -> dict:
+    """Device milliseconds of each PointNet kernel over one more cache fill,
+    from `torch.profiler`; 'not measured' when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.fill_feature_cache()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if "block_kernel" in ev.key:  # input_block_kernel<512>, split_block_kernel<512>
+            total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            out[ev.key] = {"ms_total": total / 1e3, "count": ev.count}
+    return out or {"pointnet kernels": "not measured (no device time in the trace)"}
 
 
 def print_launch(info: dict) -> None:

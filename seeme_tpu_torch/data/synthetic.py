@@ -2,22 +2,27 @@
 
 A numpy copy of the JAX package's `SyntheticEgoDataset`: the same seed gives
 the same arrays (smooth pose-space random walks, the interactee correlated
-with the wearer, a Gaussian scene cloud).
+with the wearer, a Gaussian scene cloud when the scene is a condition) and
+the same batches.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
+from .batch import epoch_indices
+
 
 class SyntheticEgoDataset:
     def __init__(self, num_samples: int = 64, motion_length: int = 60, pose_feats: int = 72,
-                 scene_points: int = 1024, seed: int = 0):
+                 scene_points: int = 1024, with_scene: bool = True, seed: int = 0):
         rng = np.random.RandomState(seed)
         T, P = motion_length, pose_feats
+        self.num_samples = num_samples
+        self.with_scene = with_scene
 
         def smooth_walk(shape, scale):
             steps = rng.randn(*shape).astype(np.float32) * scale
@@ -32,18 +37,52 @@ class SyntheticEgoDataset:
         self.betas = np.repeat(rng.randn(num_samples, 2, 1, 10).astype(np.float32) * 0.5,
                                T, axis=2)
         self.cam = np.abs(rng.randn(num_samples, T, 6).astype(np.float32))
-        self.scene = rng.randn(num_samples, scene_points, 3).astype(np.float32)
+        if with_scene:
+            self.scene = rng.randn(num_samples, scene_points, 3).astype(np.float32)
         self.length = np.full((num_samples,), T, np.int32)
+        # per-sample arrays attached by the trainer (the frozen scene
+        # features of the stage-2 cache), sliced into every batch
+        self.extras: Dict[str, np.ndarray] = {}
         flat = np.concatenate([self.feats[:, :, 0, :], self.transl[:, 0]],
                               axis=-1).reshape(-1, P + 3)
         self.mean = flat.mean(0)
         self.std = flat.std(0) + 1e-6
 
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def _rows(self, sel) -> Dict[str, np.ndarray]:
+        batch = {"feats": self.feats[sel], "transl": self.transl[sel], "betas": self.betas[sel],
+                 "cam": self.cam[sel], "length": self.length[sel]}
+        if self.with_scene and "scene_feats" not in self.extras:
+            batch["scene"] = self.scene[sel]  # cached features supersede the raw cloud
+        for k, v in self.extras.items():
+            batch[k] = v[sel]
+        return batch
+
     def batch(self, start: int, batch_size: int) -> Dict[str, np.ndarray]:
         """Samples [start, start + batch_size) in order."""
-        sel = slice(start, start + batch_size)
-        return {"feats": self.feats[sel], "transl": self.transl[sel], "betas": self.betas[sel],
-                "cam": self.cam[sel], "length": self.length[sel], "scene": self.scene[sel]}
+        return self._rows(slice(start, start + batch_size))
+
+    def split_arrays(self) -> Dict[str, np.ndarray]:
+        """All per-sample arrays (row i <-> sample i), attached extras included."""
+        out = {"feats": self.feats, "transl": self.transl, "betas": self.betas, "cam": self.cam,
+               "length": self.length}
+        if self.with_scene:
+            out["scene"] = self.scene
+        out.update(self.extras)
+        return out
+
+    def batch_indices(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                      drop_last: bool = True):
+        return epoch_indices(self.num_samples, batch_size, shuffle=shuffle, seed=seed,
+                             drop_last=drop_last)
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+        for sel in self.batch_indices(batch_size, shuffle=shuffle, seed=seed,
+                                      drop_last=drop_last):
+            yield self._rows(sel)
 
 
 def to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

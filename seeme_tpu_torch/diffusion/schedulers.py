@@ -30,6 +30,20 @@ class DiffusionSchedule:
         object.__setattr__(self, "alphas_cumprod",
                            np.cumprod(1.0 - betas).astype(np.float32))
 
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(acp_t) x0 + sqrt(1 - acp_t) noise, one t per
+        sample (`seeme_tpu/diffusion/schedulers.py:86-95`)."""
+        acp = torch.as_tensor(self.alphas_cumprod, device=x0.device)[timesteps]
+        acp = acp.reshape((x0.shape[0],) + (1,) * (x0.ndim - 1))
+        return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
+
+    def predict_x0(self, model_output: torch.Tensor, t, sample: torch.Tensor) -> torch.Tensor:
+        """x0 from an epsilon prediction at timestep t (an int, or indices
+        that broadcast against sample) (`seeme_tpu/diffusion/schedulers.py:97-110`)."""
+        acp_t = torch.as_tensor(self.alphas_cumprod, device=sample.device)[t]
+        return (sample - torch.sqrt(1.0 - acp_t) * model_output) / torch.sqrt(acp_t)
+
     def ddim_timesteps(self, num_inference_steps: int) -> np.ndarray:
         """Descending inference timesteps, diffusers 'leading' spacing."""
         step_ratio = self.num_train_timesteps // num_inference_steps

@@ -10,6 +10,10 @@ projection, then a U-skip stack over the latent tokens. Two block types, as
     over the token sequence [sample; time; cond], keeping the first
     n_latent outputs. `cond_mask` (B, n_cond), True = valid, excludes
     padded condition tokens as attention keys.
+
+`dropout` reaches every layer and acts in train mode only: the training
+forward is this module; the fused DDIM kernels read its state dict and
+sample without dropout, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ class Denoiser(nn.Module):
     def __init__(self, latent_dim: Sequence[int] = (1, 256), ff_size: int = 128,
                  num_layers: int = 5, num_heads: int = 1, flip_sin_to_cos: bool = True,
                  freq_shift: float = 0.0, text_encoded_dim: int = 256,
-                 position_embedding: str = "learned", md_trans: bool = True):
+                 position_embedding: str = "learned", md_trans: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
         d = self.d_model = latent_dim[-1]
         self.num_layers = num_layers
@@ -42,9 +47,11 @@ class Denoiser(nn.Module):
             self.emb_proj = nn.Sequential(nn.ReLU(), nn.Linear(text_encoded_dim, d))
         self.query_pos = build_position_encoding(d, position_embedding)
         if md_trans:
-            make_layer = lambda: MdTransformerLayer(d, num_heads, ffn_dim=ff_size)  # noqa: E731
+            make_layer = lambda: MdTransformerLayer(  # noqa: E731
+                d, num_heads, ffn_dim=ff_size, dropout=dropout)
         else:
-            make_layer = lambda: TransformerEncoderLayer(d, num_heads, ff_size, "gelu")  # noqa: E731
+            make_layer = lambda: TransformerEncoderLayer(  # noqa: E731
+                d, num_heads, ff_size, "gelu", dropout)
         self.encoder = SkipTransformerEncoder(make_layer, num_layers, d)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor, cond: torch.Tensor,

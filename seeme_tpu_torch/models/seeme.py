@@ -1,4 +1,4 @@
-"""SEE-ME system, sampling path (`seeme_tpu/models/seeme.py`).
+"""SEE-ME system, sampling and training (`seeme_tpu/models/seeme.py`).
 
 `SeeMeSystem` holds the motion VAE, the denoiser, the frozen PointNet scene
 encoder and its `output_scene` projection, under the reference's state-dict
@@ -12,12 +12,20 @@ mean; scene -> the fused PointNet blocks -> `output_scene`), then
 `eval_fk` (renorm, SMPL joints, global-orientation quaternions). On the card
 the fused wrappers launch their CUDA kernels; on the CPU they run their
 plain versions.
+
+The training losses: `vae_loss` (stage 1) and `diffusion_loss` (stage 2)
+run the plain PyTorch modules, with dropout wherever a module is in train
+mode. The frozen PointNet runs through the fused blocks without a gradient
+(or is replaced by cached `scene_feats`); `output_scene` carries one. Every
+random draw comes from `draws` (`eps`, `noise`, `timesteps`, and at
+guidance > 1 the CFG masks `mask_interactee`, `mask_scene`) or, where the
+caller gives none, from `generator` through `loss_draws`.
 """
 
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,8 +39,9 @@ from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid
 from ..ops.pointnet_fused import pointnet_forward, pointnet_weights
+from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
 from .denoiser import Denoiser
-from .vae import MotionVae
+from .vae import MotionVae, reparameterize
 
 WEARER, INTERACTEE = 0, 1  # actor indices in the 2-person batch layout
 
@@ -48,20 +57,26 @@ def tensor_versions(*modules: nn.Module) -> tuple:
 @dataclass(frozen=True)
 class SeeMeConfig:
     """The knobs of `configs/config_mld_egobody.yaml` that shape the
-    sampling graph; the defaults are the EgoBody flagship."""
+    sampling and training graphs; the defaults are the EgoBody flagship.
+    The port estimates the wearer with predicted translation, as every
+    EgoBody config does; the other settings are not ported yet."""
 
     motion_length: int = 60
     condition: Tuple[str, ...] = ("interactee", "scene")
     latent_dim: Tuple[int, int] = (1, 256)
     ff_size: int = 128
     num_layers: int = 5
+    dropout: float = 0.1                # model.droupout
     guidance_scale: float = 1.0
+    guidance_uncondp: float = 0.1       # element-wise CFG mask rate in training
+    predict_epsilon: bool = True        # TRAIN.ABLATION.PREDICT_EPSILON
     num_inference_timesteps: int = 50
     scene_points: int = 20000
     scene_feat_dim: int = 512
     # the DDIM entry, as `seeme_tpu/models/seeme.py:80`: "loop" (`ddim_fused`)
     # or "grid" (`ddim_fused_grid`); both launch `csrc/ddim_md.cu`
     fused_variant: str = "loop"
+    loss: LossWeights = field(default_factory=LossWeights)
     pose_feats = 72  # a constant, not a field: 23-joint EgoBody pose + global orientation
 
     @property
@@ -90,8 +105,10 @@ class SeeMeSystem(nn.Module):
         d = cfg.latent_dim[-1]
         # one attention head, as the reference hard-codes (`mld_vae.py:51-53`);
         # the fused DDIM path is single-head
-        self.vae = MotionVae(cfg.nfeats, cfg.latent_dim, cfg.ff_size, cfg.num_layers)
-        self.denoiser = Denoiser(cfg.latent_dim, cfg.ff_size, cfg.num_layers, text_encoded_dim=d)
+        self.vae = MotionVae(cfg.nfeats, cfg.latent_dim, cfg.ff_size, cfg.num_layers,
+                             dropout=cfg.dropout)
+        self.denoiser = Denoiser(cfg.latent_dim, cfg.ff_size, cfg.num_layers, text_encoded_dim=d,
+                                 dropout=cfg.dropout)
         self.use_interactee = "interactee" in cfg.condition
         self.use_scene = "scene" in cfg.condition
         if self.use_scene:
@@ -99,6 +116,8 @@ class SeeMeSystem(nn.Module):
                 {"scene_enc": ResnetPointnet(cfg.scene_feat_dim, hidden_dim=512)})
             self.output_scene = ConditionProjection(cfg.scene_feat_dim, d)
         init_parameters_(self, torch.Generator().manual_seed(seed))
+        # the sampling default; training sets its stage's subtrees
+        # (`train/state.py::set_stage`)
         self.requires_grad_(False)
         self.eval()
         self.to(dev)
@@ -109,20 +128,30 @@ class SeeMeSystem(nn.Module):
         self.register_buffer("mean", mean[: cfg.nfeats].clone(), persistent=False)
         self.register_buffer("std", std[: cfg.nfeats].clone(), persistent=False)
         self.schedule = DiffusionSchedule()
-        self._kernel_operands = None
+        self._ddim_operands = None
+        self._scene_operands = None
 
     def kernel_operands(self):
         """(denoiser state dict, DDIM kernel weights, PointNet kernel weights).
-        The kernel-layout copies are made again whenever a tensor of the
-        denoiser or the scene encoder changed since they were made (by
-        `load_state_dict`, an in-place update or a move), as its storage
-        address and version counter show."""
-        key = tensor_versions(self.denoiser, *([self.proscene] if self.use_scene else []))
-        if self._kernel_operands is None or self._kernel_operands[0] != key:
+        Each kernel-layout copy is made again whenever a tensor of its own
+        module (the denoiser, or the scene encoder) changed since it was made
+        (by `load_state_dict`, an in-place update such as an optimizer step,
+        or a move), as its storage address and version counter show; a
+        training step that updates the denoiser leaves the PointNet's copy
+        alone."""
+        key = tensor_versions(self.denoiser)
+        if self._ddim_operands is None or self._ddim_operands[0] != key:
             sd = self.denoiser.state_dict()
-            scene = pointnet_weights(self.proscene["scene_enc"]) if self.use_scene else None
-            self._kernel_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers), scene))
-        return self._kernel_operands[1]
+            self._ddim_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers)))
+        return (*self._ddim_operands[1], self._pointnet_operands())
+
+    def _pointnet_operands(self):
+        if not self.use_scene:
+            return None
+        key = tensor_versions(self.proscene)
+        if self._scene_operands is None or self._scene_operands[0] != key:
+            self._scene_operands = (key, pointnet_weights(self.proscene["scene_enc"]))
+        return self._scene_operands[1]
 
     # ------------------------------------------------------------- primitives
     def renorm(self, feats: torch.Tensor) -> torch.Tensor:
@@ -145,21 +174,35 @@ class SeeMeSystem(nn.Module):
     @torch.no_grad()
     def scene_features(self, scene: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) point cloud -> (B, 512) frozen PointNet features,
-        through the fused blocks."""
-        return pointnet_forward(self.kernel_operands()[2], scene)
+        through the fused blocks, without a gradient."""
+        return pointnet_forward(self._pointnet_operands(), scene)
 
-    @torch.no_grad()
     def encode_scene(self, scene: torch.Tensor) -> torch.Tensor:
+        """(B, 1, d) scene token: frozen PointNet, then the trainable
+        `output_scene` projection, which carries a gradient under autograd."""
         return self.output_scene(self.scene_features(scene))[:, None, :]
 
-    @torch.no_grad()
-    def _condition_tokens(self, batch: Dict) -> torch.Tensor:
+    def _condition_tokens(self, batch: Dict, masks: Optional[Dict] = None) -> torch.Tensor:
+        """(B, n_cond, d) condition tokens [interactee, scene]. `masks`, given
+        only in training at guidance > 1, zeroes random elements of the raw
+        interactee features and point cloud (`seeme_tpu/models/seeme.py:367-430`);
+        cached `scene_feats` replace the PointNet otherwise."""
         tokens = []
         if self.use_interactee:
-            mu, _ = self.vae.encode(self.actor_features(batch, INTERACTEE))
+            f_int = self.actor_features(batch, INTERACTEE)
+            if masks is not None:
+                f_int = f_int.masked_fill(masks["mask_interactee"], 0.0)
+            with torch.no_grad():  # the VAE is frozen in stage 2
+                mu, _ = self.vae.encode(f_int)
             tokens.append(mu)
         if self.use_scene:
-            tokens.append(self.encode_scene(batch["scene"]))
+            if "scene_feats" in batch and masks is None:
+                tokens.append(self.output_scene(batch["scene_feats"])[:, None, :])
+            else:
+                scene = batch["scene"]
+                if masks is not None:
+                    scene = scene.masked_fill(masks["mask_scene"], 0.0)
+                tokens.append(self.encode_scene(scene))
         if not tokens:  # an empty condition set: one zero token, as the JAX package
             feats = batch["feats"]
             tokens.append(feats.new_zeros(feats.shape[0], 1, self.cfg.latent_dim[-1]))
@@ -175,6 +218,78 @@ class SeeMeSystem(nn.Module):
                       for k, v in batch.items()}
             return torch.cat([self._condition_tokens(zeroed), cond], dim=0)
         return cond
+
+    # -------------------------------------------------------------- training
+    def loss_draws(self, stage: str, batch: Dict,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The random draws of one loss call from `generator` (on the batch's
+        device): `eps` for the reparameterization; in stage 2 also `noise`,
+        `timesteps` and, at guidance > 1, the CFG element masks."""
+        cfg = self.cfg
+        feats = batch["feats"]
+        dev = feats.device
+        B = feats.shape[0]
+        latent = (B, cfg.latent_dim[0], cfg.latent_dim[-1])
+        draws = {"eps": torch.randn(latent, generator=generator, device=dev)}
+        if stage == "vae":
+            return draws
+        draws["noise"] = torch.randn(latent, generator=generator, device=dev)
+        draws["timesteps"] = torch.randint(0, self.schedule.num_train_timesteps, (B,),
+                                           generator=generator, device=dev)
+        if cfg.guidance_scale > 1.0:
+            p = cfg.guidance_uncondp
+            if self.use_interactee:
+                shape = (B, feats.shape[1], cfg.nfeats)
+                draws["mask_interactee"] = torch.rand(shape, generator=generator, device=dev) < p
+            if self.use_scene:
+                draws["mask_scene"] = torch.rand(batch["scene"].shape, generator=generator,
+                                                 device=dev) < p
+        return draws
+
+    def vae_loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                 draws: Optional[Dict] = None):
+        """Stage-1 reconstruction loss (`seeme_tpu/models/seeme.py:337-364`):
+        (total, terms)."""
+        cfg = self.cfg
+        draws = draws if draws is not None else self.loss_draws("vae", batch, generator)
+        f_ref = self.actor_features(batch, WEARER)
+        mu, logvar = self.vae.encode(f_ref)
+        feats_rst = self.vae.decode(reparameterize(mu, logvar, draws["eps"]), cfg.motion_length)
+        raw_ref, raw_rst = self.renorm(f_ref), self.renorm(feats_rst)
+        betas = batch["betas"][:, WEARER]
+        return vae_losses(raw_rst, raw_ref, self.feats_to_joints(raw_rst, betas),
+                          self.feats_to_joints(raw_ref, betas), mu, logvar, cfg.loss)
+
+    def diffusion_loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                       draws: Optional[Dict] = None):
+        """Stage-2 denoiser loss (`seeme_tpu/models/seeme.py:432-457`):
+        (total, terms). The wearer's latent comes from the frozen VAE without
+        a gradient."""
+        cfg = self.cfg
+        draws = draws if draws is not None else self.loss_draws("diffusion", batch, generator)
+        with torch.no_grad():
+            mu, logvar = self.vae.encode(self.actor_features(batch, WEARER))
+            z = reparameterize(mu, logvar, draws["eps"])
+        cond = self._condition_tokens(batch, draws if cfg.guidance_scale > 1.0 else None)
+        noise, timesteps = draws["noise"], draws["timesteps"]
+        pred = self.denoiser(self.schedule.add_noise(z, noise, timesteps), timesteps, cond)
+        if cfg.predict_epsilon:
+            return diffusion_losses(pred, noise)
+        return x0_losses(pred, z)
+
+    @torch.no_grad()
+    def reconstruct(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                    eps: Optional[torch.Tensor] = None, sample_mean: bool = False,
+                    fact: Optional[float] = None) -> torch.Tensor:
+        """VAE-only eval path (`seeme_tpu/models/seeme.py:619-638`): the
+        wearer's features through encode, the mean or a (fact-scaled)
+        reparameterized draw, and decode; normalized (B, T, nfeats)."""
+        mu, logvar = self.vae.encode(self.actor_features(batch, WEARER))
+        if not sample_mean:
+            if eps is None:
+                eps = torch.randn(mu.shape, generator=generator, device=mu.device)
+            mu = reparameterize(mu, logvar, eps, fact)
+        return self.vae.decode(mu, self.cfg.motion_length)
 
     # -------------------------------------------------------------- sampling
     @torch.no_grad()

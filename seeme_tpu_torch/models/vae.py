@@ -3,6 +3,8 @@
 arch='encoder_decoder' with MLP_DIST off, the shipped configuration: learned
 distribution tokens prepended to the embedded frames, a U-skip encoder, and
 a U-skip decoder that cross-attends zero queries against the latent.
+`dropout` reaches every encoder and decoder layer and acts in train mode
+only; `reparameterize` takes its eps from the caller.
 """
 
 from __future__ import annotations
@@ -25,16 +27,18 @@ from ..nn.transformer import (
 class MotionVae(nn.Module):
     def __init__(self, nfeats: int, latent_dim: Sequence[int] = (1, 256), ff_size: int = 128,
                  num_layers: int = 5, num_heads: int = 1, activation: str = "gelu",
-                 position_embedding: str = "learned"):
+                 position_embedding: str = "learned", dropout: float = 0.1):
         super().__init__()
         self.latent_size = latent_dim[0]
         d = self.d_model = latent_dim[-1]
         self.query_pos_encoder = build_position_encoding(d, position_embedding)
         self.query_pos_decoder = build_position_encoding(d, position_embedding)
         self.encoder = SkipTransformerEncoder(
-            lambda: TransformerEncoderLayer(d, num_heads, ff_size, activation), num_layers, d)
+            lambda: TransformerEncoderLayer(d, num_heads, ff_size, activation, dropout),
+            num_layers, d)
         self.decoder = SkipTransformerDecoder(
-            lambda: TransformerDecoderLayer(d, num_heads, ff_size, activation), num_layers, d)
+            lambda: TransformerDecoderLayer(d, num_heads, ff_size, activation, dropout),
+            num_layers, d)
         self.global_motion_token = nn.Parameter(torch.empty(2 * self.latent_size, d))
         self.skel_embedding = nn.Linear(nfeats, d)
         self.final_layer = nn.Linear(d, nfeats)
@@ -63,3 +67,12 @@ class MotionVae(nn.Module):
                 else torch.ones(B, nframes, dtype=torch.bool, device=z.device))
         queries = self.query_pos_decoder(z.new_zeros(B, nframes, self.d_model))
         return self.final_layer(self.decoder(queries, z, tgt_valid_mask=mask))
+
+
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor,
+                   fact: Optional[float] = None) -> torch.Tensor:
+    """z = mu + fact * sigma * eps (`seeme_tpu/models/vae.py:174-185`); the
+    caller draws eps, shaped as mu; fact=None means fact=1."""
+    if fact is not None:
+        eps = eps * fact
+    return mu + torch.exp(0.5 * logvar) * eps

@@ -1,6 +1,9 @@
 """MotionDiffuse-style stylization layers of the EgoBody denoiser
 (`seeme_tpu/nn/stylization.py`). Zero-initialized output projections are
-zeroed by `nn.init.init_parameters_`."""
+zeroed by `nn.init.init_parameters_`. Dropout, active in train mode only,
+sits in `StylizationBlock` before its output projection, after the stylized
+FFN's GELU, and in the MD layer's self-attention block
+(`seeme_tpu/nn/stylization.py:47`, `:107`, `:146`)."""
 
 from __future__ import annotations
 
@@ -17,11 +20,12 @@ class StylizationBlock(nn.Module):
     """h <- out_linear(silu(norm(h) * (1 + scale) + shift)),
     (scale, shift) = emb_linear(silu(emb))."""
 
-    def __init__(self, latent_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, time_embed_dim: int, dropout: float = 0.1):
         super().__init__()
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(time_embed_dim, 2 * latent_dim))
         self.norm = nn.LayerNorm(latent_dim)
-        self.out_layers = nn.Sequential(nn.SiLU(), nn.Dropout(0.0), nn.Linear(latent_dim, latent_dim))
+        self.out_layers = nn.Sequential(nn.SiLU(), nn.Dropout(dropout),
+                                        nn.Linear(latent_dim, latent_dim))
 
     def forward(self, h, emb):  # h (B, T, D), emb (B, E)
         scale, shift = self.emb_layers(emb)[:, None, :].chunk(2, dim=-1)
@@ -32,7 +36,8 @@ class LinearTemporalCrossAttention(nn.Module):
     """Linear cross attention: softmax over features for the query, over
     condition tokens for the key."""
 
-    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.norm = nn.LayerNorm(latent_dim)
@@ -40,7 +45,7 @@ class LinearTemporalCrossAttention(nn.Module):
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(text_latent_dim, latent_dim)
         self.value = nn.Linear(text_latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, xf, emb):
         B, T, D = x.shape
@@ -56,14 +61,15 @@ class LinearTemporalCrossAttention(nn.Module):
 
 
 class StylizedFFN(nn.Module):
-    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int, dropout: float = 0.1):
         super().__init__()
         self.linear1 = nn.Linear(latent_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.dropout = nn.Dropout(dropout)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb):
-        h = self.linear2(F.gelu(self.linear1(x)))
+        h = self.linear2(self.dropout(F.gelu(self.linear1(x))))
         return x + self.proj_out(h, emb)
 
 
@@ -72,12 +78,12 @@ class MdTransformerLayer(nn.Module):
     the x tokens; then linear cross-attention over xf; then the stylized FFN."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int = 128,
-                 text_latent_dim: Optional[int] = None):
+                 text_latent_dim: Optional[int] = None, dropout: float = 0.1):
         super().__init__()
-        self.sa_block = TransformerEncoderLayer(d_model, num_heads, 1024, "relu")
+        self.sa_block = TransformerEncoderLayer(d_model, num_heads, 1024, "relu", dropout)
         self.ca_block = LinearTemporalCrossAttention(
-            d_model, text_latent_dim or d_model, num_heads, d_model)
-        self.ffn = StylizedFFN(d_model, ffn_dim, d_model)
+            d_model, text_latent_dim or d_model, num_heads, d_model, dropout)
+        self.ffn = StylizedFFN(d_model, ffn_dim, d_model, dropout)
 
     def forward(self, x, xf, emb):  # x (B, T, D), xf (B, N, D), emb (B, 1, D)
         T = x.shape[1]

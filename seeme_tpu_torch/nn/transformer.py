@@ -4,6 +4,11 @@ Batch-first (B, T, D). Key masks are validity masks (True = attend). The
 attention keeps torch's packed `in_proj_weight` layout so the state dict
 matches the reference's `nn.MultiheadAttention`. GELU is the exact erf form
 (`seeme_tpu/nn/transformer.py:27-31`).
+
+Dropout, active in train mode only, sits where the JAX layers put it: on the
+attention weights, after each attention block and around the FFN's
+activation and output (`seeme_tpu/nn/transformer.py:68`, `:92-108`,
+`:133-153`). Each call of a layer's `nn.Dropout` draws a fresh mask.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ _ACT = {"relu": F.relu, "gelu": F.gelu}
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = nn.Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -40,7 +46,7 @@ class MultiHeadAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         if key_valid_mask is not None:
             logits = logits + torch.where(key_valid_mask, 0.0, NEG_INF)[:, None, None, :]
-        attn = torch.softmax(logits, dim=-1)
+        attn = self.dropout(torch.softmax(logits, dim=-1))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Tq, D)
         return self.out_proj(out)
 
@@ -48,40 +54,46 @@ class MultiHeadAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Post-norm self-attention + FFN block."""
 
-    def __init__(self, d_model: int, num_heads: int, ff_size: int, activation: str = "gelu"):
+    def __init__(self, d_model: int, num_heads: int, ff_size: int, activation: str = "gelu",
+                 dropout: float = 0.1):
         super().__init__()
         self.activation = activation
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, src, key_valid_mask=None):
-        src = self.norm1(src + self.self_attn(src, src, src, key_valid_mask))
-        h = self.linear2(_ACT[self.activation](self.linear1(src)))
-        return self.norm2(src + h)
+        drop = self.dropout
+        src = self.norm1(src + drop(self.self_attn(src, src, src, key_valid_mask)))
+        h = self.linear2(drop(_ACT[self.activation](self.linear1(src))))
+        return self.norm2(src + drop(h))
 
 
 class TransformerDecoderLayer(nn.Module):
     """Post-norm self-attention + cross-attention + FFN block."""
 
-    def __init__(self, d_model: int, num_heads: int, ff_size: int, activation: str = "gelu"):
+    def __init__(self, d_model: int, num_heads: int, ff_size: int, activation: str = "gelu",
+                 dropout: float = 0.1):
         super().__init__()
         self.activation = activation
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
-        self.multihead_attn = MultiHeadAttention(d_model, num_heads)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
+        self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
         self.norm3 = nn.LayerNorm(d_model)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, tgt, memory, tgt_valid_mask=None, memory_valid_mask=None):
-        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt, tgt_valid_mask))
-        tgt = self.norm2(tgt + self.multihead_attn(tgt, memory, memory, memory_valid_mask))
-        h = self.linear2(_ACT[self.activation](self.linear1(tgt)))
-        return self.norm3(tgt + h)
+        drop = self.dropout
+        tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_valid_mask)))
+        tgt = self.norm2(tgt + drop(self.multihead_attn(tgt, memory, memory, memory_valid_mask)))
+        h = self.linear2(drop(_ACT[self.activation](self.linear1(tgt))))
+        return self.norm3(tgt + drop(h))
 
 
 class _SkipStack(nn.Module):

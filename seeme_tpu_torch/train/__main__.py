@@ -1,0 +1,236 @@
+"""Training CLI for the EgoBody main path (`train.py`).
+
+    python -m seeme_tpu_torch.train --preset vae_egobody|mld_egobody
+        [--batch_size N] [--epochs N] [--out DIR] [--resume DIR]
+        [--pretrained_vae PATH] [--device cpu] [model.FIELD=VALUE ...] [train.FIELD=VALUE ...]
+
+The flow is `train.py`'s: the datamodule (the EgoBody release under
+`./datasets/EgoBody` when it is there, else the synthetic one), the system,
+stage 2's pretrained VAE, the optimizer, the resume; then stage 2's cache of
+frozen scene features (`train.py:185-236`: chunks of max(batch, 8), the
+tail padded, the train and val splits, only at guidance <= 1; on by default
+on the card), and the epochs with logging, validation every
+`val_every_steps` epochs and a checkpoint every `save_checkpoint_epoch`
+epochs and at the end. Trailing `model.X=V` / `train.X=V` pairs override
+preset fields (V a Python literal), as `train.py`'s dotted overrides do.
+
+It runs on the card unless `--device cpu` is given, and raises when there
+is no card. The SMPL body is the JAX package's synthetic model
+(`synthetic_smpl(6890)`), which it also falls back to without the SMPL file;
+the port does not read SMPL files yet. It writes `config.json`,
+`train_log.txt` and `checkpoints/<step>.pt` under `--out` (default
+`experiments/torch/<preset name>`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import dataclasses
+import json
+import os
+import sys
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..config.egobody import OUT_ROOT, PRESETS, Preset
+from ..core.smpl import synthetic_smpl
+from ..data.batch import eval_batches
+from ..data.registry import get_datamodule
+from ..models.seeme import SeeMeSystem
+from .checkpoint import (
+    clear_stale_steps,
+    load_pretrained_vae,
+    normalize_resume_dir,
+    resolve_latest,
+    restore_state,
+    resume_scan,
+    save_state,
+)
+from .loop import run_epoch, validate
+from .state import make_optimizer
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(prog="python -m seeme_tpu_torch.train")
+    p.add_argument("--preset", required=True, choices=sorted(PRESETS))
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None, help="END_EPOCH")
+    p.add_argument("--out", default=None, help="experiment dir")
+    p.add_argument("--resume", default=None, help="experiment dir to resume from")
+    p.add_argument("--pretrained_vae", default=None, help="stage-1 checkpoint for stage 2")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("overrides", nargs="*", default=[], help="model.FIELD=VALUE or train.FIELD=VALUE")
+    return p.parse_args(argv)
+
+
+def _literal(raw: str):
+    try:
+        v = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+    return tuple(v) if isinstance(v, list) else v
+
+
+def apply_overrides(preset: Preset, pairs: Sequence[str]) -> Preset:
+    for pair in pairs:
+        path, sep, raw = pair.partition("=")
+        section, _, name = path.partition(".")
+        if not sep or section not in ("model", "train") or not name:
+            raise ValueError(f"override {pair!r} is not model.FIELD=VALUE or train.FIELD=VALUE")
+        sub = dataclasses.replace(getattr(preset, section), **{name: _literal(raw)})
+        preset = dataclasses.replace(preset, **{section: sub})
+    return preset
+
+
+class Trainer:
+    """One training run, set up as `train.py` sets it up. `main` calls
+    `fill_feature_cache` and then `fit`."""
+
+    def __init__(self, args: argparse.Namespace):
+        preset = apply_overrides(PRESETS[args.preset](), args.overrides)
+        tc = preset.train
+        if args.batch_size is not None:
+            tc = dataclasses.replace(tc, batch_size=args.batch_size)
+        if args.epochs is not None:
+            tc = dataclasses.replace(tc, end_epoch=args.epochs)
+        if args.pretrained_vae is not None:
+            tc = dataclasses.replace(tc, pretrained_vae=args.pretrained_vae)
+        self.preset = preset = dataclasses.replace(preset, train=tc)
+        self.device = resolve_device(args.device)
+        self.exp_dir = os.path.abspath(args.out or os.path.join(OUT_ROOT, preset.name))
+        os.makedirs(self.exp_dir, exist_ok=True)
+        self._log_path = os.path.join(self.exp_dir, "train_log.txt")
+        self.stage, self.seed = tc.stage, tc.seed
+        cfg = preset.model
+
+        self.datamodule = get_datamodule(preset.dataset, cfg.condition, cfg.motion_length,
+                                         cfg.scene_points)
+        if self.datamodule.is_synthetic:
+            self.log("dataset release not found -> synthetic datamodule")
+        torch.manual_seed(self.seed)  # dropout draws from torch's default generators
+        self.system = SeeMeSystem(cfg, synthetic_smpl(n_verts=6890), self.datamodule.mean,
+                                  self.datamodule.std, device=self.device, seed=self.seed)
+        if self.stage == "diffusion" and tc.pretrained_vae:
+            path = resolve_latest(tc.pretrained_vae)
+            if os.path.exists(path):
+                n = load_pretrained_vae(path, self.system)
+                self.log(f"loaded pretrained VAE ({n} tensors) from {path}")
+            else:  # as train.py: warn, and train against the random frozen VAE
+                self.log(f"WARNING: pretrained VAE {path} does not exist; stage 2 will "
+                         "freeze a randomly initialized VAE")
+
+        n_train = self.datamodule.num_train
+        self.batch_size = tc.batch_size
+        if 0 < n_train < self.batch_size:  # drop_last would leave no step at all
+            self.log(f"batch size {self.batch_size} exceeds the train split ({n_train}); "
+                     f"clamped to {n_train}")
+            self.batch_size = n_train
+        self.steps_per_epoch = max(n_train // self.batch_size, 1)
+        self.optimizer, self.schedule = make_optimizer(
+            self.stage, self.system, lr=tc.lr, step_size_epochs=tc.step_size, gamma=tc.gamma,
+            steps_per_epoch=self.steps_per_epoch)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+
+        self.step = self.start_epoch = 0
+        if args.resume:
+            resume = normalize_resume_dir(args.resume)
+            if resume_scan(resume)[1] is None:
+                raise FileNotFoundError(
+                    f"--resume {resume} has no checkpoint under {resume}/checkpoints")
+            if resume != self.exp_dir:
+                clear_stale_steps(self.exp_dir)
+            self.step, _ = restore_state(resume, self.system, self.optimizer, self.generator)
+            self.start_epoch = self.step // self.steps_per_epoch
+            self.log(f"resumed from {resume} @ step {self.step} (epoch {self.start_epoch})")
+        elif clear_stale_steps(self.exp_dir):
+            self.log(f"cleared checkpoints an earlier run left in {self.exp_dir}")
+        with open(os.path.join(self.exp_dir, "config.json"), "w") as f:
+            json.dump({"preset": args.preset, **dataclasses.asdict(preset)}, f, indent=1)
+        self.history: List[Dict] = []
+        self.checkpoints: List[str] = []
+        self.log(f"stage={self.stage} device={self.device} batch={self.batch_size} "
+                 f"steps/epoch={self.steps_per_epoch} out={self.exp_dir}")
+
+    def log(self, msg: str) -> None:
+        line = f"[{time.strftime('%H:%M:%S')}] {msg}"
+        print(line, flush=True)
+        with open(self._log_path, "a") as f:
+            f.write(line + "\n")
+
+    def fill_feature_cache(self) -> Optional[float]:
+        """Stage 2's cache of frozen PointNet features, once per sample of the
+        train and val splits, through the fused blocks; returns its seconds,
+        or None when the cache does not apply."""
+        cache = self.preset.train.feature_cache
+        if cache is None:
+            cache = self.device.type == "cuda"
+        if not (cache and self.stage == "diffusion" and self.system.use_scene
+                and self.preset.model.guidance_scale <= 1.0):
+            return None
+        t0 = time.perf_counter()
+        cs = max(self.batch_size, 8)
+        for split in ("train", "val"):
+            try:
+                raw = self.datamodule.split_array(split, "scene")
+            except (KeyError, FileNotFoundError):
+                continue
+            chunks = []
+            for i in range(0, len(raw), cs):
+                chunk = raw[i:i + cs]
+                pad = cs - len(chunk)
+                if pad:  # every chunk at one shape, as the JAX trainer's jit needs
+                    chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+                feats = self.system.scene_features(torch.as_tensor(chunk, device=self.device))
+                chunks.append(feats[: cs - pad].cpu().numpy())
+            self.datamodule.attach_split_features(split, "scene_feats", np.concatenate(chunks))
+            self.log(f"precomputed frozen scene features for {split} ({len(raw)} samples)")
+        return time.perf_counter() - t0
+
+    def train_batches(self, epoch: int):
+        """The train split's batches of `epoch`, without the keys the stage never reads."""
+        drop = {"scene", "image"} if self.stage == "vae" else {"image"}
+        for b in self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch):
+            yield {k: v for k, v in b.items() if k not in drop}
+
+    def fit(self) -> List[Dict]:
+        tc = self.preset.train
+        val_every = max(tc.val_every_steps, 1)
+        for epoch in range(self.start_epoch, tc.end_epoch):
+            self.step, means, steps, ms = run_epoch(
+                self.system, self.stage, self.optimizer, self.schedule, self.step,
+                self.train_batches(epoch), self.generator)
+            record = {"epoch": epoch, "means": means, "steps": steps, "step_ms": ms}
+            mem = ""
+            if self.device.type == "cuda":
+                mem = f" max_memory_allocated={torch.cuda.max_memory_allocated(self.device)}"
+            self.log(f"epoch {epoch}/{tc.end_epoch} step {self.step} "
+                     + " ".join(f"{k}={v:.5f}" for k, v in sorted(means.items())) + mem)
+            if (epoch + 1) % val_every == 0:
+                record["val"] = validate(self.system, self.stage,
+                                         eval_batches(self.datamodule, "val", self.batch_size))
+                self.log(f"val epoch {epoch} " + " ".join(
+                    f"{k}={v:.5f}" for k, v in sorted(record["val"].items())))
+            if (epoch + 1) % tc.save_checkpoint_epoch == 0 or epoch + 1 == tc.end_epoch:
+                self.checkpoints.append(save_state(self.exp_dir, self.system, self.optimizer,
+                                                   self.step, epoch + 1, self.generator))
+                self.log(f"checkpoint @ step {self.step}: {self.checkpoints[-1]}")
+            self.history.append(record)
+        return self.history
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+    trainer = Trainer(parse_args(argv))
+    seconds = trainer.fill_feature_cache()
+    if seconds is not None:
+        trainer.log(f"feature cache filled in {seconds:.3f} s")
+    trainer.fit()
+    return trainer
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

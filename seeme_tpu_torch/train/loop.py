@@ -1,0 +1,114 @@
+"""The train step, the epoch loop and the validation pass
+(`seeme_tpu/train/loop.py:41-77`, `:246-`; `train.py:347-375`).
+
+A step is the loss of its stage (`SeeMeSystem.vae_loss` or
+`diffusion_loss`), backward, and one AdamW update at the step's learning
+rate, with the loss terms fetched from the device once. The JAX package's
+scan, gather and device-resident variants exist for XLA dispatch and have no
+counterpart here.
+
+Random draws: each loss call draws its noise from the explicit `generator`
+(or takes injected `draws`). `nn.Dropout` takes no generator, so dropout
+draws from torch's default generators, which the trainer seeds from the
+preset's seed (`torch.manual_seed`) and checkpoints save and restore.
+Validation runs with the modules in the modes training left them, so
+dropout is on as in the JAX package's validation, which passes
+`deterministic=False` (`seeme_tpu/models/seeme.py:345-351`, `:453`).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..data.synthetic import to_torch
+
+
+def loss_fn(system, stage: str):
+    return system.vae_loss if stage == "vae" else system.diffusion_loss
+
+
+def fetch_terms(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """All loss terms in one device-to-host transfer."""
+    keys = sorted(terms)
+    return dict(zip(keys, torch.stack([terms[k].detach().reshape(()) for k in keys]).tolist()))
+
+
+def train_step(system, stage: str, optimizer: torch.optim.Optimizer,
+               schedule: Callable[[int], float], count: int, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, float]:
+    """One update, the `count`-th (0-based) of the run; returns the loss terms."""
+    lr = schedule(count)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    loss, terms = loss_fn(system, stage)(batch, generator=generator, draws=draws)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return fetch_terms(terms)
+
+
+class _StepClock:
+    """Per-step milliseconds: CUDA events on the card, the host clock
+    elsewhere; every step ends in the terms' fetch, which waits for it."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: List = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> List[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks[::2], self.marks[1::2])]
+        return [1e3 * (b - a) for a, b in zip(self.marks[::2], self.marks[1::2])]
+
+
+def run_epoch(system, stage: str, optimizer: torch.optim.Optimizer,
+              schedule: Callable[[int], float], count: int,
+              batches: Iterable[Dict[str, np.ndarray]],
+              generator: Optional[torch.Generator] = None
+              ) -> Tuple[int, Dict[str, float], List[Dict[str, float]], List[float]]:
+    """One pass over host batches; returns (the update count after it, the
+    mean of each term, each step's terms, each step's milliseconds, the
+    batch's move to the device included)."""
+    clock = _StepClock(system.device)
+    steps = []
+    for b in batches:
+        clock.mark()
+        terms = train_step(system, stage, optimizer, schedule, count,
+                           to_torch(b, system.device), generator)
+        clock.mark()
+        count += 1
+        steps.append(terms)
+    means = {k: sum(s[k] for s in steps) / len(steps) for k in steps[0]} if steps else {}
+    return count, means, steps, clock.intervals_ms()
+
+
+@torch.no_grad()
+def validate(system, stage: str,
+             batches: Iterable[Tuple[Dict[str, np.ndarray], int]]) -> Dict[str, float]:
+    """Mean loss terms over `eval_batches` (the padded tail batch counts as
+    a whole one, as in the JAX package); the draws come from a generator
+    seeded with 0 at every call, as the JAX trainer's validation keys come
+    from `PRNGKey(0)`, so two validations of the same weights draw alike."""
+    gen = torch.Generator(device=system.device).manual_seed(0)
+    acc: Dict[str, float] = {}
+    n = 0
+    for b, _ in batches:
+        _, terms = loss_fn(system, stage)(to_torch(b, system.device), generator=gen)
+        for k, v in fetch_terms(terms).items():
+            acc[k] = acc.get(k, 0.0) + v
+        n += 1
+    return {k: v / max(n, 1) for k, v in acc.items()}

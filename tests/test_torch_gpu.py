@@ -8,18 +8,24 @@ for both DDIM kernels, batches that fill their last cluster of 4 samples
 partly or not at all (1, 3, 5, 17, 64), with and without CFG; the token
 kernel at 1, 3 and 8 condition tokens (up to 20 token rows a cluster) and at
 the action-to-motion shape (text width 256, no emb_proj); and widths that do
-not split into the cluster's column slices.
+not split into the cluster's column slices. A stage-2 train step on the
+card agrees with the same step on the CPU.
 """
 
 import pytest
 import torch
 
+from seeme_tpu_torch.core.smpl import synthetic_smpl
+from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
 from seeme_tpu_torch.diffusion.schedulers import DiffusionSchedule
 from seeme_tpu_torch.models.denoiser import Denoiser
+from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
 from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
 from seeme_tpu_torch.nn.pointnet import ResnetPointnet
 from seeme_tpu_torch.ops import denoiser_fused as dfu
 from seeme_tpu_torch.ops import pointnet_fused as pfu
+from seeme_tpu_torch.train.loop import train_step
+from seeme_tpu_torch.train.state import make_optimizer
 
 pytestmark = pytest.mark.gpu
 
@@ -168,3 +174,43 @@ def test_kernel_wrappers_refuse_bad_input(cuda):
             fn(sd, torch.randn(2, 1, 256, device=cuda), z0, *sched, num_layers=3)
     assert before == (dfu.ddim_fused.launches, dfu.ddim_fused_grid.launches,
                       dfu.ddim_fused_tok.launches)
+
+
+@pytest.mark.parametrize("guidance", [1.0, 2.5])
+def test_stage2_train_step_matches_cpu(cuda, guidance):
+    """One stage-2 step (raw scene through the PointNet kernels, and at
+    guidance 2.5 with the CFG masks) on the card and on the CPU with the
+    same draws and dropout 0: the loss within 1e-4 relative, each gradient
+    within 1e-3 of its tensor's max |g| (1e-8 for one that is zero but for
+    rounding), and the updated parameters alike where the gradient's sign is
+    settled (a first AdamW step moves an element by about lr * sign(g))."""
+    torch.backends.cudnn.allow_tf32 = False
+    data = SyntheticEgoDataset(3, 60, scene_points=64, seed=0)
+    cfg = SeeMeConfig(latent_dim=(1, 32), ff_size=16, num_layers=3, scene_points=64,
+                      scene_feat_dim=32, dropout=0.0, guidance_scale=guidance)
+    runs = {}
+    for device in ("cpu", cuda):
+        system = seeded(SeeMeSystem(cfg, synthetic_smpl(256), data.mean, data.std,
+                                    device=device, seed=1), 2, device)
+        runs[str(device)] = (system, *make_optimizer("diffusion", system, lr=1e-3))
+    batch = to_torch(data.batch(0, 3), "cpu")
+    draws = runs["cpu"][0].loss_draws("diffusion", batch, torch.Generator().manual_seed(3))
+    before = pfu.fused_input_block.launches
+    loss = {}
+    for device, (system, opt, sched) in runs.items():
+        loss[device] = train_step(system, "diffusion", opt, sched, 0,
+                                  {k: v.to(device) for k, v in batch.items()},
+                                  draws={k: v.to(device) for k, v in draws.items()})["total"]
+    assert pfu.fused_input_block.launches == before + 1
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-4 * abs(loss["cpu"])
+    card = dict(runs["cuda"][0].named_parameters())
+    for name, p in runs["cpu"][0].named_parameters():
+        q = card[name]
+        assert (p.grad is None) == (q.grad is None), name
+        if p.grad is None:
+            continue
+        gap = (p.grad - q.grad.cpu()).abs()
+        assert float(gap.max()) <= max(1e-3 * float(p.grad.abs().max()), 1e-8), name
+        firm = (p.grad.abs() > 1e-6) & (p.grad.abs() > 10 * gap)
+        d = (p.detach() - q.detach().cpu()).abs()
+        assert bool((d[firm] <= 2e-6).all()) and bool((d <= 2e-3 + 2e-6).all()), name

@@ -192,3 +192,56 @@ def test_token_denoiser_cond_mask():
     close(ours, ref)
     assert not np.allclose(ours.detach().numpy(),
                            den(*map(torch.as_tensor, (x, t, cond))).detach().numpy(), atol=1e-3)
+
+
+DROPOUT_MODULES = {
+    "encoder_layer": (lambda p: transformer.TransformerEncoderLayer(32, 2, 48, "gelu", p),
+                      lambda: (rand(20, 3, 6, 32),)),
+    "decoder_layer": (lambda p: transformer.TransformerDecoderLayer(32, 1, 40, "gelu", p),
+                      lambda: (rand(21, 2, 5, 32), rand(22, 2, 3, 32))),
+    "md_layer": (lambda p: stylization.MdTransformerLayer(32, 1, ffn_dim=16, dropout=p),
+                 lambda: (rand(23, 3, 1, 32), rand(24, 3, 2, 32), rand(25, 3, 1, 32))),
+    "denoiser": (lambda p: Denoiser((1, 32), ff_size=16, num_layers=3, text_encoded_dim=32,
+                                    dropout=p),
+                 lambda: (rand(26, 3, 1, 32), np.array([981, 501, 21]), rand(27, 3, 2, 32))),
+    "vae_decode": (lambda p: MotionVae(75, (1, 32), ff_size=16, num_layers=3, dropout=p),
+                   lambda: (rand(28, 3, 1, 32), 20)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DROPOUT_MODULES))
+def test_dropout_only_in_train_mode(name):
+    """With dropout 0.3: in train mode two forwards under different seeds of
+    torch's default generator differ; in eval mode the output equals the
+    same weights' output at dropout 0, which matches the flax module
+    (the parity tests above)."""
+    make, inputs = DROPOUT_MODULES[name]
+    module, plain = seeded(make(0.3), 30), seeded(make(0.0), 30)
+    args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in inputs()]
+    run = (lambda m: m.decode(*args)) if name == "vae_decode" else (lambda m: m(*args))
+    torch.testing.assert_close(run(module), run(plain), rtol=0, atol=0)
+    module.train()
+    torch.manual_seed(0)
+    a = run(module)
+    torch.manual_seed(1)
+    b = run(module)
+    torch.manual_seed(0)
+    assert not torch.equal(a, b) and torch.equal(a, run(module))
+    assert {m.p for m in module.modules() if isinstance(m, torch.nn.Dropout)} == {0.3}
+
+
+def test_dropout_sites_match_jax():
+    """One `nn.Dropout` at each JAX site: per MD layer the attention
+    weights, the self-attention block's output/FFN sites, both stylization
+    blocks and the stylized FFN; per VAE layer the attention weights (two
+    in a decoder layer) and the layer's own; `StylizationBlock` keeps its
+    state-dict keys (`out_layers.2.*`)."""
+    count = lambda m: sum(isinstance(x, torch.nn.Dropout) for x in m.modules())  # noqa: E731
+    assert count(stylization.MdTransformerLayer(32, 1, ffn_dim=16)) == 5
+    assert count(transformer.TransformerEncoderLayer(32, 1, 16)) == 2
+    assert count(transformer.TransformerDecoderLayer(32, 1, 16)) == 3
+    assert count(MotionVae(75, (1, 32), ff_size=16, num_layers=3)) == 3 * 2 + 3 * 3
+    block = stylization.StylizationBlock(32, 32, dropout=0.2)
+    assert set(block.state_dict()) == {"emb_layers.1.weight", "emb_layers.1.bias", "norm.weight",
+                                       "norm.bias", "out_layers.2.weight", "out_layers.2.bias"}
+    assert block.out_layers[1].p == 0.2

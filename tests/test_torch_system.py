@@ -28,6 +28,7 @@ from seeme_tpu_torch.models import seeme as seeme_module
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
 from seeme_tpu_torch.nn.init import perturb_parameters_
 from seeme_tpu_torch.ops import denoiser_fused as dfu
+from seeme_tpu_torch.train.state import make_optimizer, set_stage
 from tools.convert_checkpoint import convert_mld_checkpoint
 
 B, W, STEPS, POINTS = 3, 32, 5, 64
@@ -133,6 +134,33 @@ def test_kernel_operands_follow_the_parameters():
     assert not torch.equal(system.scene_features(scene), other.scene_features(scene))
     assert not torch.equal(system.kernel_operands()[1].tensors[0],
                            other.kernel_operands()[1].tensors[0])
+
+
+def test_kernel_operands_are_keyed_per_module():
+    """An optimizer step on the denoiser makes the DDIM operands again and
+    leaves the PointNet's alone, and a PointNet call does not rebuild the
+    DDIM operands; sampling then runs on the updated weights."""
+    data = SyntheticEgoDataset(B, 60, scene_points=POINTS, seed=0)
+    system = SeeMeSystem(SeeMeConfig(**SMALL), synthetic_smpl(256), data.mean, data.std,
+                         device="cpu", seed=1)
+    batch = to_torch(data.batch(0, B), "cpu")
+    sd, ddim, scene = system.kernel_operands()
+    system.scene_features(batch["scene"])
+    assert system.kernel_operands()[1] is ddim
+    optimizer, _ = make_optimizer("diffusion", system, lr=1e-2)
+    loss, _ = system.diffusion_loss(batch, generator=torch.Generator().manual_seed(3))
+    loss.backward()
+    optimizer.step()
+    set_stage(system, None)
+    _, ddim_after, scene_after = system.kernel_operands()
+    assert scene_after is scene and ddim_after is not ddim
+    assert any(not torch.equal(a, b) for a, b in zip(ddim.tensors, ddim_after.tensors))
+    copy = SeeMeSystem(SeeMeConfig(**SMALL), synthetic_smpl(256), data.mean, data.std,
+                       device="cpu", seed=4)
+    copy.load_state_dict(system.state_dict())
+    cond = system.encode_conditioning(batch)
+    z0 = torch.as_tensor(np.random.RandomState(5).randn(B, 1, W).astype(np.float32))
+    assert torch.equal(system.sample_from_cond(cond, z_init=z0), copy.sample_from_cond(cond, z_init=z0))
 
 
 def test_fused_variant_selects_the_ddim_entry():
