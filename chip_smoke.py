@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sampling paths on one NVIDIA GPU: EgoBody
-(SEE-ME) and HumanML3D text-to-motion.
+"""Drive the PyTorch port's paths on one NVIDIA GPU: EgoBody (SEE-ME, its
+image-conditioned, GIMO and interactee-only configs, both training stages,
+the test CLI) and HumanML3D text-to-motion.
 
     python3 chip_smoke.py
 
@@ -53,9 +54,29 @@ Phases, each printing one line with its seconds as soon as it ends:
  10. one step of each stage at the CPU tests' small size (d=32, 3 layers, 64
      points, B=3, dropout 0) on the card and on the CPU with the same draws:
      loss within 1e-4 relative, every gradient within 1e-3 of its tensor's
-     max |g|, the updated parameters alike; TF32 must be off.
-Then one JSON line of per-kernel numbers, the card's name and power limit,
-and, last, `{"ok": true, "device": {...}}`. Any failed check exits non-zero
+     max |g|, the updated parameters alike; TF32 must be off;
+ 11. the image-conditioned SEE-ME (`mld_egobody_image`) at full width (B=64,
+     20 000 points, 224x224 crops): kernel 3 at 3 condition tokens against
+     its plain version at guidance 1 and 2.5 (ms, bound, launch plan), the
+     ResNet50's ms, the counted slice (expected: input block 1, split block
+     3, DDIM 1, one ResNet50 forward), the slice's time split part by part,
+     and the card path against the CPU's plain path at B=2, 512 points,
+     64x64 crops (features, joints, the four `EgoMetric` means);
+ 12. GIMO (`mld_gimo`, 69 features) and `mld_interactee` (kernel 3 at one
+     condition token, timed) the same way, sampling and FK counted;
+ 13. stage 2 of `mld_egobody_image` with the stage-1 checkpoint: the feature
+     cache (expected: input block 5, split block 15, ResNet50 forwards 5; its
+     seconds and the ResNet50's device time inside it);
+ 14. its cached steps and validation (expected: nothing launched, no
+     ResNet50 forward; `output_images` has a gradient and trains; the image
+     encoder, VAE and PointNet bitwise unchanged);
+ 15. the test CLI (`seeme_tpu_torch.test`) on that checkpoint, 2
+     replications over the 64-sample synthetic test split (expected: the
+     condition encode once, input block 1, split block 3, ResNet50 1, DDIM 2)
+     with finite mean / CI / min / max in its metrics JSON.
+Then one JSON line of per-kernel numbers (each kernel's launches on every
+path; kernel 3's numbers at 1 and 3 condition tokens), the card's name and
+power limit, and, last, `{"ok": true, "device": {...}}`. Any failed check exits non-zero
 at once. Random weights: the seeded init plus a seeded perturbation, so the
 zero-initialized output projections carry signal.
 """
@@ -154,6 +175,8 @@ def main() -> int:
         print(f"chip_smoke: seeme_tpu_torch was imported from {pkg_dir}, not from beside "
               f"this script ({here})", file=sys.stderr)
         return 2
+    # full float32 products and convolutions (cuDNN's default is TF32), as
+    # the JAX package's tests pin `highest`
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -165,7 +188,8 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     kind = torch.cuda.get_device_name(0)
     phase(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind} "
-          f"x{torch.cuda.device_count()}", t)
+          f"x{torch.cuda.device_count()} | allow_tf32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}", t)
 
     # ---- 2. build
     t = time.perf_counter()
@@ -363,6 +387,11 @@ def main() -> int:
         return out, {name: fn.launches for name, fn in counters.items()}
 
     launches = {}
+    by_path = {name: {} for name in counters}  # every kernel's launches on every path
+
+    def record(path, counts):
+        for name in by_path:
+            by_path[name][path] = counts[name]
 
     # ---- 4. the EgoBody slice, counted
     t = time.perf_counter()
@@ -386,6 +415,7 @@ def main() -> int:
     require(counts == expected, f"launch counts {counts}")
     for k in ("pointnet_input_block", "pointnet_split_block", "ddim_md_t1"):
         launches[k] = counts[k]
+    record("egobody_sampling", counts)
     means = {k: round(float(v.mean()), 4) for k, v in per_seq.items()}
     kept = filtered_means(per_seq)["kept"]
     phase(f"slice B={B}: features {tuple(feats.shape)}, launches {counts}, per-sequence "
@@ -416,6 +446,7 @@ def main() -> int:
     require(counts == {**{k: 0 for k in counters}, "ddim_fused_grid": 1},
             f"grid variant launch counts {counts}")
     launches["ddim_fused_grid"] = counts["ddim_fused_grid"]
+    record("egobody_sampling_grid_variant", counts)
     compare("grid vs loop variant features", grid_feats, loop_feats,
             float(loop_feats.abs().max()), SLICE_RTOL)
     del grid_system
@@ -443,6 +474,7 @@ def main() -> int:
             f"MR metrics {mr_means}")
     require(counts == {**{k: 0 for k in counters}, "ddim_tok_t1": 1}, f"t2m launch counts {counts}")
     launches["ddim_tok_t1"] = counts["ddim_tok_t1"]
+    record("t2m_sampling", counts)
     mr_text = json.dumps({k: round(float(v), 4) for k, v in mr_means.items()})
     phase(f"t2m slice B={B}: features {tuple(feats.shape)}, joints {tuple(joints.shape)}, "
           f"launches {counts}, MR means (mm) {mr_text} (sample + FK {sample_s:.3f} s)", t)
@@ -472,13 +504,19 @@ def main() -> int:
 
     del system, t2m, cpu_t2m, t2m_batch, batch
     torch.cuda.empty_cache()
-    by_path = train_phases(dev, counted, counters)
+    work = tempfile.mkdtemp(prefix="seeme_train_")
+    try:
+        s1_checkpoint = train_phases(dev, counted, counters, record, work)
+        by_cond = variant_phases(dev, counted, counters, record, s1_checkpoint, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     for k in kernels:
         flops, nbytes = k.pop("flops"), k.pop("bytes")
         k["launches"] = launches[k["name"]]
-        if k["name"] in by_path:  # each training phase's own count, beside the sampling path's
-            k["launches_by_path"] = by_path[k["name"]]
+        k["launches_by_path"] = by_path[k["name"]]  # beside the EgoBody sampling path's count
+        if k["name"] == "ddim_md_t1":  # at the condition-token counts of the other configs
+            k["at_n_cond"] = by_cond
         k["bound_ms"] = bound_ms(flops, nbytes)
         k["bound_by"] = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         k["library_ms"] = None  # no single PyTorch call computes any of these functions
@@ -489,9 +527,10 @@ def main() -> int:
     return 0
 
 
-def train_phases(dev, counted, counters) -> dict:
-    """Phases 6-10: the EgoBody main path's two training stages on the card.
-    Returns each kernel's launches in each training phase."""
+def train_phases(dev, counted, counters, record, work: str) -> str:
+    """Phases 6-10: the EgoBody main path's two training stages on the card,
+    in `work`. Records each kernel's launches in each training phase;
+    returns the stage-1 checkpoint."""
     import torch
 
     from seeme_tpu_torch.core.smpl import synthetic_smpl
@@ -505,11 +544,6 @@ def train_phases(dev, counted, counters) -> dict:
     from seeme_tpu_torch.train.state import make_optimizer, set_stage
 
     none = {k: 0 for k in counters}
-    by_path = {"pointnet_input_block": {}, "pointnet_split_block": {}, "ddim_md_t1": {}}
-
-    def record(path, counts):
-        for k in by_path:
-            by_path[k][path] = counts[k]
 
     def step_summary(trainer):
         losses = [s["total"] for r in trainer.history for s in r["steps"]]
@@ -525,159 +559,470 @@ def train_phases(dev, counted, counters) -> dict:
         set_stage(trainer.system, trainer.stage)
         return out
 
-    work = tempfile.mkdtemp(prefix="seeme_train_")
-    try:
-        # ---- 6. stage 1
-        t = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        s1, counts = counted(lambda: main(["--preset", "vae_egobody", "--epochs", "2",
-                                           "--out", os.path.join(work, "s1")]))
-        peak = torch.cuda.max_memory_allocated()
-        require(counts == none, f"stage 1 launch counts {counts}")
-        losses, ms = step_summary(s1)
-        first, last = s1.history[0]["means"]["total"], s1.history[-1]["means"]["total"]
-        require(len(losses) == 8, f"stage 1 took {len(losses)} steps")
-        require(last < first, f"stage 1 epoch losses {first} -> {last} did not fall")
-        phase(f"train stage 1 (vae_egobody, B={s1.batch_size}): {len(losses)} steps, losses "
-              f"{[round(v, 5) for v in losses]}, epoch means {first:.5f} -> {last:.5f}, "
-              f"{ms[len(ms) // 2]:.3f} ms a step (median of {len(ms)}, min {ms[0]:.3f}, max "
-              f"{ms[-1]:.3f}), peak memory {peak} B, launches {counts}", t)
+    # ---- 6. stage 1
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    s1, counts = counted(lambda: main(["--preset", "vae_egobody", "--epochs", "2",
+                                       "--out", os.path.join(work, "s1")]))
+    peak = torch.cuda.max_memory_allocated()
+    require(counts == none, f"stage 1 launch counts {counts}")
+    record("train_stage1", counts)
+    losses, ms = step_summary(s1)
+    first, last = s1.history[0]["means"]["total"], s1.history[-1]["means"]["total"]
+    require(len(losses) == 8, f"stage 1 took {len(losses)} steps")
+    require(last < first, f"stage 1 epoch losses {first} -> {last} did not fall")
+    phase(f"train stage 1 (vae_egobody, B={s1.batch_size}): {len(losses)} steps, losses "
+          f"{[round(v, 5) for v in losses]}, epoch means {first:.5f} -> {last:.5f}, "
+          f"{ms[len(ms) // 2]:.3f} ms a step (median of {len(ms)}, min {ms[0]:.3f}, max "
+          f"{ms[-1]:.3f}), peak memory {peak} B, launches {counts}", t)
 
-        # ---- 7. stage 2: set-up, cache fill, epochs, validation
-        t = time.perf_counter()
-        argv = ["--preset", "mld_egobody", "--epochs", "2", "--out", os.path.join(work, "s2"),
-                "--pretrained_vae", s1.checkpoints[-1], "train.val_every_steps=2"]
-        s2 = Trainer(parse_args(argv))
-        sd1 = s1.system.state_dict()
-        loaded = {k: v.clone() for k, v in s2.system.state_dict().items()}
-        require(all(torch.equal(loaded[k], v) for k, v in sd1.items() if k.startswith("vae.")),
-                "stage 2 did not load the stage-1 VAE")
-        s2.system.kernel_operands()  # DDIM copies of the untrained denoiser, to be outdated
-        torch.cuda.reset_peak_memory_stats()
-        fill_s, counts = counted(s2.fill_feature_cache)
-        expected = {**none, "pointnet_input_block": 5, "pointnet_split_block": 15}
-        require(counts == expected, f"cache fill launch counts {counts}")
-        record("train_stage2_cache_fill", counts)
-        val_before = fixed_eval_loss(s2)
-        _, counts = counted(s2.fit)
-        peak = torch.cuda.max_memory_allocated()
-        require(counts == none, f"stage 2 epochs launch counts {counts}")
-        record("train_stage2_cached_steps", counts)
-        losses, ms = step_summary(s2)
-        require(len(losses) == 8 and "val" in s2.history[-1], "stage 2 steps or validation")
-        val_after = fixed_eval_loss(s2)
-        require(val_after < val_before, f"stage 2 fixed-draw val loss {val_before} -> {val_after}")
-        after = s2.system.state_dict()
-        for k, v in after.items():
-            if k.startswith(("vae.", "proscene.")):
-                require(torch.equal(v, loaded[k]), f"frozen {k} changed")
-            elif k.startswith("output_scene.1."):
-                require(not torch.equal(v, loaded[k]), f"trainable {k} did not change")
-        require(any(not torch.equal(v, loaded[k]) for k, v in after.items()
-                    if k.startswith("denoiser.")), "the denoiser did not change")
-        first, last = s2.history[0]["means"]["total"], s2.history[-1]["means"]["total"]
-        phase(f"train stage 2 (mld_egobody, B={s2.batch_size}): cache fill {fill_s:.3f} s, "
-              f"launches {expected}; {len(losses)} steps, losses {[round(v, 5) for v in losses]}, "
-              f"epoch means {first:.5f} -> {last:.5f}, val {s2.history[-1]['val']['total']:.5f}, "
-              f"fixed-draw val {val_before:.5f} -> {val_after:.5f}, {ms[len(ms) // 2]:.3f} ms a "
-              f"step (median of {len(ms)}, min {ms[0]:.3f}, max {ms[-1]:.3f}), peak memory "
-              f"{peak} B", t)
+    # ---- 7. stage 2: set-up, cache fill, epochs, validation
+    t = time.perf_counter()
+    argv = ["--preset", "mld_egobody", "--epochs", "2", "--out", os.path.join(work, "s2"),
+            "--pretrained_vae", s1.checkpoints[-1], "train.val_every_steps=2"]
+    s2 = Trainer(parse_args(argv))
+    sd1 = s1.system.state_dict()
+    loaded = {k: v.clone() for k, v in s2.system.state_dict().items()}
+    require(all(torch.equal(loaded[k], v) for k, v in sd1.items() if k.startswith("vae.")),
+            "stage 2 did not load the stage-1 VAE")
+    s2.system.kernel_operands()  # DDIM copies of the untrained denoiser, to be outdated
+    torch.cuda.reset_peak_memory_stats()
+    fill_s, counts = counted(s2.fill_feature_cache)
+    expected = {**none, "pointnet_input_block": 5, "pointnet_split_block": 15}
+    require(counts == expected, f"cache fill launch counts {counts}")
+    record("train_stage2_cache_fill", counts)
+    val_before = fixed_eval_loss(s2)
+    _, counts = counted(s2.fit)
+    peak = torch.cuda.max_memory_allocated()
+    require(counts == none, f"stage 2 epochs launch counts {counts}")
+    record("train_stage2_cached_steps", counts)
+    losses, ms = step_summary(s2)
+    require(len(losses) == 8 and "val" in s2.history[-1], "stage 2 steps or validation")
+    val_after = fixed_eval_loss(s2)
+    require(val_after < val_before, f"stage 2 fixed-draw val loss {val_before} -> {val_after}")
+    after = s2.system.state_dict()
+    for k, v in after.items():
+        if k.startswith(("vae.", "proscene.")):
+            require(torch.equal(v, loaded[k]), f"frozen {k} changed")
+        elif k.startswith("output_scene.1."):
+            require(not torch.equal(v, loaded[k]), f"trainable {k} did not change")
+    require(any(not torch.equal(v, loaded[k]) for k, v in after.items()
+                if k.startswith("denoiser.")), "the denoiser did not change")
+    first, last = s2.history[0]["means"]["total"], s2.history[-1]["means"]["total"]
+    phase(f"train stage 2 (mld_egobody, B={s2.batch_size}): cache fill {fill_s:.3f} s, "
+          f"launches {expected}; {len(losses)} steps, losses {[round(v, 5) for v in losses]}, "
+          f"epoch means {first:.5f} -> {last:.5f}, val {s2.history[-1]['val']['total']:.5f}, "
+          f"fixed-draw val {val_before:.5f} -> {val_after:.5f}, {ms[len(ms) // 2]:.3f} ms a "
+          f"step (median of {len(ms)}, min {ms[0]:.3f}, max {ms[-1]:.3f}), peak memory "
+          f"{peak} B", t)
 
-        t = time.perf_counter()
-        for name, trainer in (("stage 1", s1), ("stage 2", s2)):
-            busy, wall, events = device_busy(trainer, 3)
-            print(f"    {name}: device busy {busy:.3f} of {wall:.3f} ms over 3 more steps "
-                  f"(torch.profiler on, {events} device kernels and copies): idle share "
-                  f"{1 - busy / wall:.3f}", flush=True)
-        phase("training steps' device idle share (extra steps after the checks, not counted)", t)
+    t = time.perf_counter()
+    for name, trainer in (("stage 1", s1), ("stage 2", s2)):
+        busy, wall, events = device_busy(trainer, 3)
+        print(f"    {name}: device busy {busy:.3f} of {wall:.3f} ms over 3 more steps "
+              f"(torch.profiler on, {events} device kernels and copies): idle share "
+              f"{1 - busy / wall:.3f}", flush=True)
+    phase("training steps' device idle share (extra steps after the checks, not counted)", t)
 
-        t = time.perf_counter()
-        kernel_ms = profile_fill(s2)
-        phase(f"cache fill, PointNet kernels' device time (torch.profiler, second fill): "
-              f"{json.dumps(kernel_ms)}", t)
+    t = time.perf_counter()
+    kernel_ms = profile_fill(s2)
+    phase(f"cache fill, PointNet kernels' device time (torch.profiler, second fill): "
+          f"{json.dumps(kernel_ms)}", t)
 
-        # ---- 8. CFG training at guidance 2.5 (no cache)
+    # ---- 8. CFG training at guidance 2.5 (no cache)
+    t = time.perf_counter()
+    cfg_run = Trainer(parse_args(["--preset", "mld_egobody", "--out",
+                                  os.path.join(work, "s2_cfg"), "--pretrained_vae",
+                                  s1.checkpoints[-1], "model.guidance_scale=2.5"]))
+    require(cfg_run.fill_feature_cache() is None, "the cache filled at guidance 2.5")
+    batches = cfg_run.train_batches(0)
+    for i in range(2):
+        b = to_torch(next(batches), dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        terms, counts = counted(lambda: train_step(
+            cfg_run.system, "diffusion", cfg_run.optimizer, cfg_run.schedule, i, b,
+            cfg_run.generator))
+        end.record()
+        end.synchronize()
+        require(counts == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3},
+                f"guidance 2.5 step launch counts {counts}")
+        require(math.isfinite(terms["total"]), f"guidance 2.5 loss {terms}")
+        phase(f"train stage 2 at guidance 2.5, step {i}: loss {terms['total']:.5f}, "
+              f"{start.elapsed_time(end):.3f} ms, launches {counts}", t)
         t = time.perf_counter()
-        cfg_run = Trainer(parse_args(["--preset", "mld_egobody", "--out",
-                                      os.path.join(work, "s2_cfg"), "--pretrained_vae",
-                                      s1.checkpoints[-1], "model.guidance_scale=2.5"]))
-        require(cfg_run.fill_feature_cache() is None, "the cache filled at guidance 2.5")
-        batches = cfg_run.train_batches(0)
-        for i in range(2):
-            b = to_torch(next(batches), dev)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            terms, counts = counted(lambda: train_step(
-                cfg_run.system, "diffusion", cfg_run.optimizer, cfg_run.schedule, i, b,
-                cfg_run.generator))
-            end.record()
-            end.synchronize()
-            require(counts == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3},
-                    f"guidance 2.5 step launch counts {counts}")
-            require(math.isfinite(terms["total"]), f"guidance 2.5 loss {terms}")
-            phase(f"train stage 2 at guidance 2.5, step {i}: loss {terms['total']:.5f}, "
-                  f"{start.elapsed_time(end):.3f} ms, launches {counts}", t)
-            t = time.perf_counter()
-        record("train_stage2_cfg_step", counts)
-        del cfg_run, batches, b
+    record("train_stage2_cfg_step", counts)
+    del cfg_run, batches, b
 
-        # ---- 9. sampling on the trained weights
-        t = time.perf_counter()
-        system = s2.system
-        set_stage(system, None)
-        vb = to_torch(next(s2.datamodule.batches("val", s2.batch_size, shuffle=False)), dev)
-        cond = system.encode_conditioning(vb)
-        z0 = torch.randn(cond.shape[0], 1, system.cfg.latent_dim[-1],
-                         generator=torch.Generator().manual_seed(SEED + 11)).to(dev)
-        feats, counts = counted(lambda: system.sample_from_cond(cond, z_init=z0))
-        require(counts == {**none, "ddim_md_t1": 1}, f"sampling launch counts {counts}")
-        record("sample_after_training", counts)
+    # ---- 9. sampling on the trained weights
+    t = time.perf_counter()
+    system = s2.system
+    set_stage(system, None)
+    vb = to_torch(next(s2.datamodule.batches("val", s2.batch_size, shuffle=False)), dev)
+    cond = system.encode_conditioning(vb)
+    z0 = torch.randn(cond.shape[0], 1, system.cfg.latent_dim[-1],
+                     generator=torch.Generator().manual_seed(SEED + 11)).to(dev)
+    feats, counts = counted(lambda: system.sample_from_cond(cond, z_init=z0))
+    require(counts == {**none, "ddim_md_t1": 1}, f"sampling launch counts {counts}")
+    record("sample_after_training", counts)
+    sd, weights, _ = system.kernel_operands()
+    args = (sd, cond, z0, system.schedule, system.cfg.num_inference_timesteps,
+            system.cfg.num_layers, system.cfg.guidance_scale)
+    z_p = dfu.ddim_fused_plain(*args)
+    compare("ddim_fused on the trained weights", dfu.ddim_fused(*args, weights=weights), z_p,
+            float(z_p.abs().max()), DDIM_RTOL)
+    plain_feats = system.vae.decode(z_p, system.cfg.motion_length)
+    compare("sampled features on the trained weights", feats, plain_feats,
+            float(plain_feats.abs().max()), SLICE_RTOL)
+    phase(f"sampling after training (B={cond.shape[0]}): launches {counts}", t)
+    s1_checkpoint = s1.checkpoints[-1]
+    del s1, s2, system
+    torch.cuda.empty_cache()
+
+    # ---- 10. one step of each stage, card vs CPU
+    t = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"    torch.backends.cuda.matmul.allow_tf32={flags[0]}, "
+          f"torch.backends.cudnn.allow_tf32={flags[1]}", flush=True)
+    require(flags == (False, False), "TF32 is on; the card-vs-CPU step needs f32 products")
+    small = dict(latent_dim=(1, 32), ff_size=16, num_layers=3, scene_points=64,
+                 scene_feat_dim=32, dropout=0.0)
+    for stage, condition in (("vae", ()), ("diffusion", ("interactee", "scene"))):
+        data = SyntheticEgoDataset(3, 60, scene_points=64, with_scene=bool(condition),
+                                   seed=SEED)
+        runs = {}
+        for device in ("cpu", dev):
+            s = SeeMeSystem(SeeMeConfig(condition=condition, **small),
+                            synthetic_smpl(256, seed=SEED), data.mean, data.std,
+                            device=device, seed=SEED)
+            perturb_parameters_(s, torch.Generator().manual_seed(SEED + 12))
+            runs[str(device)] = (s, *make_optimizer(stage, s, lr=TRAIN_LR))
+        cpu_batch = to_torch(data.batch(0, 3), "cpu")
+        draws = runs["cpu"][0].loss_draws(stage, cpu_batch,
+                                          torch.Generator().manual_seed(SEED + 13))
+        out = {}
+        for device, (s, opt, sched) in runs.items():
+            on = {k: v.to(device) for k, v in cpu_batch.items()}
+            terms = train_step(s, stage, opt, sched, 0, on,
+                               draws={k: v.to(device) for k, v in draws.items()})
+            out[device] = terms["total"]
+        compare_step(stage, runs["cpu"][0], runs[str(dev)][0], out["cpu"], out[str(dev)],
+                     TRAIN_LR)
+    phase("card vs CPU: one step of each stage at the small size agrees", t)
+    return s1_checkpoint
+
+
+def variant_phases(dev, counted, counters, record, s1_checkpoint: str, work: str) -> dict:
+    """Phases 11-15: the image-conditioned SEE-ME, GIMO and the
+    interactee-only config at full width (B=64), stage 2 of the image config,
+    and the test CLI. Records each kernel's launches on each path; returns
+    kernel 3's numbers at 3 and 1 condition tokens."""
+    import torch
+
+    from seeme_tpu_torch.config.egobody import PRESETS
+    from seeme_tpu_torch.core.smpl import synthetic_smpl
+    from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
+    from seeme_tpu_torch.eval.metrics import EgoMetric
+    from seeme_tpu_torch.models.seeme import SeeMeSystem
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.test.__main__ import Evaluator
+    from seeme_tpu_torch.test.__main__ import parse_args as test_args
+    from seeme_tpu_torch.train.__main__ import Trainer
+    from seeme_tpu_torch.train.__main__ import parse_args as train_args
+
+    none = {k: 0 for k in counters}
+    smpl = synthetic_smpl(n_verts=6890, seed=SEED)
+    by_cond = {}
+
+    def build(cfg, data, device):
+        s = SeeMeSystem(cfg, smpl, data.mean, data.std, device=device, seed=SEED)
+        perturb_parameters_(s, torch.Generator().manual_seed(SEED + 21))
+        if s.use_image:
+            randomize_batch_stats_(s.image_encoder, torch.Generator().manual_seed(SEED + 22))
+        return s
+
+    def dataset(cfg, n, points, image_size, seed):
+        return SyntheticEgoDataset(n, cfg.motion_length, pose_feats=cfg.pose_feats,
+                                   scene_points=points, with_scene="scene" in cfg.condition,
+                                   with_image="image" in cfg.condition, image_size=image_size,
+                                   seed=seed)
+
+    def ego_slice(system, batch, gen):
+        feats = system.sample_from_cond(system.encode_conditioning(batch), generator=gen)
+        out = system.eval_fk(batch, feats)
+        metric = EgoMetric(split="val")  # every sequence counts: no filter to empty a small batch
+        mask = torch.ones(feats.shape[:2], dtype=torch.bool, device=feats.device)
+        metric.update(out["joints_rst"], out["joints_ref"], out["quat_rst"], out["quat_ref"], mask)
+        return feats, out, metric.compute()
+
+    def card_vs_cpu(label, cfg, points, image_size):
+        """The card path against the CPU's plain path on a small input (B=2)."""
+        data = dataset(cfg, 2, points, image_size, SEED + 23)
+        card, cpu = build(cfg, data, dev), build(cfg, data, "cpu")
+        small = to_torch(data.batch(0, 2), "cpu")
+        z = torch.randn(2, 1, cfg.latent_dim[-1], generator=torch.Generator().manual_seed(SEED + 24))
+        results = []
+        for s, d in ((cpu, "cpu"), (card, dev)):
+            b = {k: v.to(d) for k, v in small.items()}
+            feats = s.sample_from_cond(s.encode_conditioning(b), z_init=z.to(d))
+            out = s.eval_fk(b, feats)
+            metric = EgoMetric(split="val")
+            metric.update(out["joints_rst"], out["joints_ref"], out["quat_rst"], out["quat_ref"],
+                          torch.ones(2, cfg.motion_length, dtype=torch.bool, device=d))
+            results.append((feats.cpu(), out["joints_rst"].cpu(), metric.compute()))
+        (f_ref, j_ref, m_ref), (f_got, j_got, m_got) = results
+        compare(f"{label} features, card vs CPU", f_got, f_ref, float(f_ref.abs().max()), SLICE_RTOL)
+        compare(f"{label} joints, card vs CPU", j_got, j_ref, float(j_ref.abs().max()), SLICE_RTOL)
+        require(set(m_got) == set(m_ref) == {"MPJPE", "ROOT_ERROR", "HEAD_ORIENTATION_ERROR",
+                                             "ACCL"}, f"{label} metric keys {sorted(m_got)}")
+        for k in sorted(m_ref):
+            compare(f"{label} {k}, card vs CPU", torch.tensor(m_got[k]), torch.tensor(m_ref[k]),
+                    abs(m_ref[k]), SLICE_RTOL)
+
+    def kernel_at(label, system, cond, guidance, z0):
+        """Kernel 3 on these condition rows against its plain version: error,
+        launch plan, ms, plain ms, bound."""
         sd, weights, _ = system.kernel_operands()
-        args = (sd, cond, z0, system.schedule, system.cfg.num_inference_timesteps,
-                system.cfg.num_layers, system.cfg.guidance_scale)
+        cfg = system.cfg
+        args = (sd, cond.contiguous(), z0, system.schedule, cfg.num_inference_timesteps,
+                cfg.num_layers, guidance)
+        z_k = dfu.ddim_fused(*args, weights=weights)
         z_p = dfu.ddim_fused_plain(*args)
-        compare("ddim_fused on the trained weights", dfu.ddim_fused(*args, weights=weights), z_p,
-                float(z_p.abs().max()), DDIM_RTOL)
-        plain_feats = system.vae.decode(z_p, system.cfg.motion_length)
-        compare("sampled features on the trained weights", feats, plain_feats,
-                float(plain_feats.abs().max()), SLICE_RTOL)
-        phase(f"sampling after training (B={cond.shape[0]}): launches {counts}", t)
-        del s1, s2, system
-        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        B, nc = z0.shape[0], cond.shape[1]
+        err = compare(f"{label}: ddim_fused at NC={nc}, guidance {guidance}", z_k, z_p,
+                      float(z_p.abs().max()), DDIM_RTOL)
+        info = dfu.cluster_launch(True, B, nc, weights, guidance)
+        print_launch(info)
+        ms = time_ms(lambda: dfu.ddim_fused(*args, weights=weights), 3)
+        plain_ms = time_ms(lambda: dfu.ddim_fused_plain(*args), 2)
+        steps = cfg.num_inference_timesteps
+        flops = ddim_flops(sd, cfg.num_layers, cond.shape[0], nc, steps)
+        nbytes = 4 * (sum(v.numel() for v in sd.values()) + cond.numel() + 2 * z0.numel()
+                      + 2 * steps)
+        by_cond[f"n_cond={nc}, guidance={guidance}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(flops, nbytes),
+            bound_by="operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+            launch=info)
+        return ms, plain_ms, bound_ms(flops, nbytes)
 
-        # ---- 10. one step of each stage, card vs CPU
+    # ---- 11. the image-conditioned SEE-ME at full width
+    t = time.perf_counter()
+    cfg = PRESETS["mld_egobody_image"]().model
+    data = dataset(cfg, BATCH, cfg.scene_points, cfg.image_size, SEED)
+    system = build(cfg, data, dev)
+    batch = to_torch(data.batch(0, BATCH), dev)
+    resnet_calls = forward_counter(system.image_encoder)
+    phase(f"set-up: mld_egobody_image system ({sum(p.numel() for p in system.parameters())} "
+          f"params), batch {BATCH}, {cfg.scene_points} points, {cfg.image_size}x{cfg.image_size} "
+          f"crops", t)
+    t = time.perf_counter()
+    z0 = torch.randn(BATCH, 1, cfg.latent_dim[-1],
+                     generator=torch.Generator().manual_seed(SEED + 25)).to(dev)
+    cond = system.encode_conditioning(batch)
+    zeroed = dict(batch, **{k: torch.zeros_like(batch[k]) for k in ("feats", "transl", "scene",
+                                                                    "image")})
+    cond_cfg = torch.cat([system.encode_conditioning(zeroed), cond])
+    for g, c in ((cfg.guidance_scale, cond), (2.5, cond_cfg)):
+        ms, plain_ms, bnd = kernel_at("image slice", system, c, g, z0)
+        phase(f"kernel ddim_md_t1 at NC=3 (B={BATCH}, guidance {g}): {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bnd:.4f} ms", t)
         t = time.perf_counter()
-        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        print(f"    torch.backends.cuda.matmul.allow_tf32={flags[0]}, "
-              f"torch.backends.cudnn.allow_tf32={flags[1]}", flush=True)
-        require(flags == (False, False), "TF32 is on; the card-vs-CPU step needs f32 products")
-        small = dict(latent_dim=(1, 32), ff_size=16, num_layers=3, scene_points=64,
-                     scene_feat_dim=32, dropout=0.0)
-        for stage, condition in (("vae", ()), ("diffusion", ("interactee", "scene"))):
-            data = SyntheticEgoDataset(3, 60, scene_points=64, with_scene=bool(condition),
-                                       seed=SEED)
-            runs = {}
-            for device in ("cpu", dev):
-                s = SeeMeSystem(SeeMeConfig(condition=condition, **small),
-                                synthetic_smpl(256, seed=SEED), data.mean, data.std,
-                                device=device, seed=SEED)
-                perturb_parameters_(s, torch.Generator().manual_seed(SEED + 12))
-                runs[str(device)] = (s, *make_optimizer(stage, s, lr=TRAIN_LR))
-            cpu_batch = to_torch(data.batch(0, 3), "cpu")
-            draws = runs["cpu"][0].loss_draws(stage, cpu_batch,
-                                              torch.Generator().manual_seed(SEED + 13))
-            out = {}
-            for device, (s, opt, sched) in runs.items():
-                on = {k: v.to(device) for k, v in cpu_batch.items()}
-                terms = train_step(s, stage, opt, sched, 0, on,
-                                   draws={k: v.to(device) for k, v in draws.items()})
-                out[device] = terms["total"]
-            compare_step(stage, runs["cpu"][0], runs[str(dev)][0], out["cpu"], out[str(dev)],
-                         TRAIN_LR)
-        phase("card vs CPU: one step of each stage at the small size agrees", t)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return by_path
+    resnet_ms = time_ms(lambda: system.image_features(batch["image"]), 3)
+    phase(f"ResNet50 at B={BATCH}, {cfg.image_size}x{cfg.image_size}: {resnet_ms:.3f} ms "
+          f"(CUDA events, TF32 off)", t)
+
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    resnet_calls.clear()
+    (feats, out, means), counts = counted(lambda: ego_slice(system, batch, gen))
+    slice_s = time.perf_counter() - t
+    expected = {**none, "pointnet_input_block": 1, "pointnet_split_block": 3, "ddim_md_t1": 1}
+    require(counts == expected and len(resnet_calls) == 1,
+            f"image slice launch counts {counts}, ResNet50 forwards {len(resnet_calls)}")
+    record("image_sampling", counts)
+    require(tuple(feats.shape) == (BATCH, cfg.motion_length, cfg.nfeats), f"features {feats.shape}")
+    for k, v in out.items():
+        require(bool(torch.isfinite(v).all()), f"image slice {k} not finite")
+    require(all(math.isfinite(v) for v in means.values()), f"image slice metrics {means}")
+    phase(f"image slice B={BATCH}: launches {counts}, ResNet50 forwards 1, EgoMetric (all "
+          f"sequences) {json.dumps({k: round(v, 4) for k, v in means.items()})} "
+          f"({slice_s:.3f} s)", t)
+
+    # where the slice's time goes: each part timed with CUDA events on the same batch
+    t = time.perf_counter()
+    sd, weights, _ = system.kernel_operands()
+    parts = {
+        "pointnet": lambda: system.scene_features(batch["scene"]),
+        "resnet50": lambda: system.image_features(batch["image"]),
+        "interactee_encode_and_projections": lambda: system.encode_conditioning(cached),
+        "ddim": lambda: dfu.ddim_fused(sd, cond, z0, system.schedule, cfg.num_inference_timesteps,
+                                       cfg.num_layers, cfg.guidance_scale, weights=weights),
+        "decode": lambda: system.vae.decode(z0, cfg.motion_length),
+        "fk": lambda: system.eval_fk(batch, feats),
+    }
+    cached = {k: v for k, v in batch.items() if k not in ("scene", "image")}
+    cached["scene_feats"] = system.scene_features(batch["scene"])
+    cached["image_feats"] = system.image_features(batch["image"])
+    split_ms = {name: time_ms(fn, 3) for name, fn in parts.items()}
+    phase(f"image slice time split (ms, CUDA events, each part alone): "
+          f"{json.dumps({k: round(v, 3) for k, v in split_ms.items()})}", t)
+    del system, batch, cond, cond_cfg, cached, feats, out
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    card_vs_cpu("image slice", dataclasses.replace(cfg, scene_points=512, image_size=64), 512, 64)
+    phase("image slice reference: card path agrees with the CPU plain path (B=2, 512 points, "
+          "64x64 crops)", t)
+
+    # ---- 12. GIMO and the interactee-only config at full width
+    for name, nc in (("mld_gimo", 2), ("mld_interactee", 1)):
+        t = time.perf_counter()
+        cfg = PRESETS[name]().model
+        data = dataset(cfg, BATCH, cfg.scene_points, cfg.image_size, SEED + 27)
+        system = build(cfg, data, dev)
+        batch = to_torch(data.batch(0, BATCH), dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+        (feats, out, means), counts = counted(lambda: ego_slice(system, batch, gen))
+        wall = time.perf_counter() - t
+        scene = int(system.use_scene)
+        expected = {**none, "pointnet_input_block": scene, "pointnet_split_block": 3 * scene,
+                    "ddim_md_t1": 1}
+        require(counts == expected, f"{name} launch counts {counts}")
+        record(f"{name}_sampling", counts)
+        require(tuple(feats.shape) == (BATCH, cfg.motion_length, cfg.nfeats), f"{name} features")
+        for k, v in out.items():
+            require(bool(torch.isfinite(v).all()), f"{name} {k} not finite")
+        require(all(math.isfinite(v) for v in means.values()), f"{name} metrics {means}")
+        phase(f"{name} B={BATCH} ({cfg.nfeats} features, NC={nc}): launches {counts}, EgoMetric "
+              f"(all sequences) {json.dumps({k: round(v, 4) for k, v in means.items()})} "
+              f"({wall:.3f} s with set-up)", t)
+        if nc == 1:
+            t = time.perf_counter()
+            z0 = torch.randn(BATCH, 1, cfg.latent_dim[-1],
+                             generator=torch.Generator().manual_seed(SEED + 29)).to(dev)
+            ms, plain_ms, bnd = kernel_at(name, system, system.encode_conditioning(batch),
+                                          cfg.guidance_scale, z0)
+            phase(f"kernel ddim_md_t1 at NC=1 (B={BATCH}, guidance {cfg.guidance_scale}): "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms", t)
+        del system, batch, feats, out
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        card_vs_cpu(name, dataclasses.replace(cfg, scene_points=512), 512, cfg.image_size)
+        phase(f"{name} reference: card path agrees with the CPU plain path (B=2, 512 points)", t)
+
+    # ---- 13-14. stage 2 of the image config: the feature cache, cached steps
+    t = time.perf_counter()
+    trainer = Trainer(train_args(["--preset", "mld_egobody_image", "--epochs", "1",
+                                  "--out", os.path.join(work, "s2_image"), "--pretrained_vae",
+                                  s1_checkpoint, "train.val_every_steps=1"]))
+    system = trainer.system
+    frozen = {k: v.clone() for k, v in system.state_dict().items()
+              if k.startswith(("image_encoder.", "vae.", "proscene."))}
+    projection = system.output_images[1].weight.detach().clone()
+    resnet_calls = forward_counter(system.image_encoder)
+    resnet_events = []
+    timed_image_features(system, resnet_events)
+    phase(f"set-up: mld_egobody_image trainer (B={trainer.batch_size}, "
+          f"{trainer.steps_per_epoch} steps an epoch)", t)
+    t = time.perf_counter()
+    fill_s, counts = counted(trainer.fill_feature_cache)
+    resnet_ms = sum(a.elapsed_time(b) for a, b in resnet_events)
+    expected = {**none, "pointnet_input_block": 5, "pointnet_split_block": 15}
+    require(counts == expected and len(resnet_calls) == 5,
+            f"image cache fill launch counts {counts}, ResNet50 forwards {len(resnet_calls)}")
+    record("train_image_cache_fill", counts)
+    require(trainer.datamodule.train_set.extras["image_feats"].shape == (256, 2048),
+            "image_feats cache shape")
+    phase(f"image cache fill: {fill_s:.3f} s, launches {counts}, ResNet50 forwards "
+          f"{len(resnet_calls)} taking {resnet_ms:.3f} ms of device time (CUDA events around "
+          f"each)", t)
+    t = time.perf_counter()
+    resnet_calls.clear()
+    _, counts = counted(trainer.fit)
+    require(counts == none and not resnet_calls,
+            f"cached image steps launch counts {counts}, ResNet50 forwards {len(resnet_calls)}")
+    record("train_image_cached_steps", counts)
+    steps = [st["total"] for r in trainer.history for st in r["steps"]]
+    ms = sorted(m for r in trainer.history for m in r["step_ms"][1:])
+    require(all(math.isfinite(v) for v in steps) and "val" in trainer.history[-1],
+            f"image stage 2 losses {steps}")
+    grad = system.output_images[1].weight.grad
+    require(grad is not None and float(grad.abs().max()) > 0, "output_images has no gradient")
+    require(not torch.equal(system.output_images[1].weight, projection),
+            "output_images did not train")
+    after = system.state_dict()
+    for k, v in frozen.items():
+        require(torch.equal(after[k], v), f"frozen {k} changed")
+    phase(f"image stage 2: {len(steps)} cached steps, losses {[round(v, 5) for v in steps]}, "
+          f"{ms[len(ms) // 2]:.3f} ms a step (median of {len(ms)}), val "
+          f"{trainer.history[-1]['val']['total']:.5f}, launches {counts}, ResNet50 forwards 0, "
+          f"output_images max |g| {float(grad.abs().max()):.3e}, image_encoder, vae and "
+          f"proscene bitwise unchanged", t)
+    checkpoint = trainer.checkpoints[-1]
+    del trainer, system, frozen, after
+    torch.cuda.empty_cache()
+
+    # ---- 15. the test CLI on the trained image config, 2 replications
+    t = time.perf_counter()
+    evaluator = Evaluator(test_args(["--preset", "mld_egobody_image", "--replication_times", "2",
+                                     "--checkpoint", checkpoint, "--out",
+                                     os.path.join(work, "test_image")]))
+    resnet_calls = forward_counter(evaluator.system.image_encoder)
+    result, counts = counted(evaluator.run)
+    expected = {**none, "pointnet_input_block": 1, "pointnet_split_block": 3, "ddim_md_t1": 2}
+    require(counts == expected and len(resnet_calls) == 1,
+            f"test CLI launch counts {counts}, ResNet50 forwards {len(resnet_calls)} (one batch "
+            f"of 64, two replications)")
+    record("test_cli_2_replications", counts)
+    with open(result["metrics_path"]) as f:
+        stats = json.load(f)
+    require(set(stats) == {"MPJPE", "ROOT_ERROR", "HEAD_ORIENTATION_ERROR", "ACCL"}
+            and all(set(v) == {"mean", "conf_interval", "min", "max"}
+                    and all(math.isfinite(x) for x in v.values()) for v in stats.values()),
+            f"test CLI statistics {stats}")
+    phase(f"test CLI (mld_egobody_image, 2 replications over the 64-sample test split): "
+          f"launches {counts}, ResNet50 forwards 1, statistics "
+          f"{json.dumps({k: {n: round(x, 4) for n, x in v.items()} for k, v in stats.items()})}",
+          t)
+    return by_cond
+
+
+def forward_counter(module) -> list:
+    """A list that grows by one at each forward of `module`."""
+    calls = []
+    module.register_forward_hook(lambda *_: calls.append(1))
+    return calls
+
+
+def timed_image_features(system, events: list) -> None:
+    """Wrap the system's `image_features` with CUDA events, kept in `events`."""
+    import torch
+
+    inner = system.image_features
+
+    def timed(image):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(image)
+        end.record()
+        events.append((start, end))
+        return out
+
+    system.image_features = timed
+
+
+def randomize_batch_stats_(module, generator) -> None:
+    """Running statistics away from (0, 1), drawn on the CPU, so both
+    devices get the same."""
+    import torch
+
+    with torch.no_grad():
+        for m in module.modules():
+            if hasattr(m, "running_var"):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=generator) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=generator) + 0.5)
 
 
 def compare_step(stage, cpu, card, loss_cpu, loss_card, lr: float) -> None:

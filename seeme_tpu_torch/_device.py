@@ -17,3 +17,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "seeme_tpu_torch: CUDA is not available; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+def full_float32() -> None:
+    """Run float32 matrix products and cuDNN convolutions in full float32:
+    cuDNN's default is TF32 for convolutions (about three decimal digits),
+    which the image encoder's card-vs-CPU agreement cannot take. The JAX
+    package's tests pin `highest` for the same reason."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

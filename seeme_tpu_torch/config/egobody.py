@@ -1,17 +1,24 @@
-"""Presets of the EgoBody main path's two training stages.
+"""Presets of the shipped ego configs, one a YAML file.
 
 `vae_egobody()` is `configs/config_vae_egobody.yaml` (stage 1, the motion
 VAE) and `mld_egobody()` is `configs/config_mld_egobody.yaml` (stage 2, the
 latent denoiser on interactee + scene), each over `configs/base.yaml`, as
-`seeme_tpu/config/loader.py::load_config` merges them. The port takes
-presets and not the YAML files: the card's machine has no YAML reader. Each
-field below names the YAML line it comes from.
+`seeme_tpu/config/loader.py::load_config` merges them; the other five are
+the paper's image-conditioned SEE-ME (`config_mld_egobody_image.yaml`),
+GIMO (`config_{vae,mld}_gimo.yaml`) and the interactee-only pair
+(`config_{vae,mld}_interactee.yaml`). The port takes presets and not the
+YAML files: the card's machine has no YAML reader. Each field names the YAML
+line it comes from; the five later files keep `config_*_egobody.yaml`'s
+layout line for line (the image file one line lower from its third line
+on), so the lines cited for the EgoBody presets hold for them too.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import ast
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 from ..models.seeme import SeeMeConfig
 from ..train.losses import LossWeights
@@ -39,11 +46,26 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class TestConfig:
+    """The evaluation settings `test.py` reads (TEST, :36-43 and base.yaml:39-66)."""
+
+    batch_size: int = 64        # TEST.BATCH_SIZE (:40)
+    replication_times: int = 1  # TEST.REPLICATION_TIMES (:41)
+    split: str = "test"         # TEST.SPLIT (:39): "test" applies the test-split filter
+    checkpoint: str = ""        # TEST.CHECKPOINTS (:37); empty = the seeded random init
+    mean: bool = False          # TEST.MEAN (base.yaml:52): stage 1 decodes the mean latent
+    fact: float = 1.0           # TEST.FACT (base.yaml:54): stage 1's eps scale
+    count_time: bool = False    # TEST.COUNT_TIME (base.yaml:46)
+    save_predictions: bool = False  # TEST.SAVE_PREDICTIONS (base.yaml:45)
+
+
+@dataclass(frozen=True)
 class Preset:
     name: str                   # NAME (:3), the experiment folder's name
     model: SeeMeConfig
     train: TrainConfig
     dataset: str = "egobody"    # DATASET_NAME (:8)
+    test: TestConfig = field(default_factory=TestConfig)
 
 
 # LOSS (config_*_egobody.yaml:47-57; LAMBDA_JOINT from base.yaml:72)
@@ -75,4 +97,74 @@ def mld_egobody() -> Preset:
     )
 
 
-PRESETS = {"vae_egobody": vae_egobody, "mld_egobody": mld_egobody}
+def mld_egobody_image() -> Preset:
+    """The paper's SEE-ME: stage 2 on the interactee, scene and egocentric
+    image tokens (`config_mld_egobody_image.yaml:63`), the frozen ResNet50
+    beside the frozen PointNet, over the EgoBody stage-1 VAE (:19)."""
+    p = mld_egobody()
+    return dataclasses.replace(
+        p, name="s2_scene_interactee_image",
+        model=dataclasses.replace(p.model, condition=("interactee", "scene", "image")))
+
+
+def vae_gimo() -> Preset:
+    """GIMO stage 1 (`config_vae_gimo.yaml`: DATASET_NAME gimo :8, nfeats 69
+    and njoints 21 :71-72, which `SeeMeConfig.nfeats` derives)."""
+    p = vae_egobody()
+    return dataclasses.replace(p, name="s1_gimo", dataset="gimo",
+                               model=dataclasses.replace(p.model, dataset_name="gimo"))
+
+
+def mld_gimo() -> Preset:
+    """GIMO stage 2 on interactee + scene (`config_mld_gimo.yaml`), over
+    the GIMO stage-1 VAE (:18)."""
+    p = mld_egobody()
+    return dataclasses.replace(
+        p, name="s2_scene_interactee_gimo", dataset="gimo",
+        model=dataclasses.replace(p.model, dataset_name="gimo"),
+        train=dataclasses.replace(p.train, pretrained_vae=f"{OUT_ROOT}/s1_gimo/checkpoints/latest"))
+
+
+def vae_interactee() -> Preset:
+    """Stage 1 with the interactee as the estimated actor
+    (`config_vae_interactee.yaml`: ESTIMATE interactee :5)."""
+    p = vae_egobody()
+    return dataclasses.replace(p, name="s1_interactee",
+                               model=dataclasses.replace(p.model, estimate="interactee"))
+
+
+def mld_interactee() -> Preset:
+    """Stage 2 on the interactee token alone (`config_mld_interactee.yaml`:
+    condition ['interactee'] :62), over the EgoBody stage-1 VAE (:18)."""
+    p = mld_egobody()
+    return dataclasses.replace(p, name="s2_interactee",
+                               model=dataclasses.replace(p.model, condition=("interactee",)))
+
+
+PRESETS = {"vae_egobody": vae_egobody, "mld_egobody": mld_egobody,
+           "mld_egobody_image": mld_egobody_image, "vae_gimo": vae_gimo, "mld_gimo": mld_gimo,
+           "vae_interactee": vae_interactee, "mld_interactee": mld_interactee}
+
+SECTIONS = ("model", "train", "test")
+
+
+def _literal(raw: str):
+    try:
+        v = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+    return tuple(v) if isinstance(v, list) else v
+
+
+def apply_overrides(preset: Preset, pairs: Sequence[str]) -> Preset:
+    """`model.X=V`, `train.X=V` or `test.X=V` pairs (V a Python literal)
+    over the preset's fields, as `train.py`'s dotted overrides."""
+    for pair in pairs:
+        path, sep, raw = pair.partition("=")
+        section, _, name = path.partition(".")
+        if not sep or section not in SECTIONS or not name:
+            raise ValueError(f"override {pair!r} is not model.FIELD=VALUE, train.FIELD=VALUE "
+                             "or test.FIELD=VALUE")
+        sub = dataclasses.replace(getattr(preset, section), **{name: _literal(raw)})
+        preset = dataclasses.replace(preset, **{section: sub})
+    return preset

@@ -2,12 +2,17 @@
 `tools/convert_checkpoint.py::convert_mld_checkpoint` for the sampling path.
 
 `from_jax_params({"vae": ..., "denoiser": ..., "scene_encoder": ...,
-"output_scene": ...})`, each a flax `{"params": ...}` tree of numpy arrays,
-gives a state dict that `SeeMeSystem.load_state_dict` takes (keys `vae.*`,
-`denoiser.*`, `proscene.scene_enc.*`, `output_scene.1.*`); a text-to-motion
-tree (`vae`, `denoiser` with plain encoder layers) gives one that
-`T2MSystem.load_state_dict` takes. The scene encoder's split halves join
-back into one `fc_0` / `shortcut` over [x; pooled].
+"output_scene": ..., "image_encoder": ..., "output_images": ...})`, each a
+flax `{"params": ...}` tree of numpy arrays (the image encoder's with its
+`batch_stats`), gives a state dict that `SeeMeSystem.load_state_dict` takes
+(keys `vae.*`, `denoiser.*`, `proscene.scene_enc.*`, `output_scene.1.*`,
+`image_encoder.*` in torchvision's layout, `output_images.1.*`); a
+text-to-motion tree (`vae`, `denoiser` with plain encoder layers) gives one
+that `T2MSystem.load_state_dict` takes. The scene encoder's split halves
+join back into one `fc_0` / `shortcut` over [x; pooled]; the VAE's
+`dist_layer` (MLP_DIST) and an all-encoder decoder map as they are; the
+ResNet's conv kernels go from HWIO to OIHW and its batch statistics to
+`running_mean` / `running_var`.
 """
 
 from __future__ import annotations
@@ -98,10 +103,13 @@ def vae_state_dict(p: Tree, prefix: str = "vae") -> Dict:
     _put(sd, f"{prefix}.global_motion_token", p["global_motion_token"])
     _linear(sd, f"{prefix}.skel_embedding", p["skel_embedding"])
     _linear(sd, f"{prefix}.final_layer", p["final_layer"])
+    if "dist_layer" in p:
+        _linear(sd, f"{prefix}.dist_layer", p["dist_layer"])
     _pe(sd, f"{prefix}.query_pos_encoder.pe", p["query_pos_encoder"])
     _pe(sd, f"{prefix}.query_pos_decoder.pe", p["query_pos_decoder"])
     _skip_stack(sd, f"{prefix}.encoder", p["encoder"], _encoder_layer)
-    _skip_stack(sd, f"{prefix}.decoder", p["decoder"], _decoder_layer)
+    cross = "multihead_attn" in p["decoder"]["middle"]  # encoder_decoder, not all_encoder
+    _skip_stack(sd, f"{prefix}.decoder", p["decoder"], _decoder_layer if cross else _encoder_layer)
     return sd
 
 
@@ -136,9 +144,38 @@ def pointnet_state_dict(p: Tree, prefix: str = "proscene.scene_enc") -> Dict:
     return sd
 
 
+def resnet_state_dict(tree: Tree, prefix: str = "image_encoder") -> Dict:
+    """flax ResNet50 `{"params", "batch_stats"}` (`seeme_tpu/nn/resnet.py`)
+    -> torchvision keys, the inverse of `convert_resnet50`."""
+    params, stats = tree["params"], tree["batch_stats"]
+    sd: Dict = {}
+
+    def conv(name: str, p: Tree) -> None:
+        _put(sd, f"{prefix}.{name}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+    def bn(name: str, p: Tree, s: Tree) -> None:
+        _norm(sd, f"{prefix}.{name}", p)
+        _put(sd, f"{prefix}.{name}.running_mean", s["mean"])
+        _put(sd, f"{prefix}.{name}.running_var", s["var"])
+
+    conv("conv1", params["conv1"])
+    bn("bn1", params["bn1"], stats["bn1"])
+    for name, p in params.items():
+        if not name.startswith("layer"):
+            continue
+        t = name.replace("_", ".")  # layer{s}_{b} -> layer{s}.{b}
+        for c in (1, 2, 3):
+            conv(f"{t}.conv{c}", p[f"conv{c}"])
+            bn(f"{t}.bn{c}", p[f"bn{c}"], stats[name][f"bn{c}"])
+        if "downsample_conv" in p:
+            conv(f"{t}.downsample.0", p["downsample_conv"])
+            bn(f"{t}.downsample.1", p["downsample_bn"], stats[name]["downsample_bn"])
+    return sd
+
+
 def from_jax_params(tree: Tree) -> Dict[str, torch.Tensor]:
-    """{'vae', 'denoiser', 'scene_encoder', 'output_scene'} flax trees (any
-    subset) -> one port state dict."""
+    """{'vae', 'denoiser', 'scene_encoder', 'output_scene', 'image_encoder',
+    'output_images'} flax trees (any subset) -> one port state dict."""
     sd: Dict = {}
     if "vae" in tree:
         sd.update(vae_state_dict(tree["vae"]["params"]))
@@ -146,6 +183,9 @@ def from_jax_params(tree: Tree) -> Dict[str, torch.Tensor]:
         sd.update(denoiser_state_dict(tree["denoiser"]["params"]))
     if "scene_encoder" in tree:
         sd.update(pointnet_state_dict(tree["scene_encoder"]["params"]))
-    if "output_scene" in tree:
-        _linear(sd, "output_scene.1", tree["output_scene"]["params"]["linear"])
+    if "image_encoder" in tree:
+        sd.update(resnet_state_dict(tree["image_encoder"]))
+    for name in ("output_scene", "output_images"):
+        if name in tree:
+            _linear(sd, f"{name}.1", tree[name]["params"]["linear"])
     return sd

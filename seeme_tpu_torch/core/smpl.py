@@ -1,5 +1,6 @@
-"""SMPL body model: the joints-only forward kinematics of the eval path
-(`seeme_tpu/core/smpl.py:75-296`).
+"""SMPL body model (`seeme_tpu/core/smpl.py:75-378`): the joints-only forward
+kinematics of the losses and the eval path (`smpl_joints24`), and the full
+linear-blend-skinning forward that gives the mesh (`smpl_forward`).
 
 `synthetic_smpl` makes the same numpy `RandomState` draws as the JAX
 package's, so both packages build the same body from one seed.
@@ -107,17 +108,28 @@ def _rigid_transforms(rot_mats: torch.Tensor, joints: torch.Tensor,
     return posed_joints, rel
 
 
+def _rot_mats(body_pose: torch.Tensor, global_orient: torch.Tensor,
+              pose2rot: bool) -> torch.Tensor:
+    """(B, 24, 3, 3) local rotations from axis-angle (pose2rot) or from
+    rotation matrices ((B, 23, 3, 3) pose, (B, 1, 3, 3) orientation)."""
+    B = body_pose.shape[0]
+    if pose2rot:
+        aa = torch.cat([global_orient.reshape(B, 1, 3), body_pose.reshape(B, 23, 3)], dim=1)
+        return aa_to_rotmat(aa)
+    return torch.cat([global_orient.reshape(B, 1, 3, 3), body_pose.reshape(B, 23, 3, 3)], dim=1)
+
+
 def smpl_joints24(
     model: SmplModel,
     betas: torch.Tensor,
     body_pose: torch.Tensor,
     global_orient: torch.Tensor,
     transl: torch.Tensor | None = None,
+    pose2rot: bool = True,
 ) -> torch.Tensor:
-    """The 24 skeleton joints from axis-angle pose, no vertex skinning."""
-    B = betas.shape[0]
-    aa = torch.cat([global_orient.reshape(B, 1, 3), body_pose.reshape(B, 23, 3)], dim=1)
-    rot_mats = aa_to_rotmat(aa)
+    """The 24 skeleton joints, no vertex skinning: the regressor folded
+    through the template and the shape blend shapes, then the chain."""
+    rot_mats = _rot_mats(body_pose, global_orient, pose2rot)
     j_template = model.j_regressor @ model.v_template                       # (24, 3)
     j_shapedirs = torch.einsum("jv,vdn->jdn", model.j_regressor, model.shapedirs)
     joints_rest = j_template + torch.einsum("jdn,bn->bjd", j_shapedirs, betas)
@@ -125,3 +137,44 @@ def smpl_joints24(
     if transl is not None:
         posed_joints = posed_joints + transl[:, None, :]
     return posed_joints
+
+
+def smpl_forward(
+    model: SmplModel,
+    betas: torch.Tensor,
+    body_pose: torch.Tensor,
+    global_orient: torch.Tensor,
+    transl: torch.Tensor | None = None,
+    pose2rot: bool = True,
+    return_vertices: bool = True,
+) -> dict:
+    """`smplx.SMPL.forward`: shape and pose blend shapes, the chain, linear
+    blend skinning. Returns {"joints": (B, 24 [+ 21], 3)} (the 21 extra
+    joints read off the mesh when the model has their vertex ids) and, with
+    return_vertices, {"vertices": (B, V, 3)}."""
+    B = betas.shape[0]
+    rot_mats = _rot_mats(body_pose, global_orient, pose2rot)
+    v_shaped = model.v_template + torch.einsum("vdn,bn->bvd", model.shapedirs, betas)
+    joints_rest = torch.einsum("jv,bvd->bjd", model.j_regressor, v_shaped)
+    ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
+    pose_feature = (rot_mats[:, 1:] - ident).reshape(B, 207)
+    v_posed = v_shaped + (pose_feature @ model.posedirs).reshape(B, -1, 3)
+    posed_joints, rel_tf = _rigid_transforms(rot_mats, joints_rest, model.parents)
+
+    vertices = None
+    if return_vertices or model.extra_joint_ids is not None:
+        vert_tf = torch.einsum("vk,bkm->bvm", model.lbs_weights,
+                               rel_tf.reshape(B, NUM_JOINTS, 16)).reshape(B, -1, 4, 4)
+        v_h = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], dim=-1)
+        vertices = torch.einsum("bvij,bvj->bvi", vert_tf, v_h)[..., :3]
+    joints = posed_joints
+    if model.extra_joint_ids is not None:
+        joints = torch.cat([joints, vertices[:, model.extra_joint_ids]], dim=1)
+    if transl is not None:
+        joints = joints + transl[:, None, :]
+        if vertices is not None:
+            vertices = vertices + transl[:, None, :]
+    out = {"joints": joints}
+    if return_vertices:
+        out["vertices"] = vertices
+    return out

@@ -1,5 +1,6 @@
-"""EgoBody datamodule over preprocessed fixed-shape shards
-(`seeme_tpu/data/egobody.py`), numpy only.
+"""EgoBody / GIMO datamodule over preprocessed fixed-shape shards
+(`seeme_tpu/data/egobody.py`), numpy only; GIMO's shards carry 66 pose
+features (`pose_feats`).
 
 `tools/preprocess_egobody.py` writes `{root}/processed/{split}.npz` with the
 batch contract (`feats` (N, T, 2, P), `transl` (N, 2, T, 3), `betas`
@@ -22,13 +23,14 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 class EgoBodyDataModule:
-    def __init__(self, root: str):
+    def __init__(self, root: str, pose_feats: int = 72):
         proc = os.path.join(root, "processed")
         if not os.path.isdir(proc):
             raise FileNotFoundError(
                 f"{proc} not found: run tools/preprocess_egobody.py over the raw release first")
         self.mean = np.load(os.path.join(proc, "mean.npy")).reshape(-1)
         self.std = np.load(os.path.join(proc, "std.npy")).reshape(-1)
+        self.nfeats = pose_feats + 3
         self.is_synthetic = False
         self._proc = proc
         self._splits: Dict[str, Dict[str, np.ndarray]] = {}

@@ -1,9 +1,10 @@
-"""Dataset name -> datamodule (`seeme_tpu/data/registry.py:34-96`).
+"""Dataset name -> datamodule (`seeme_tpu/data/registry.py:34-111`).
 
-EgoBody loads the preprocessed release (`data/egobody.py`) when
-`<root>/EgoBody` exists; otherwise `SyntheticDataModule` keeps the path
-runnable, as the JAX package does (256 train, 64 val and 64 test samples
-from seeds 0, 1 and 2).
+EgoBody and GIMO load the preprocessed release (`data/egobody.py`) when
+`<root>/EgoBody` or `<root>/GIMO` exists; otherwise `SyntheticDataModule`
+keeps the path runnable, as the JAX package does (256 train, 64 val and 64
+test samples from seeds 0, 1 and 2; GIMO's 66 pose features, and its val
+split the test split, as `dataset.py:1840-1842` aliases them).
 """
 
 from __future__ import annotations
@@ -21,21 +22,27 @@ class SyntheticDataModule:
     """Per-split `SyntheticEgoDataset`s with the datamodule interface."""
 
     def __init__(self, condition: Sequence[str] = (), motion_length: int = 60,
-                 scene_points: int = 1024):
+                 scene_points: int = 1024, name: str = "egobody", image_size: int = 224):
         with_scene = "scene" in condition
         num_train, num_eval = 256, 64
-        common = dict(motion_length=motion_length, pose_feats=72,
+        pose_feats = 72 if name == "egobody" else 66
+        common = dict(motion_length=motion_length, pose_feats=pose_feats,
                       scene_points=max(scene_points if with_scene else 0, 1),
-                      with_scene=with_scene)
+                      with_scene=with_scene, with_image="image" in condition,
+                      image_size=image_size)
         self.train_set = SyntheticEgoDataset(num_train, seed=0, **common)
         self.val_set = SyntheticEgoDataset(num_eval, seed=1, **common)
         self.test_set = SyntheticEgoDataset(num_eval, seed=2, **common)
         self.mean = self.train_set.mean
         self.std = self.train_set.std
         self.num_train = len(self.train_set)
+        self.nfeats = pose_feats + 3
+        self.name = name
         self.is_synthetic = True
 
     def _split(self, split: str) -> SyntheticEgoDataset:
+        if split == "val" and self.name == "gimo":
+            split = "test"
         return getattr(self, f"{split}_set")
 
     def batches(self, split: str, batch_size: int, shuffle=None, seed: int = 0,
@@ -60,19 +67,25 @@ class SyntheticDataModule:
 
     def attach_split_features(self, split: str, key: str, values: np.ndarray):
         """Attach a per-sample feature array (row i <-> sample i) that every
-        batch then carries: the stage-2 cache of frozen scene features."""
+        batch then carries: the stage-2 cache of frozen scene or image
+        features."""
         ds = self._split(split)
         if len(values) != len(ds):
             raise ValueError(f"{key}: {len(values)} rows for a split of {len(ds)}")
         ds.extras[key] = np.asarray(values)
 
 
+RELEASES = {"egobody": ("EgoBody", 72), "gimo": ("GIMO", 66)}  # name -> (folder, pose feats)
+
+
 def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int = 60,
-                   scene_points: int = 1024, root: str = "./datasets"):
-    """The datamodule of DATASET_NAME `name` (`egobody` only, so far)."""
-    if name != "egobody":
-        raise KeyError(f"unknown dataset {name!r}; registered: ['egobody']")
-    path = os.path.join(root, "EgoBody")
+                   scene_points: int = 1024, root: str = "./datasets", image_size: int = 224):
+    """The datamodule of DATASET_NAME `name`: its release under `root` when
+    it is there, else the synthetic data (`image_size` sizes its crops)."""
+    if name not in RELEASES:
+        raise KeyError(f"unknown dataset {name!r}; registered: {sorted(RELEASES)}")
+    folder, pose_feats = RELEASES[name]
+    path = os.path.join(root, folder)
     if os.path.isdir(path):
-        return EgoBodyDataModule(path)
-    return SyntheticDataModule(condition, motion_length, scene_points)
+        return EgoBodyDataModule(path, pose_feats=pose_feats)
+    return SyntheticDataModule(condition, motion_length, scene_points, name, image_size)

@@ -1,8 +1,9 @@
-"""Synthetic EgoBody-shaped data (`seeme_tpu/data/synthetic.py`).
+"""Synthetic EgoBody/GIMO-shaped data (`seeme_tpu/data/synthetic.py`).
 
 A numpy copy of the JAX package's `SyntheticEgoDataset`: the same seed gives
 the same arrays (smooth pose-space random walks, the interactee correlated
-with the wearer, a Gaussian scene cloud when the scene is a condition) and
+with the wearer, a Gaussian scene cloud when the scene is a condition, and
+striped images driven by the wearer's mean pose when the image is one) and
 the same batches.
 """
 
@@ -18,11 +19,13 @@ from .batch import epoch_indices
 
 class SyntheticEgoDataset:
     def __init__(self, num_samples: int = 64, motion_length: int = 60, pose_feats: int = 72,
-                 scene_points: int = 1024, with_scene: bool = True, seed: int = 0):
+                 scene_points: int = 1024, with_scene: bool = True, with_image: bool = False,
+                 image_size: int = 224, seed: int = 0):
         rng = np.random.RandomState(seed)
         T, P = motion_length, pose_feats
         self.num_samples = num_samples
         self.with_scene = with_scene
+        self.with_image = with_image
 
         def smooth_walk(shape, scale):
             steps = rng.randn(*shape).astype(np.float32) * scale
@@ -39,9 +42,19 @@ class SyntheticEgoDataset:
         self.cam = np.abs(rng.randn(num_samples, T, 6).astype(np.float32))
         if with_scene:
             self.scene = rng.randn(num_samples, scene_points, 3).astype(np.float32)
+        if with_image:
+            # horizontal colour stripes from a fixed random projection of the
+            # wearer's mean pose, plus noise: a learnable image signal
+            proj = rng.randn(P, 3 * 8).astype(np.float32) * 0.5
+            code = np.tanh(wearer.mean(axis=1) @ proj)                     # (N, 24)
+            stripes = np.repeat(code.reshape(num_samples, 8, 1, 3), image_size // 8 + 1,
+                                axis=1)[:, :image_size]                      # (N, H, 1, 3)
+            self.image = (0.5 + 0.35 * stripes
+                          + 0.1 * rng.rand(num_samples, image_size, image_size, 3)
+                          ).clip(0, 1).astype(np.float32)
         self.length = np.full((num_samples,), T, np.int32)
-        # per-sample arrays attached by the trainer (the frozen scene
-        # features of the stage-2 cache), sliced into every batch
+        # per-sample arrays attached by the trainer (the frozen scene and
+        # image features of the stage-2 cache), sliced into every batch
         self.extras: Dict[str, np.ndarray] = {}
         flat = np.concatenate([self.feats[:, :, 0, :], self.transl[:, 0]],
                               axis=-1).reshape(-1, P + 3)
@@ -56,6 +69,8 @@ class SyntheticEgoDataset:
                  "cam": self.cam[sel], "length": self.length[sel]}
         if self.with_scene and "scene_feats" not in self.extras:
             batch["scene"] = self.scene[sel]  # cached features supersede the raw cloud
+        if self.with_image and "image_feats" not in self.extras:
+            batch["image"] = self.image[sel]
         for k, v in self.extras.items():
             batch[k] = v[sel]
         return batch
@@ -70,6 +85,8 @@ class SyntheticEgoDataset:
                "length": self.length}
         if self.with_scene:
             out["scene"] = self.scene
+        if self.with_image:
+            out["image"] = self.image
         out.update(self.extras)
         return out
 

@@ -1,14 +1,17 @@
-"""Ego evaluation metrics (`seeme_tpu/eval/metrics.py:38-110`).
+"""Ego evaluation metrics (`seeme_tpu/eval/metrics.py:38-166`).
 
 Per-sequence MPJPE, root error, head-orientation error and acceleration
 error, with the reference's start alignment (head joint at frame 0) and
 per-frame pelvis alignment, and the test-split filter that keeps a sequence
 only when head_err < 0.9, root_err < 300 and accl > 0 (`compute.py:489-517`).
+`EgoMetric` accumulates them over batches on the host, as the JAX package's
+does; the port runs on one card, so it has no cross-host `sync`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
 import torch
 
@@ -70,3 +73,50 @@ def filtered_means(per_seq: Dict[str, torch.Tensor]) -> Dict[str, float]:
     out = {names[k]: (float(v[keep].mean()) if n else float("nan")) for k, v in per_seq.items()}
     out["kept"] = n
     return out
+
+
+def interactee_mpjpe(jts_int: torch.Tensor, jts_int_gt: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """(B,) root-aligned MPJPE of the other actor's joints, mm
+    (`compute.py:476-481`)."""
+    a = jts_int - jts_int[:, :, PELVIS:PELVIS + 1]
+    b = jts_int_gt - jts_int_gt[:, :, PELVIS:PELVIS + 1]
+    return _masked_mean(torch.linalg.norm(a - b, dim=-1).mean(-1), mask, 1) * 1000.0
+
+
+@dataclass
+class EgoMetric:
+    """The reference's filtered-sum accumulator: on the test split a
+    sequence counts only if `kept_by_test_split`; the interactee MPJPE,
+    when given, always counts."""
+
+    split: str = "test"
+    sums: Dict[str, float] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
+
+    def _add(self, key: str, values) -> None:
+        for v in values:
+            self.sums[key] = self.sums.get(key, 0.0) + float(v)
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+    @torch.no_grad()
+    def update(self, jts_pred, jts_gt, quat_pred, quat_gt, mask,
+               jts_int: Optional[torch.Tensor] = None,
+               jts_int_gt: Optional[torch.Tensor] = None) -> None:
+        per_seq = ego_sequence_metrics(jts_pred, jts_gt, quat_pred, quat_gt, mask)
+        if jts_int is not None and jts_int_gt is not None:
+            self._add("mpjpe_interactee", interactee_mpjpe(jts_int, jts_int_gt, mask).tolist())
+        keep = (kept_by_test_split(per_seq) if self.split == "test"
+                else torch.ones_like(per_seq["mpjpe"], dtype=torch.bool))
+        names = {"mpjpe": "MPJPE", "root_err": "ROOT_ERROR",
+                 "head_err": "HEAD_ORIENTATION_ERROR", "accl": "ACCL"}
+        for k, name in names.items():
+            self._add(name, per_seq[k][keep].tolist())
+
+    def compute(self) -> Dict[str, float]:
+        """The mean of every key over the sequences counted so far."""
+        return {k: self.sums[k] / max(self.counts[k], 1) for k in self.sums}
+
+    def reset(self) -> None:
+        self.sums.clear()
+        self.counts.clear()

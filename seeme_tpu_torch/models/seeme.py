@@ -1,17 +1,24 @@
 """SEE-ME system, sampling and training (`seeme_tpu/models/seeme.py`).
 
 `SeeMeSystem` holds the motion VAE, the denoiser, the frozen PointNet scene
-encoder and its `output_scene` projection, under the reference's state-dict
-names (`vae.*`, `denoiser.*`, `proscene.scene_enc.*`, `output_scene.1.*`),
-so `tools/convert_checkpoint.py::convert_mld_checkpoint` reads a port state
+encoder and its `output_scene` projection, and for the image condition the
+frozen ResNet50 `image_encoder` and its `output_images` projection, under
+the reference's state-dict names (`vae.*`, `denoiser.*`,
+`proscene.scene_enc.*`, `output_scene.1.*`, `output_images.1.*`; the
+backbone in torchvision's layout), so
+`tools/convert_checkpoint.py::convert_mld_checkpoint` reads a port state
 dict as it reads a reference checkpoint.
 
 The sampling path: `encode_conditioning` (interactee -> `MotionVae.encode`
-mean; scene -> the fused PointNet blocks -> `output_scene`), then
-`sample_from_cond` (the fused DDIM kernel, then `MotionVae.decode`), then
-`eval_fk` (renorm, SMPL joints, global-orientation quaternions). On the card
-the fused wrappers launch their CUDA kernels; on the CPU they run their
-plain versions.
+mean; scene -> the fused PointNet blocks -> `output_scene`; image -> the
+ResNet50 -> `output_images`; in that token order), then `sample_from_cond`
+(the fused DDIM kernel, then `MotionVae.decode`), then `eval_fk` (renorm,
+SMPL joints, global-orientation quaternions). On the card the fused
+wrappers launch their CUDA kernels; on the CPU they run their plain
+versions. Every shipped ego config builds: EgoBody and GIMO (21 joints,
+zero-padded to SMPL's 23), the wearer or the interactee as the estimated
+actor, axis-angle or rot6d features, with or without the predicted
+translation.
 
 The training losses: `vae_loss` (stage 1) and `diffusion_loss` (stage 2)
 run the plain PyTorch modules, with dropout wherever a module is in train
@@ -32,11 +39,12 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..core.rotations import aa_to_quat
-from ..core.smpl import SmplModel, smpl_joints24
+from ..core.rotations import aa_to_quat, rot6d_to_rotmat, rotmat_to_quat
+from ..core.smpl import SmplModel, smpl_forward, smpl_joints24
 from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
+from ..nn.resnet import resnet50
 from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid
 from ..ops.pointnet_fused import pointnet_forward, pointnet_weights
 from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
@@ -56,11 +64,15 @@ def tensor_versions(*modules: nn.Module) -> tuple:
 
 @dataclass(frozen=True)
 class SeeMeConfig:
-    """The knobs of `configs/config_mld_egobody.yaml` that shape the
-    sampling and training graphs; the defaults are the EgoBody flagship.
-    The port estimates the wearer with predicted translation, as every
-    EgoBody config does; the other settings are not ported yet."""
+    """The knobs of the ego configs (`configs/config_*_egobody*.yaml`,
+    `config_*_gimo.yaml`, `config_*_interactee.yaml`) that shape the
+    sampling and training graphs, as `seeme_tpu/models/seeme.py:47-100`;
+    the defaults are the EgoBody flagship."""
 
+    dataset_name: str = "egobody"       # DATASET_NAME: egobody | gimo
+    estimate: str = "wearer"            # ESTIMATE: wearer | interactee
+    data_type: str = "angle"            # DATA_TYPE: angle | rot6d
+    predict_transl: bool = True         # TRAIN.ABLATION.PREDICT_TRANSL
     motion_length: int = 60
     condition: Tuple[str, ...] = ("interactee", "scene")
     latent_dim: Tuple[int, int] = (1, 256)
@@ -70,18 +82,35 @@ class SeeMeConfig:
     guidance_scale: float = 1.0
     guidance_uncondp: float = 0.1       # element-wise CFG mask rate in training
     predict_epsilon: bool = True        # TRAIN.ABLATION.PREDICT_EPSILON
+    mlp_dist: bool = False              # TRAIN.ABLATION.MLP_DIST
     num_inference_timesteps: int = 50
     scene_points: int = 20000
     scene_feat_dim: int = 512
+    # the side of the synthetic image crops; the JAX package's synthetic
+    # data and `init_params` use 224, the egocentric crop size
+    image_size: int = 224
     # the DDIM entry, as `seeme_tpu/models/seeme.py:80`: "loop" (`ddim_fused`)
     # or "grid" (`ddim_fused_grid`); both launch `csrc/ddim_md.cu`
     fused_variant: str = "loop"
     loss: LossWeights = field(default_factory=LossWeights)
-    pose_feats = 72  # a constant, not a field: 23-joint EgoBody pose + global orientation
+
+    @property
+    def pose_feats(self) -> int:
+        """72 axis-angle dims for EgoBody's 23-joint body plus the global
+        orientation, 66 for GIMO's 21 joints; 144 for rot6d (24 joints)."""
+        if self.data_type == "rot6d":
+            return 144
+        return 72 if self.dataset_name == "egobody" else 66
 
     @property
     def nfeats(self) -> int:
-        return self.pose_feats + 3  # + translation (ABLATION.PREDICT_TRANSL)
+        if self.data_type == "rot6d":
+            return 144  # rot6d features carry no translation
+        return self.pose_feats + (3 if self.predict_transl else 0)
+
+    @property
+    def body_joints(self) -> int:
+        return 23 if self.dataset_name == "egobody" else 21
 
 
 class ConditionProjection(nn.Sequential):
@@ -97,8 +126,13 @@ class SeeMeSystem(nn.Module):
                  device: str | torch.device = "cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        if not set(cfg.condition) <= {"interactee", "scene"}:
-            raise ValueError(f"conditions {cfg.condition} are not ported yet")
+        if not set(cfg.condition) <= {"interactee", "scene", "image"}:
+            raise ValueError(f"unknown conditions in {cfg.condition}")
+        for name, value, known in (("dataset_name", cfg.dataset_name, ("egobody", "gimo")),
+                                   ("estimate", cfg.estimate, ("wearer", "interactee")),
+                                   ("data_type", cfg.data_type, ("angle", "rot6d"))):
+            if value not in known:
+                raise ValueError(f"{name} {value!r} is not one of {known}")
         if cfg.fused_variant not in ("loop", "grid"):
             raise ValueError(f"fused_variant {cfg.fused_variant!r} is not 'loop' or 'grid'")
         self.cfg = cfg
@@ -106,15 +140,21 @@ class SeeMeSystem(nn.Module):
         # one attention head, as the reference hard-codes (`mld_vae.py:51-53`);
         # the fused DDIM path is single-head
         self.vae = MotionVae(cfg.nfeats, cfg.latent_dim, cfg.ff_size, cfg.num_layers,
-                             dropout=cfg.dropout)
+                             dropout=cfg.dropout, mlp_dist=cfg.mlp_dist)
         self.denoiser = Denoiser(cfg.latent_dim, cfg.ff_size, cfg.num_layers, text_encoded_dim=d,
                                  dropout=cfg.dropout)
         self.use_interactee = "interactee" in cfg.condition
         self.use_scene = "scene" in cfg.condition
+        self.use_image = "image" in cfg.condition
+        self.actor = WEARER if cfg.estimate == "wearer" else INTERACTEE
+        self.other = INTERACTEE if self.actor == WEARER else WEARER
         if self.use_scene:
             self.proscene = nn.ModuleDict(
                 {"scene_enc": ResnetPointnet(cfg.scene_feat_dim, hidden_dim=512)})
             self.output_scene = ConditionProjection(cfg.scene_feat_dim, d)
+        if self.use_image:  # frozen backbone, trainable projection (`mld.py:182-208, 251-255`)
+            self.image_encoder = resnet50()
+            self.output_images = ConditionProjection(2048, d)
         init_parameters_(self, torch.Generator().manual_seed(seed))
         # the sampling default; training sets its stage's subtrees
         # (`train/state.py::set_stage`)
@@ -125,6 +165,10 @@ class SeeMeSystem(nn.Module):
         self.smpl = smpl.to(dev)
         mean = torch.as_tensor(mean, dtype=torch.float32, device=dev).reshape(-1)
         std = torch.as_tensor(std, dtype=torch.float32, device=dev).reshape(-1)
+        # the full vectors hold the translation's statistics that
+        # predict_transl=False renormalizes the batch's translation with
+        self.register_buffer("mean_full", mean, persistent=False)
+        self.register_buffer("std_full", std, persistent=False)
         self.register_buffer("mean", mean[: cfg.nfeats].clone(), persistent=False)
         self.register_buffer("std", std[: cfg.nfeats].clone(), persistent=False)
         self.schedule = DiffusionSchedule()
@@ -138,7 +182,8 @@ class SeeMeSystem(nn.Module):
         (by `load_state_dict`, an in-place update such as an optimizer step,
         or a move), as its storage address and version counter show; a
         training step that updates the denoiser leaves the PointNet's copy
-        alone."""
+        alone. The image encoder has no such copy: its convolutions read the
+        module's own weights."""
         key = tensor_versions(self.denoiser)
         if self._ddim_operands is None or self._ddim_operands[0] != key:
             sd = self.denoiser.state_dict()
@@ -158,17 +203,64 @@ class SeeMeSystem(nn.Module):
         return feats * self.std + self.mean
 
     def actor_features(self, batch: Dict, actor: int) -> torch.Tensor:
-        """(B, T, nfeats) normalized pose features plus translation."""
-        return torch.cat([batch["feats"][:, :, actor, :], batch["transl"][:, actor]], dim=-1)
+        """(B, T, nfeats) normalized features of one actor: the pose
+        features, plus the translation when it is predicted (rot6d features
+        carry none)."""
+        f = batch["feats"][:, :, actor, :]
+        if self.cfg.predict_transl and self.cfg.data_type != "rot6d":
+            f = torch.cat([f, batch["transl"][:, actor]], dim=-1)
+        return f
 
-    def feats_to_joints(self, feats_raw: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
-        """Renormalized (B, T, nfeats) features -> (B, T, 24, 3) joints."""
+    def _smpl_inputs(self, feats_raw: torch.Tensor, betas: torch.Tensor,
+                     transl: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The SMPL arguments of renormalized (B, T, nfeats) features, as
+        `seeme_tpu/models/seeme.py:221-271` unpacks them: rot6d features go
+        through rotation matrices with the mean shape; GIMO's 21-joint pose
+        is zero-padded to 23 joints; every body takes the features' own
+        global orientation (the JAX package's fix of the reference's GIMO
+        branch, which took the ground truth's); without predicted
+        translation the batch's normalized `transl` is renormalized with the
+        translation's slice of the full statistics."""
+        cfg = self.cfg
         B, T, _ = feats_raw.shape
-        pose = feats_raw[..., 3: self.cfg.pose_feats].reshape(B * T, -1)
-        glob = feats_raw[..., :3].reshape(B * T, 3)
-        trans = feats_raw[..., -3:].reshape(B * T, 3)
-        joints = smpl_joints24(self.smpl, betas.reshape(B * T, -1), pose, glob, trans)
+        n = B * T
+        if cfg.data_type == "rot6d":
+            rotmats = rot6d_to_rotmat(feats_raw.reshape(n, 24, 6), mode="diffusion")
+            return dict(betas=feats_raw.new_zeros(n, 10), body_pose=rotmats[:, 1:],
+                        global_orient=rotmats[:, :1], pose2rot=False)
+        pose = feats_raw[..., 3: cfg.pose_feats].reshape(n, -1)
+        if cfg.dataset_name == "gimo":
+            pose = torch.cat([pose, pose.new_zeros(n, 6)], dim=-1)
+        if cfg.predict_transl:
+            trans = feats_raw[..., -3:]
+        else:
+            P = cfg.pose_feats
+            if self.std_full.shape[0] >= P + 3:
+                transl = transl * self.std_full[P: P + 3] + self.mean_full[P: P + 3]
+            trans = transl
+        return dict(betas=betas.reshape(n, -1), body_pose=pose,
+                    global_orient=feats_raw[..., :3].reshape(n, 3), transl=trans.reshape(n, 3))
+
+    def feats_to_joints(self, feats_raw: torch.Tensor, betas: torch.Tensor,
+                        transl: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Renormalized (B, T, nfeats) features -> (B, T, 24, 3) joints;
+        `transl` (B, T, 3) is the batch's normalized translation, read only
+        when the features carry none."""
+        B, T, _ = feats_raw.shape
+        joints = smpl_joints24(self.smpl, **self._smpl_inputs(feats_raw, betas, transl))
         return joints.reshape(B, T, 24, 3)
+
+    def feats_to_vertices(self, feats_raw: torch.Tensor, betas: torch.Tensor,
+                          transl: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Renormalized (B, T, nfeats) features -> (B, T, V, 3) SMPL mesh
+        vertices through the full skinning forward (the mesh-render path,
+        `seeme_tpu/models/seeme.py:273-309`)."""
+        B, T, _ = feats_raw.shape
+        out = smpl_forward(self.smpl, **self._smpl_inputs(feats_raw, betas, transl))
+        return out["vertices"].reshape(B, T, -1, 3)
+
+    def _transl(self, batch: Dict, actor: int) -> Optional[torch.Tensor]:
+        return None if self.cfg.predict_transl else batch["transl"][:, actor]
 
     # ---------------------------------------------------------- conditioning
     @torch.no_grad()
@@ -182,11 +274,20 @@ class SeeMeSystem(nn.Module):
         `output_scene` projection, which carries a gradient under autograd."""
         return self.output_scene(self.scene_features(scene))[:, None, :]
 
+    @torch.no_grad()
+    def image_features(self, image: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) crops -> (B, 2048) frozen ResNet50 features, without
+        a gradient; cacheable per sample as `scene_features` is."""
+        return self.image_encoder(image)
+
     def _condition_tokens(self, batch: Dict, masks: Optional[Dict] = None) -> torch.Tensor:
-        """(B, n_cond, d) condition tokens [interactee, scene]. `masks`, given
-        only in training at guidance > 1, zeroes random elements of the raw
-        interactee features and point cloud (`seeme_tpu/models/seeme.py:367-430`);
-        cached `scene_feats` replace the PointNet otherwise."""
+        """(B, n_cond, d) condition tokens [interactee, scene, image].
+        `masks`, given only in training at guidance > 1, zeroes random
+        elements of the raw interactee features and point cloud
+        (`seeme_tpu/models/seeme.py:367-430`); cached `scene_feats` replace
+        the PointNet otherwise. The image is never masked, and cached
+        `image_feats` replace the ResNet50 whenever the batch has them, as in
+        the JAX package."""
         tokens = []
         if self.use_interactee:
             f_int = self.actor_features(batch, INTERACTEE)
@@ -203,9 +304,13 @@ class SeeMeSystem(nn.Module):
                 if masks is not None:
                     scene = scene.masked_fill(masks["mask_scene"], 0.0)
                 tokens.append(self.encode_scene(scene))
-        if not tokens:  # an empty condition set: one zero token, as the JAX package
+        if not tokens and not self.use_image:  # no condition: one zero token, as the JAX package
             feats = batch["feats"]
             tokens.append(feats.new_zeros(feats.shape[0], 1, self.cfg.latent_dim[-1]))
+        if self.use_image:
+            feats = batch["image_feats"] if "image_feats" in batch else \
+                self.image_features(batch["image"])
+            tokens.append(self.output_images(feats)[:, None, :])
         return torch.cat(tokens, dim=1)
 
     @torch.no_grad()
@@ -214,7 +319,7 @@ class SeeMeSystem(nn.Module):
         guidance > 1 (the uncond half from zeroed inputs)."""
         cond = self._condition_tokens(batch)
         if self.cfg.guidance_scale > 1.0:
-            zeroed = {k: (torch.zeros_like(v) if k in ("feats", "transl", "scene") else v)
+            zeroed = {k: (torch.zeros_like(v) if k in ("feats", "transl", "scene", "image") else v)
                       for k, v in batch.items()}
             return torch.cat([self._condition_tokens(zeroed), cond], dim=0)
         return cond
@@ -252,23 +357,24 @@ class SeeMeSystem(nn.Module):
         (total, terms)."""
         cfg = self.cfg
         draws = draws if draws is not None else self.loss_draws("vae", batch, generator)
-        f_ref = self.actor_features(batch, WEARER)
+        f_ref = self.actor_features(batch, self.actor)
         mu, logvar = self.vae.encode(f_ref)
         feats_rst = self.vae.decode(reparameterize(mu, logvar, draws["eps"]), cfg.motion_length)
         raw_ref, raw_rst = self.renorm(f_ref), self.renorm(feats_rst)
-        betas = batch["betas"][:, WEARER]
-        return vae_losses(raw_rst, raw_ref, self.feats_to_joints(raw_rst, betas),
-                          self.feats_to_joints(raw_ref, betas), mu, logvar, cfg.loss)
+        betas, transl = batch["betas"][:, self.actor], self._transl(batch, self.actor)
+        return vae_losses(raw_rst, raw_ref, self.feats_to_joints(raw_rst, betas, transl),
+                          self.feats_to_joints(raw_ref, betas, transl), mu, logvar, cfg.loss,
+                          cfg.predict_transl)
 
     def diffusion_loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
                        draws: Optional[Dict] = None):
         """Stage-2 denoiser loss (`seeme_tpu/models/seeme.py:432-457`):
-        (total, terms). The wearer's latent comes from the frozen VAE without
-        a gradient."""
+        (total, terms). The estimated actor's latent comes from the frozen
+        VAE without a gradient."""
         cfg = self.cfg
         draws = draws if draws is not None else self.loss_draws("diffusion", batch, generator)
         with torch.no_grad():
-            mu, logvar = self.vae.encode(self.actor_features(batch, WEARER))
+            mu, logvar = self.vae.encode(self.actor_features(batch, self.actor))
             z = reparameterize(mu, logvar, draws["eps"])
         cond = self._condition_tokens(batch, draws if cfg.guidance_scale > 1.0 else None)
         noise, timesteps = draws["noise"], draws["timesteps"]
@@ -282,9 +388,9 @@ class SeeMeSystem(nn.Module):
                     eps: Optional[torch.Tensor] = None, sample_mean: bool = False,
                     fact: Optional[float] = None) -> torch.Tensor:
         """VAE-only eval path (`seeme_tpu/models/seeme.py:619-638`): the
-        wearer's features through encode, the mean or a (fact-scaled)
+        estimated actor's features through encode, the mean or a (fact-scaled)
         reparameterized draw, and decode; normalized (B, T, nfeats)."""
-        mu, logvar = self.vae.encode(self.actor_features(batch, WEARER))
+        mu, logvar = self.vae.encode(self.actor_features(batch, self.actor))
         if not sample_mean:
             if eps is None:
                 eps = torch.randn(mu.shape, generator=generator, device=mu.device)
@@ -315,17 +421,26 @@ class SeeMeSystem(nn.Module):
 
     @torch.no_grad()
     def eval_fk(self, batch: Dict, feats_rst: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Renorm, SMPL joints of prediction / ground truth / interactee, and
-        the global-orientation quaternions of the head-orientation metric."""
+        """Renorm, SMPL joints of the prediction, of the estimated actor's
+        ground truth and of the other actor, and the global-orientation
+        quaternions of the head-orientation metric (from the 6-D rotation
+        for rot6d features)."""
+        cfg = self.cfg
         raw_rst = self.renorm(feats_rst)
-        raw_ref = self.renorm(self.actor_features(batch, WEARER))
-        raw_int = self.renorm(self.actor_features(batch, INTERACTEE))
-        betas = batch["betas"][:, WEARER]
+        raw_ref = self.renorm(self.actor_features(batch, self.actor))
+        raw_int = self.renorm(self.actor_features(batch, self.other))
+        betas, transl = batch["betas"][:, self.actor], self._transl(batch, self.actor)
+        if cfg.data_type == "rot6d":
+            quat_rst = rotmat_to_quat(rot6d_to_rotmat(raw_rst[..., :6], "diffusion"))
+            quat_ref = rotmat_to_quat(rot6d_to_rotmat(raw_ref[..., :6], "diffusion"))
+        else:
+            quat_rst, quat_ref = aa_to_quat(raw_rst[..., :3]), aa_to_quat(raw_ref[..., :3])
         return {
             "feats_rst": feats_rst,
-            "joints_rst": self.feats_to_joints(raw_rst, betas),
-            "joints_ref": self.feats_to_joints(raw_ref, betas),
-            "joints_int": self.feats_to_joints(raw_int, batch["betas"][:, INTERACTEE]),
-            "quat_rst": aa_to_quat(raw_rst[..., :3]),
-            "quat_ref": aa_to_quat(raw_ref[..., :3]),
+            "joints_rst": self.feats_to_joints(raw_rst, betas, transl),
+            "joints_ref": self.feats_to_joints(raw_ref, betas, transl),
+            "joints_int": self.feats_to_joints(raw_int, batch["betas"][:, self.other],
+                                               self._transl(batch, self.other)),
+            "quat_rst": quat_rst,
+            "quat_ref": quat_ref,
         }

@@ -1,8 +1,12 @@
 """Transformer motion VAE, encode/decode (`seeme_tpu/models/vae.py`).
 
-arch='encoder_decoder' with MLP_DIST off, the shipped configuration: learned
-distribution tokens prepended to the embedded frames, a U-skip encoder, and
-a U-skip decoder that cross-attends zero queries against the latent.
+Learned distribution tokens are prepended to the embedded frames and run
+through a U-skip encoder. With MLP_DIST off (every shipped config) the first
+2 x latent_size outputs are (mu, logvar); with `mlp_dist` latent_size tokens
+go through a 2d-wide `dist_layer` (`seeme_tpu/models/vae.py:75-92`, `:126-132`).
+arch='encoder_decoder' (shipped) decodes with a U-skip decoder that
+cross-attends zero queries against the latent; arch='all_encoder' runs a
+second U-skip encoder over [latent; zero queries] (`:151-160`).
 `dropout` reaches every encoder and decoder layer and acts in train mode
 only; `reparameterize` takes its eps from the caller.
 """
@@ -27,8 +31,12 @@ from ..nn.transformer import (
 class MotionVae(nn.Module):
     def __init__(self, nfeats: int, latent_dim: Sequence[int] = (1, 256), ff_size: int = 128,
                  num_layers: int = 5, num_heads: int = 1, activation: str = "gelu",
-                 position_embedding: str = "learned", dropout: float = 0.1):
+                 position_embedding: str = "learned", dropout: float = 0.1,
+                 arch: str = "encoder_decoder", mlp_dist: bool = False):
         super().__init__()
+        if arch not in ("encoder_decoder", "all_encoder"):
+            raise ValueError(f"unsupported arch {arch}")
+        self.arch, self.mlp_dist = arch, mlp_dist
         self.latent_size = latent_dim[0]
         d = self.d_model = latent_dim[-1]
         self.query_pos_encoder = build_position_encoding(d, position_embedding)
@@ -36,10 +44,18 @@ class MotionVae(nn.Module):
         self.encoder = SkipTransformerEncoder(
             lambda: TransformerEncoderLayer(d, num_heads, ff_size, activation, dropout),
             num_layers, d)
-        self.decoder = SkipTransformerDecoder(
-            lambda: TransformerDecoderLayer(d, num_heads, ff_size, activation, dropout),
-            num_layers, d)
-        self.global_motion_token = nn.Parameter(torch.empty(2 * self.latent_size, d))
+        if arch == "all_encoder":
+            self.decoder = SkipTransformerEncoder(
+                lambda: TransformerEncoderLayer(d, num_heads, ff_size, activation, dropout),
+                num_layers, d)
+        else:
+            self.decoder = SkipTransformerDecoder(
+                lambda: TransformerDecoderLayer(d, num_heads, ff_size, activation, dropout),
+                num_layers, d)
+        n_tok = self.latent_size if mlp_dist else 2 * self.latent_size
+        self.global_motion_token = nn.Parameter(torch.empty(n_tok, d))
+        if mlp_dist:
+            self.dist_layer = nn.Linear(d, 2 * d)
         self.skel_embedding = nn.Linear(nfeats, d)
         self.final_layer = nn.Linear(d, nfeats)
 
@@ -55,6 +71,9 @@ class MotionVae(nn.Module):
         aug_mask = torch.cat([torch.ones(B, dist_tokens.shape[1], dtype=torch.bool,
                                          device=mask.device), mask], dim=1)
         dist = self.encoder(xseq, key_valid_mask=aug_mask)[:, : dist_tokens.shape[1]]
+        if self.mlp_dist:
+            dist = self.dist_layer(dist)
+            return dist[..., : self.d_model], dist[..., self.d_model:]
         return dist[:, : self.latent_size], dist[:, self.latent_size:]
 
     def decode(self, z: torch.Tensor, nframes: int,
@@ -65,8 +84,15 @@ class MotionVae(nn.Module):
         B = z.shape[0]
         mask = (lengths_to_mask(lengths.to(z.device), nframes) if lengths is not None
                 else torch.ones(B, nframes, dtype=torch.bool, device=z.device))
-        queries = self.query_pos_decoder(z.new_zeros(B, nframes, self.d_model))
-        return self.final_layer(self.decoder(queries, z, tgt_valid_mask=mask))
+        queries = z.new_zeros(B, nframes, self.d_model)
+        if self.arch == "all_encoder":
+            xseq = self.query_pos_decoder(torch.cat([z, queries], dim=1))
+            aug_mask = torch.cat([torch.ones(B, self.latent_size, dtype=torch.bool,
+                                             device=z.device), mask], dim=1)
+            out = self.decoder(xseq, key_valid_mask=aug_mask)[:, self.latent_size:]
+        else:
+            out = self.decoder(self.query_pos_decoder(queries), z, tgt_valid_mask=mask)
+        return self.final_layer(out)
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor,

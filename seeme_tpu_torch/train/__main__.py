@@ -1,21 +1,25 @@
-"""Training CLI for the EgoBody main path (`train.py`).
+"""Training CLI for the ego configs (`train.py`).
 
-    python -m seeme_tpu_torch.train --preset vae_egobody|mld_egobody
+    python -m seeme_tpu_torch.train --preset NAME
         [--batch_size N] [--epochs N] [--out DIR] [--resume DIR]
         [--pretrained_vae PATH] [--device cpu] [model.FIELD=VALUE ...] [train.FIELD=VALUE ...]
 
-The flow is `train.py`'s: the datamodule (the EgoBody release under
-`./datasets/EgoBody` when it is there, else the synthetic one), the system,
-stage 2's pretrained VAE, the optimizer, the resume; then stage 2's cache of
-frozen scene features (`train.py:185-236`: chunks of max(batch, 8), the
-tail padded, the train and val splits, only at guidance <= 1; on by default
-on the card), and the epochs with logging, validation every
-`val_every_steps` epochs and a checkpoint every `save_checkpoint_epoch`
-epochs and at the end. Trailing `model.X=V` / `train.X=V` pairs override
-preset fields (V a Python literal), as `train.py`'s dotted overrides do.
+NAME is a preset of `config/egobody.py`: vae_egobody, mld_egobody,
+mld_egobody_image, vae_gimo, mld_gimo, vae_interactee, mld_interactee.
+The flow is `train.py`'s: the datamodule (the EgoBody or GIMO release under
+`./datasets` when it is there, else the synthetic one), the system, stage
+2's pretrained VAE, the optimizer, the resume; then stage 2's cache of the
+frozen encoders' features (`train.py:185-236`: the PointNet's `scene_feats`
+and the ResNet50's `image_feats`, in chunks of max(batch, 8), the tail
+padded, the train and val splits, only at guidance <= 1; on by default on
+the card), and the epochs with logging, validation every `val_every_steps`
+epochs and a checkpoint every `save_checkpoint_epoch` epochs and at the
+end. Trailing `model.X=V` / `train.X=V` pairs override preset fields (V a
+Python literal), as `train.py`'s dotted overrides do.
 
 It runs on the card unless `--device cpu` is given, and raises when there
-is no card. The SMPL body is the JAX package's synthetic model
+is no card. On the card, float32 products and convolutions run in full
+float32 (TF32 off). The SMPL body is the JAX package's synthetic model
 (`synthetic_smpl(6890)`), which it also falls back to without the SMPL file;
 the port does not read SMPL files yet. It writes `config.json`,
 `train_log.txt` and `checkpoints/<step>.pt` under `--out` (default
@@ -25,7 +29,6 @@ the port does not read SMPL files yet. It writes `config.json`,
 from __future__ import annotations
 
 import argparse
-import ast
 import dataclasses
 import json
 import os
@@ -36,8 +39,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .._device import resolve_device
-from ..config.egobody import OUT_ROOT, PRESETS, Preset
+from .._device import full_float32, resolve_device
+from ..config.egobody import OUT_ROOT, PRESETS, apply_overrides
 from ..core.smpl import synthetic_smpl
 from ..data.batch import eval_batches
 from ..data.registry import get_datamodule
@@ -68,25 +71,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _literal(raw: str):
-    try:
-        v = ast.literal_eval(raw)
-    except (ValueError, SyntaxError):
-        return raw
-    return tuple(v) if isinstance(v, list) else v
-
-
-def apply_overrides(preset: Preset, pairs: Sequence[str]) -> Preset:
-    for pair in pairs:
-        path, sep, raw = pair.partition("=")
-        section, _, name = path.partition(".")
-        if not sep or section not in ("model", "train") or not name:
-            raise ValueError(f"override {pair!r} is not model.FIELD=VALUE or train.FIELD=VALUE")
-        sub = dataclasses.replace(getattr(preset, section), **{name: _literal(raw)})
-        preset = dataclasses.replace(preset, **{section: sub})
-    return preset
-
-
 class Trainer:
     """One training run, set up as `train.py` sets it up. `main` calls
     `fill_feature_cache` and then `fit`."""
@@ -102,6 +86,7 @@ class Trainer:
             tc = dataclasses.replace(tc, pretrained_vae=args.pretrained_vae)
         self.preset = preset = dataclasses.replace(preset, train=tc)
         self.device = resolve_device(args.device)
+        full_float32()
         self.exp_dir = os.path.abspath(args.out or os.path.join(OUT_ROOT, preset.name))
         os.makedirs(self.exp_dir, exist_ok=True)
         self._log_path = os.path.join(self.exp_dir, "train_log.txt")
@@ -109,7 +94,7 @@ class Trainer:
         cfg = preset.model
 
         self.datamodule = get_datamodule(preset.dataset, cfg.condition, cfg.motion_length,
-                                         cfg.scene_points)
+                                         cfg.scene_points, image_size=cfg.image_size)
         if self.datamodule.is_synthetic:
             self.log("dataset release not found -> synthetic datamodule")
         torch.manual_seed(self.seed)  # dropout draws from torch's default generators
@@ -163,37 +148,50 @@ class Trainer:
             f.write(line + "\n")
 
     def fill_feature_cache(self) -> Optional[float]:
-        """Stage 2's cache of frozen PointNet features, once per sample of the
-        train and val splits, through the fused blocks; returns its seconds,
-        or None when the cache does not apply."""
+        """Stage 2's cache of the frozen encoders' features, once per sample
+        of the train and val splits: the PointNet's through the fused
+        blocks, the ResNet50's; returns its seconds, or None when the cache
+        does not apply."""
         cache = self.preset.train.feature_cache
         if cache is None:
             cache = self.device.type == "cuda"
-        if not (cache and self.stage == "diffusion" and self.system.use_scene
+        system = self.system
+        encoders = []
+        if system.use_scene:
+            encoders.append(("scene", "scene_feats", system.scene_features))
+        if system.use_image:
+            encoders.append(("image", "image_feats", system.image_features))
+        if not (cache and self.stage == "diffusion" and encoders
                 and self.preset.model.guidance_scale <= 1.0):
             return None
         t0 = time.perf_counter()
         cs = max(self.batch_size, 8)
-        for split in ("train", "val"):
-            try:
-                raw = self.datamodule.split_array(split, "scene")
-            except (KeyError, FileNotFoundError):
-                continue
-            chunks = []
-            for i in range(0, len(raw), cs):
-                chunk = raw[i:i + cs]
-                pad = cs - len(chunk)
-                if pad:  # every chunk at one shape, as the JAX trainer's jit needs
-                    chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-                feats = self.system.scene_features(torch.as_tensor(chunk, device=self.device))
-                chunks.append(feats[: cs - pad].cpu().numpy())
-            self.datamodule.attach_split_features(split, "scene_feats", np.concatenate(chunks))
-            self.log(f"precomputed frozen scene features for {split} ({len(raw)} samples)")
+        for raw_key, feat_key, encode in encoders:
+            t_enc = time.perf_counter()
+            for split in ("train", "val"):
+                try:
+                    raw = self.datamodule.split_array(split, raw_key)
+                except (AttributeError, KeyError, FileNotFoundError):
+                    continue  # a release's image crops are picked per batch: no cache
+                chunks = []
+                for i in range(0, len(raw), cs):
+                    chunk = raw[i:i + cs]
+                    pad = cs - len(chunk)
+                    if pad:  # every chunk at one shape, as the JAX trainer's jit needs
+                        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+                    feats = encode(torch.as_tensor(chunk, device=self.device))
+                    chunks.append(feats[: cs - pad].cpu().numpy())
+                self.datamodule.attach_split_features(split, feat_key, np.concatenate(chunks))
+                self.log(f"precomputed frozen {raw_key} features for {split} "
+                         f"({len(raw)} samples)")
+            self.log(f"{raw_key} features cached in {time.perf_counter() - t_enc:.3f} s")
         return time.perf_counter() - t0
 
     def train_batches(self, epoch: int):
         """The train split's batches of `epoch`, without the keys the stage never reads."""
-        drop = {"scene", "image"} if self.stage == "vae" else {"image"}
+        drop = {"scene", "image"} if self.stage == "vae" else set()
+        if not self.system.use_image:
+            drop.add("image")
         for b in self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch):
             yield {k: v for k, v in b.items() if k not in drop}
 

@@ -68,12 +68,7 @@ def restore_state(path: str, system: nn.Module, optimizer: Optional[torch.optim.
                   generator: Optional[torch.Generator] = None) -> Tuple[int, int]:
     """Load a checkpoint file, or an experiment dir's latest one, into the
     system, the optimizer and the generators; returns (step, epoch)."""
-    if os.path.isdir(path):
-        step = latest_checkpoint_step(path)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {checkpoint_dir(path)}")
-        path = os.path.join(checkpoint_dir(path), f"{step}.pt")
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ckpt = torch.load(checkpoint_file(path), map_location="cpu", weights_only=False)
     system.load_state_dict(ckpt["state_dict"])
     if optimizer is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
@@ -118,6 +113,29 @@ def resume_scan(exp_dir: str) -> Tuple[Optional[str], Optional[int]]:
     """(config snapshot, latest step) of an experiment dir (`train.py:26-53`)."""
     cfg = os.path.join(exp_dir, "config.json")
     return (cfg if os.path.exists(cfg) else None), latest_checkpoint_step(exp_dir)
+
+
+def checkpoint_file(path: str) -> str:
+    """The `<step>.pt` file a checkpoint spelling names: the file itself,
+    an experiment dir (its latest step) or '.../checkpoints/latest'; raises
+    FileNotFoundError when there is none."""
+    if os.path.isdir(path):
+        step = latest_checkpoint_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {checkpoint_dir(path)}")
+        return os.path.join(checkpoint_dir(path), f"{step}.pt")
+    path = resolve_latest(path)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"checkpoint {path} does not exist")
+    return path
+
+
+def load_weights(path: str, system: nn.Module) -> str:
+    """Load a checkpoint's state dict into `system`, strictly, and nothing
+    else (no optimizer, no generator state); returns the file read."""
+    path = checkpoint_file(path)
+    system.load_state_dict(torch.load(path, map_location="cpu", weights_only=False)["state_dict"])
+    return path
 
 
 def load_pretrained_vae(path: str, system: nn.Module) -> int:

@@ -5,7 +5,9 @@ one (a CUDA kernel has no interpret mode). Run on the card with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Shapes are small but
 exercise the kernels' edges: a ragged last point tile at two point counts;
 for both DDIM kernels, batches that fill their last cluster of 4 samples
-partly or not at all (1, 3, 5, 17, 64), with and without CFG; the token
+partly or not at all (1, 3, 5, 17, 64), with and without CFG; the MD
+kernel at 1 and 3 condition tokens (the interactee-only and the
+image-conditioned configs; their launch plan fits at both guidances); the token
 kernel at 1, 3 and 8 condition tokens (up to 20 token rows a cluster) and at
 the action-to-motion shape (text width 256, no emb_proj); and widths that do
 not split into the cluster's column slices. A stage-2 train step on the
@@ -89,6 +91,27 @@ def test_ddim_kernel(cuda, batch, guidance):
     grid = dfu.ddim_fused_grid(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance)
     assert dfu.ddim_fused_grid.launches == before + 1
     assert torch.equal(grid, z)  # the same CUDA kernel on the same inputs
+
+
+@pytest.mark.parametrize("guidance", [1.0, 2.5])
+@pytest.mark.parametrize("n_cond", [1, 3])
+@pytest.mark.parametrize("batch", [3, 64])
+def test_ddim_kernel_condition_tokens(cuda, batch, n_cond, guidance):
+    """Kernel 3 at the token counts of `mld_interactee` (1) and
+    `mld_egobody_image` (3), against its plain version."""
+    den = seeded(Denoiser((1, 256), ff_size=128, num_layers=5), 3, cuda)
+    sd = den.state_dict()
+    g = torch.Generator().manual_seed(5)
+    z0 = torch.randn(batch, 1, 256, generator=g).to(cuda)
+    cond = torch.randn((2 if guidance > 1 else 1) * batch, n_cond, 256, generator=g).to(cuda)
+    weights = dfu.KernelWeights(sd, 5)
+    info = dfu.cluster_launch(True, batch, n_cond, weights, guidance)
+    assert info["cluster"] == 8 and info["active_clusters"] >= 1
+    assert info["smem_bytes"] <= 227 * 1024
+    sched = (DiffusionSchedule(), 10)
+    z = dfu.ddim_fused(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance, weights=weights)
+    ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance)
+    assert rel_err(z, ref) < 1e-3
 
 
 def test_cluster_launch(cuda):

@@ -54,7 +54,8 @@ def test_every_module_imports():
     names = [m.name for m in pkgutil.walk_packages(seeme_tpu_torch.__path__, "seeme_tpu_torch.")]
     assert {"seeme_tpu_torch.ops.denoiser_fused", "seeme_tpu_torch.models.t2m",
             "seeme_tpu_torch.core.ric", "seeme_tpu_torch.data.humanml",
-            "seeme_tpu_torch.eval.t2m_metrics"} <= set(names)
+            "seeme_tpu_torch.eval.t2m_metrics", "seeme_tpu_torch.nn.resnet",
+            "seeme_tpu_torch.eval.stats", "seeme_tpu_torch.test.__main__"} <= set(names)
     for name in names:
         importlib.import_module(name)
 

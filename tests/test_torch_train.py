@@ -439,17 +439,23 @@ def test_egobody_datamodule_matches_jax(tmp_path):
     assert "scene" not in next(ours.batches("train", 3))
     assert isinstance(get_datamodule("egobody", root=str(tmp_path)), EgoBodyDataModule)
     assert isinstance(get_datamodule("egobody", root=str(tmp_path / "absent")), SyntheticDataModule)
-    with pytest.raises(KeyError, match="gimo"):
-        get_datamodule("gimo")
+    with pytest.raises(KeyError, match="gimo"):  # the error lists the registered datasets
+        get_datamodule("kit")
 
 
 # --------------------------------------------------------- presets, CLI
 
 @pytest.mark.parametrize("preset,yaml_name", [("vae_egobody", "config_vae_egobody.yaml"),
-                                              ("mld_egobody", "config_mld_egobody.yaml")])
+                                              ("mld_egobody", "config_mld_egobody.yaml"),
+                                              ("mld_egobody_image", "config_mld_egobody_image.yaml"),
+                                              ("vae_gimo", "config_vae_gimo.yaml"),
+                                              ("mld_gimo", "config_mld_gimo.yaml"),
+                                              ("vae_interactee", "config_vae_interactee.yaml"),
+                                              ("mld_interactee", "config_mld_interactee.yaml")])
 def test_presets_match_the_yaml(preset, yaml_name):
     """Each preset field equals what `load_config` reads from its YAML
-    (over base.yaml); the stage-1 checkpoint path is the port's own folder."""
+    (over base.yaml); the stage-1 checkpoint path is the port's own folder.
+    `image_size` is the port's alone (the JAX package's crops are 224)."""
     root = os.path.join(os.path.dirname(__file__), "..", "configs")
     cfg = load_config(os.path.join(root, yaml_name))
     ref = seeme_config_from_yaml(cfg)
@@ -457,6 +463,8 @@ def test_presets_match_the_yaml(preset, yaml_name):
     for f in dataclasses.fields(p.model):
         if f.name == "loss":
             assert dataclasses.asdict(p.model.loss) == dataclasses.asdict(ref.loss)
+        elif f.name == "image_size":
+            assert p.model.image_size == 224
         elif f.name != "fused_variant":
             assert getattr(p.model, f.name) == getattr(ref, f.name), f.name
     t = p.train
@@ -468,10 +476,17 @@ def test_presets_match_the_yaml(preset, yaml_name):
                                                             cfg.LOGGER.SACE_CHECKPOINT_EPOCH)
     assert (t.seed, p.name, p.dataset) == (cfg.SEED_VALUE, cfg.NAME, cfg.DATASET_NAME)
     if cfg.TRAIN.PRETRAINED_VAE:
-        assert t.pretrained_vae.endswith("/s1_egobody/checkpoints/latest")
-        assert cfg.TRAIN.PRETRAINED_VAE.endswith("/s1_egobody/checkpoints/latest")
+        stage1 = cfg.TRAIN.PRETRAINED_VAE.split("/")[-3]  # s1_egobody or s1_gimo
+        assert stage1 in ("s1_egobody", "s1_gimo")
+        assert t.pretrained_vae.endswith(f"/{stage1}/checkpoints/latest")
     else:
         assert t.pretrained_vae == ""
+    q = p.test
+    assert (q.batch_size, q.replication_times, q.split) == (
+        cfg.TEST.BATCH_SIZE, cfg.TEST.REPLICATION_TIMES, cfg.TEST.SPLIT)
+    assert (q.checkpoint, q.mean, q.fact, q.count_time, q.save_predictions) == (
+        cfg.TEST.CHECKPOINTS, cfg.TEST.MEAN, cfg.TEST.FACT, cfg.TEST.COUNT_TIME,
+        cfg.TEST.SAVE_PREDICTIONS)
 
 
 TINY = ["model.latent_dim=(1, 32)", "model.ff_size=16", "model.num_layers=3",
