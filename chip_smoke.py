@@ -8,7 +8,8 @@ the test CLI) and HumanML3D text-to-motion.
 Phases, each printing one line with its seconds as soon as it ends:
   1. the card: `nvidia-smi` name and power limit, `torch.cuda.get_device_name`;
   2. the nvcc build of `seeme_tpu_torch/csrc/*.cu` (one nvcc per source, in
-     parallel), with ptxas' registers and spills for every kernel;
+     parallel), with ptxas' registers, spills and wgmma/setmaxnreg notes for
+     every kernel;
   3. each CUDA kernel against its plain PyTorch version at its path's
      shapes (PointNet blocks at B=64, N=20 000, H=512; the MD DDIM-50 kernel
      at B=64, guidance 1.0 and 2.5, and its grid entry at both; the token
@@ -16,9 +17,15 @@ Phases, each printing one line with its seconds as soon as it ends:
      kernels again at B=1, one request, at their path's guidance): max-abs
      and relative error against the stated tolerance, the kernel's and the
      plain version's ms (CUDA events, after a warm-up), and the least time
-     the card could take (bound_ms); for each DDIM launch, its cluster
-     configuration (CTAs a cluster, grid, clusters that fit at once, shared
-     memory), which must be a cluster of at least 2 CTAs that fits;
+     the card could take (bound_ms: operations at the bf16 tensor-core rate
+     or bytes at the HBM rate; bound_f32_ms with the f32 rate instead, the
+     bound of the earlier f32-FMA kernels); for the PointNet blocks also
+     the achieved TFLOP/s and floor_ms, the least time of their split-bf16
+     scheme (three bf16 products for each f32 one), and their launch plan (points a CTA,
+     cluster, ring slots, shared memory, clusters that fit); for each DDIM
+     launch, its cluster configuration (CTAs a cluster, grid, clusters that
+     fit at once, shared memory); every launch must be a cluster of at least
+     2 CTAs that fits;
   4. the EgoBody slice at full width on a seeded synthetic batch of 64:
      `encode_conditioning` -> `sample_from_cond` -> `eval_fk` -> ego
      metrics, with every kernel's launch count set to 0 just before and read
@@ -95,8 +102,10 @@ import time
 
 BATCH = 64
 SEED = 0
-PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
+PEAK_FLOPS = 989e12      # H100 SXM, bf16 tensor cores, dense: what the card can do
+PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores (bound_f32_ms)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+SPLIT_PRODUCTS = 3       # the PointNet kernels' bf16 products per f32 product (floor_ms)
 POINTNET_RTOL = 1e-4     # max |kernel - plain| / max |plain|
 DDIM_RTOL = 1e-3         # max |kernel - plain| / max |z|
 SLICE_RTOL = 1e-3        # card slice vs CPU slice (or grid vs loop), relative to max |features|
@@ -195,7 +204,8 @@ def main() -> int:
     t = time.perf_counter()
     _build.load_library()
     for line in _build.build_log.splitlines():  # ptxas -v: each kernel, its registers, spills
-        if "entry function" in line or "registers" in line or "spill" in line:
+        if any(k in line for k in ("entry function", "registers", "spill", "wgmma",
+                                    "setmaxnreg")):
             print("    " + line.strip(), flush=True)
     phase(f"build: {_build.library_path().name} (nvcc {_build.build_seconds or 0.0:.1f} s)", t)
 
@@ -223,43 +233,52 @@ def main() -> int:
     points = batch["scene"].contiguous()
     t = time.perf_counter()
     in_args = (points, pw["wpos"], pw["bpos"], pw["w0"], pw["b0"], pw["w1"], pw["b1"], pw["ws"])
-    out_k, pool_k = pfu.fused_input_block(*in_args)
+    in_split = tuple(pw[f"{n}.split"] for n in pfu.INPUT_SPLIT)
+    print_pointnet_launch(pfu.launch_info(True))
+    out_k, pool_k = pfu.fused_input_block(*in_args, split=in_split)
     out_p, pool_p = pfu.fused_input_block_plain(*in_args)
     torch.cuda.synchronize()
     scale = float(out_p.abs().max())
     err = max(compare("input block out", out_k, out_p, scale, POINTNET_RTOL),
               compare("input block pool", pool_k, pool_p, scale, POINTNET_RTOL))
     del out_k, pool_k
-    ms = time_ms(lambda: pfu.fused_input_block(*in_args), 3)
+    ms = time_ms(lambda: pfu.fused_input_block(*in_args, split=in_split), 3)
     plain_ms = time_ms(lambda: pfu.fused_input_block_plain(*in_args), 3)
     macs = B * N * (3 * 2 * H + 2 * H * H + H * H + 2 * H * H)
-    nbytes = 4 * (points.numel() + sum(x.numel() for x in in_args[1:]) + B * N * H + B * H)
+    nbytes = tensor_bytes(points, pw["wpos"], pw["bpos"], pw["b0"], pw["b1"], *in_split)
+    nbytes += 4 * (B * N * H + B * H)
     kernels.append(dict(name="pointnet_input_block", route="cuda",
                         source="seeme_tpu_torch/csrc/pointnet.cu",
                         replaces="seeme_tpu/ops/pointnet_pallas.py:112",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=2 * macs))
-    phase(f"kernel pointnet_input_block (B={B}, N={N}, H={H}): {ms:.3f} ms, plain {plain_ms:.3f} ms", t)
+    phase(f"kernel pointnet_input_block (B={B}, N={N}, H={H}): {ms:.3f} ms, plain {plain_ms:.3f} ms"
+          f", {pointnet_rates(2 * macs, nbytes, ms)}", t)
 
     t = time.perf_counter()
     sp_args = (out_p, pool_p, *(pw[f"block_1.{n}"]
                                 for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")))
-    out_k, pool_k = pfu.fused_split_block(*sp_args)
+    sp_split = tuple(pw[f"block_1.{n}.split"] for n in pfu.BLOCK_SPLIT)
+    print_pointnet_launch(pfu.launch_info(False))
+    out_k, pool_k = pfu.fused_split_block(*sp_args, split=sp_split)
     out_s, pool_s = pfu.fused_split_block_plain(*sp_args)
     torch.cuda.synchronize()
     scale = float(out_s.abs().max())
     err = max(compare("split block out", out_k, out_s, scale, POINTNET_RTOL),
               compare("split block pool", pool_k, pool_s, scale, POINTNET_RTOL))
     del out_k, pool_k, out_s, pool_s
-    ms = time_ms(lambda: pfu.fused_split_block(*sp_args), 3)
+    ms = time_ms(lambda: pfu.fused_split_block(*sp_args, split=sp_split), 3)
     plain_ms = time_ms(lambda: pfu.fused_split_block_plain(*sp_args), 3)
     macs = B * N * 3 * H * H + 2 * B * H * H
-    nbytes = 4 * (sum(x.numel() for x in sp_args) + B * N * H + B * H)
+    # x, pooled, w0p, b0, b1, wsp (the wrapper's folds) and the split weights
+    nbytes = tensor_bytes(*(sp_args[i] for i in (0, 1, 3, 4, 6, 8)), *sp_split)
+    nbytes += 4 * (B * N * H + B * H)
     kernels.append(dict(name="pointnet_split_block", route="cuda",
                         source="seeme_tpu_torch/csrc/pointnet.cu",
                         replaces="seeme_tpu/ops/pointnet_pallas.py:56",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=2 * macs))
-    phase(f"kernel pointnet_split_block (B={B}, N={N}, H={H}): {ms:.3f} ms, plain {plain_ms:.3f} ms", t)
-    del out_p, pool_p, sp_args, in_args
+    phase(f"kernel pointnet_split_block (B={B}, N={N}, H={H}): {ms:.3f} ms, plain {plain_ms:.3f} ms"
+          f", {pointnet_rates(2 * macs, nbytes, ms)}", t)
+    del out_p, pool_p, sp_args, in_args, in_split, sp_split
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -290,7 +309,8 @@ def main() -> int:
         flops = ddim_flops(sd, cfg.num_layers, c.shape[0], c.shape[1], steps)
         nbytes = 4 * (sum(v.numel() for v in sd.values()) + c.numel() + 2 * z0.numel() + 2 * steps)
         phase(f"kernel ddim_md_t1 via {label} (B={B}, {steps} steps): {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound_ms(flops, nbytes):.4f} ms", t)
+              f"{plain_ms:.3f} ms, bound {bound_ms(flops, nbytes):.4f} ms (f32 "
+              f"{bound_f32_ms(flops, nbytes):.4f} ms)", t)
         t = time.perf_counter()
         if name:
             kernels.append(dict(name=name, route="cuda", source="seeme_tpu_torch/csrc/ddim_md.cu",
@@ -518,7 +538,11 @@ def main() -> int:
         if k["name"] == "ddim_md_t1":  # at the condition-token counts of the other configs
             k["at_n_cond"] = by_cond
         k["bound_ms"] = bound_ms(flops, nbytes)
-        k["bound_by"] = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        k["bound_by"] = bound_by(flops, nbytes)
+        k["bound_f32_ms"] = bound_f32_ms(flops, nbytes)  # comparable with earlier f32-FMA rows
+        if k["name"].startswith("pointnet"):
+            k["floor_ms"] = floor_ms(flops, nbytes)
+            k["tflops"] = flops / k["ms"] / 1e9
         k["library_ms"] = None  # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": kernels}))
     print(card)  # as nvidia-smi --query-gpu=name,power.limit --format=csv,noheader gives it
@@ -803,7 +827,7 @@ def variant_phases(dev, counted, counters, record, s1_checkpoint: str, work: str
                       + 2 * steps)
         by_cond[f"n_cond={nc}, guidance={guidance}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(flops, nbytes),
-            bound_by="operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+            bound_by=bound_by(flops, nbytes), bound_f32_ms=bound_f32_ms(flops, nbytes),
             launch=info)
         return ms, plain_ms, bound_ms(flops, nbytes)
 
@@ -1124,9 +1148,46 @@ def print_launch(info: dict) -> None:
 
 
 def bound_ms(flops: float, nbytes: float) -> float:
-    """The least time the card could take: operations at the f32 peak or
-    bytes at the HBM rate, whichever is longer."""
+    """The least time the card could take: operations at the bf16
+    tensor-core peak or bytes at the HBM rate, whichever is longer."""
+    return 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
+
+
+def bound_by(flops: float, nbytes: float) -> str:
+    return "operations" if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+
+
+def bound_f32_ms(flops: float, nbytes: float) -> float:
+    """The same with operations at the f32 peak outside the tensor cores, the
+    bound the earlier f32-FMA kernels were measured against."""
     return 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+
+
+def floor_ms(flops: float, nbytes: float) -> float:
+    """The least time of the split-bf16 scheme: three bf16 products for each
+    f32 one."""
+    return 1e3 * max(SPLIT_PRODUCTS * flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pointnet_rates(flops: float, nbytes: float, ms: float) -> str:
+    return (f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound_ms(flops, nbytes):.3f} ms "
+            f"({bound_ms(flops, nbytes) / ms:.1%} of it), split-bf16 floor "
+            f"{floor_ms(flops, nbytes):.3f} ms ({floor_ms(flops, nbytes) / ms:.1%}), f32 bound "
+            f"{bound_f32_ms(flops, nbytes):.3f} ms")
+
+
+def print_pointnet_launch(info: dict) -> None:
+    """Print a PointNet kernel's launch plan; fail unless it is a cluster of
+    at least 2 CTAs of which at least one fits on the card."""
+    print(f"    launch: {info['tile']} points a CTA, clusters of {info['cluster']} CTAs sharing "
+          f"each weight slot by TMA multicast, {info['stages']} ring slots of "
+          f"{info['slot_bytes']} B, {info['smem_bytes']} B shared memory a CTA, "
+          f"{info['active_clusters']} clusters fit at once", flush=True)
+    require(info["cluster"] >= 2 and info["active_clusters"] >= 1, f"pointnet launch {info}")
 
 
 def ddim_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int) -> float:

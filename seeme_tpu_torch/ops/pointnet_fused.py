@@ -5,6 +5,11 @@
 (`*_plain`) for CPU tensors. Weights are (in, out), as in the JAX package.
 Each wrapper counts its kernel launches in `.launches`.
 
+The kernels run every product as three bf16 tensor-core products of split
+operands (`split_bf16`): the weights' hi/lo pairs come in `split`, made once
+per module version by `pointnet_weights`, and the activations are split
+inside the kernel.
+
 The per-batch pool over tiles is one `amax` outside the kernel, and so are
 the per-batch folds c0 = relu(pooled) W0p + b0 and cs = pooled Wsp + b1 and
 the final `fc_c`, as the JAX wrapper does them outside its kernel.
@@ -12,14 +17,38 @@ the final `fc_c`, as the JAX wrapper does them outside its kernel.
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-TILE = 32  # points per CTA, `csrc/pointnet.cu`
+TILE = 64  # points per CTA, `csrc/pointnet.cu`
+INPUT_SPLIT = ("w0", "w1", "ws")     # the product weights each kernel reads split,
+BLOCK_SPLIT = ("w0x", "w1", "wsx")   # in the order of its `split` argument
+
+
+def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t = hi + lo to about 2^-16 relative: hi = bf16(t), lo = bf16(t - hi)."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def split_weight(w: torch.Tensor) -> torch.Tensor:
+    """The kernels' operand of an (in, out) weight: its (out, in) transpose
+    (nn.Linear's layout, K-major for the tensor cores) split by `split_bf16`,
+    hi rows over lo rows, cut into K steps of 16 columns. Each step's
+    (2 out, 16) block is contiguous and in wgmma's 32-byte swizzle (the two
+    16-byte halves of a row swap where bit 2 of the row is set), so that one
+    bulk copy moves it into shared memory as the products read it:
+    (in / 16, 2 out, 16) bf16."""
+    s = torch.cat(split_bf16(w.t()))
+    rows, k = s.shape
+    t = s.reshape(rows, k // 16, 2, 8).permute(1, 0, 2, 3)
+    swap = ((torch.arange(rows, device=s.device) >> 2) & 1).bool()[None, :, None, None]
+    return torch.where(swap, t.flip(2), t).reshape(k // 16, rows, 16).contiguous()
 
 
 def fused_input_block_plain(points, wpos, bpos, w0, b0, w1, b1, ws):
@@ -39,15 +68,39 @@ def fused_split_block_plain(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp):
     return out, out.amax(dim=1)
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name}: needs a contiguous float32 tensor on {device}, "
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        kind = str(dtype).replace("torch.", "")
+        raise ValueError(f"{name}: needs a contiguous {kind} tensor on {device}, "
                          f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws):
+def _check_split(name: str, split, shapes, device) -> None:
+    """The split weights (`split_weight`) a kernel reads in place of the f32
+    product weights."""
+    if split is None or len(split) != len(shapes):
+        raise ValueError(f"{name}: needs the {len(shapes)} split bf16 product weights "
+                         f"(`pointnet_weights`), got {split!r:.80}")
+    for i, (t, shape) in enumerate(zip(split, shapes)):
+        _check(f"{name} split[{i}]", t, shape, device, torch.bfloat16)
+
+
+def launch_info(input_block: bool) -> Dict[str, int]:
+    """The launch a kernel makes at H = 512, asked of the CUDA runtime
+    without launching: points a CTA, CTAs a cluster, ring slots, bytes a
+    slot, dynamic shared memory bytes a CTA, clusters that fit at once."""
+    info = (ctypes.c_int * 6)()
+    _build.check(_build.load_library().pointnet_info(int(input_block), info), "pointnet_info")
+    return dict(zip(("tile", "cluster", "stages", "slot_bytes", "smem_bytes",
+                     "active_clusters"), info))
+
+
+def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws, split=None):
+    """`fused_input_block_plain` on the CPU; on the card the kernel, which
+    reads `split` = (w0, w1, ws) through `split_weight` in place of the f32
+    product weights."""
     if points.device.type == "cpu":
         return fused_input_block_plain(points, wpos, bpos, w0, b0, w1, b1, ws)
     B, N, _ = points.shape
@@ -59,14 +112,17 @@ def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws):
                            ("bpos", bpos, (2 * H,)), ("w0", w0, (2 * H, H)), ("b0", b0, (H,)),
                            ("w1", w1, (H, H)), ("b1", b1, (H,)), ("ws", ws, (2 * H, H))):
         _check(name, t, shape, dev)
+    _check_split("fused_input_block", split,
+                 ((2 * H // 16, 2 * H, 16), (H // 16, 2 * H, 16), (2 * H // 16, 2 * H, 16)), dev)
     n_tiles = (N + TILE - 1) // TILE
     out = torch.empty(B, N, H, device=dev)
     tile_max = torch.empty(B, n_tiles, H, device=dev)
     lib = _build.load_library()
+    s0, s1, ss = split
     fused_input_block.launches += 1
     _build.check(lib.pointnet_input_block(
-        points.data_ptr(), wpos.data_ptr(), bpos.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), ws.data_ptr(), out.data_ptr(), tile_max.data_ptr(),
+        points.data_ptr(), wpos.data_ptr(), bpos.data_ptr(), s0.data_ptr(), b0.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), ss.data_ptr(), out.data_ptr(), tile_max.data_ptr(),
         B, N, H, _build.stream_ptr(dev)), "pointnet_input_block")
     return out, tile_max.amax(dim=1)
 
@@ -74,7 +130,10 @@ def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws):
 fused_input_block.launches = 0
 
 
-def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp):
+def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp, split=None):
+    """`fused_split_block_plain` on the CPU; on the card the kernel, which
+    reads `split` = (w0x, w1, wsx) through `split_weight` in place of the
+    f32 product weights."""
     if x.device.type == "cpu":
         return fused_split_block_plain(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp)
     B, N, H = x.shape
@@ -86,16 +145,18 @@ def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp):
                            ("w1", w1, (H, H)), ("b1", b1, (H,)), ("wsx", wsx, (H, H)),
                            ("wsp", wsp, (H, H))):
         _check(name, t, shape, dev)
+    _check_split("fused_split_block", split, ((H // 16, 2 * H, 16),) * 3, dev)
     c0 = (F.relu(pooled) @ w0p + b0).contiguous()
     cs = (pooled @ wsp + b1).contiguous()
     n_tiles = (N + TILE - 1) // TILE
     out = torch.empty(B, N, H, device=dev)
     tile_max = torch.empty(B, n_tiles, H, device=dev)
     lib = _build.load_library()
+    s0, s1, ss = split
     fused_split_block.launches += 1
     _build.check(lib.pointnet_split_block(
-        x.data_ptr(), c0.data_ptr(), cs.data_ptr(), w0x.data_ptr(), w1.data_ptr(),
-        wsx.data_ptr(), out.data_ptr(), tile_max.data_ptr(), B, N, H,
+        x.data_ptr(), c0.data_ptr(), cs.data_ptr(), s0.data_ptr(), s1.data_ptr(),
+        ss.data_ptr(), out.data_ptr(), tile_max.data_ptr(), B, N, H,
         _build.stream_ptr(dev)), "pointnet_split_block")
     return out, tile_max.amax(dim=1)
 
@@ -107,7 +168,8 @@ fused_split_block.launches = 0
 def pointnet_weights(pointnet) -> Dict[str, torch.Tensor]:
     """The fused path's operands from a `nn.pointnet.ResnetPointnet`: every
     weight transposed to (in, out) and the [x; pooled] layers split by rows,
-    each a fresh contiguous tensor."""
+    each a fresh contiguous tensor; and the kernels' bf16 hi/lo pair of each
+    product weight (`split_weight`) under `<name>.split`."""
     from ..nn.pointnet import split_block_weights
 
     c = lambda t: t.detach().contiguous().clone()  # noqa: E731
@@ -124,6 +186,8 @@ def pointnet_weights(pointnet) -> Dict[str, torch.Tensor]:
         names = ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")
         for n, t in zip(names, split_block_weights(getattr(pointnet, f"block_{i}"), h)):
             w[f"block_{i}.{n}"] = c(t)
+    for name in (*INPUT_SPLIT, *(f"block_{i}.{n}" for i in (1, 2, 3) for n in BLOCK_SPLIT)):
+        w[f"{name}.split"] = split_weight(w[name])
     return w
 
 
@@ -131,9 +195,11 @@ def pointnet_forward(weights: Dict[str, torch.Tensor], points: torch.Tensor) -> 
     """Full ResnetPointnet forward through the fused blocks: (B, N, 3) -> (B, out)."""
     x, pooled = fused_input_block(
         points.contiguous(), weights["wpos"], weights["bpos"], weights["w0"], weights["b0"],
-        weights["w1"], weights["b1"], weights["ws"])
+        weights["w1"], weights["b1"], weights["ws"],
+        split=tuple(weights[f"{n}.split"] for n in INPUT_SPLIT))
     for i in (1, 2, 3):
         x, pooled = fused_split_block(
             x, pooled, *(weights[f"block_{i}.{n}"]
-                         for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")))
+                         for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")),
+            split=tuple(weights[f"block_{i}.{n}.split"] for n in BLOCK_SPLIT))
     return F.linear(F.relu(pooled), weights["fc_c_w"], weights["fc_c_b"])

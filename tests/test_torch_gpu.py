@@ -3,7 +3,8 @@
 Marked `gpu`: each test needs an NVIDIA card with nvcc and skips without
 one (a CUDA kernel has no interpret mode). Run on the card with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Shapes are small but
-exercise the kernels' edges: a ragged last point tile at two point counts;
+exercise the kernels' edges: PointNet point tiles (64 points) and clusters
+of 2 tiles filled partly or not at all, at batch 1 and 3;
 for both DDIM kernels, batches that fill their last cluster of 4 samples
 partly or not at all (1, 3, 5, 17, 64), with and without CFG; the MD
 kernel at 1 and 3 condition tokens (the interactee-only and the
@@ -50,18 +51,25 @@ def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("points", [1000, 77])
-def test_pointnet_blocks(cuda, points):
+@pytest.mark.parametrize("batch,points", [(3, 1000), (3, 77), (3, 64), (3, 65), (3, 129),
+                                          (1, 64), (1, 65), (1, 129), (1, 1000)])
+def test_pointnet_blocks(cuda, batch, points):
+    """Both kernels against their plain versions at the tile (64 points) and
+    cluster (2 tiles) edges: one tile, a ragged second, a ragged third (an
+    odd tile count, so the grid's last cluster holds a CTA past the last
+    tile), and batch 1."""
     net = seeded(ResnetPointnet(out_dim=64, hidden_dim=512), 1, cuda)
     w = pfu.pointnet_weights(net)
-    pts = torch.randn(3, points, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    pts = torch.randn(batch, points, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
     n_in, n_split = pfu.fused_input_block.launches, pfu.fused_split_block.launches
     args = [w[n] for n in ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")]
-    out, pooled = pfu.fused_input_block(pts, *args)
+    in_split = tuple(w[f"{n}.split"] for n in pfu.INPUT_SPLIT)
+    out, pooled = pfu.fused_input_block(pts, *args, split=in_split)
     ref, ref_pooled = pfu.fused_input_block_plain(pts, *args)
     assert rel_err(out, ref) < 1e-4 and rel_err(pooled, ref_pooled) < 1e-4
     split = [w[f"block_1.{n}"] for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")]
-    out2, pooled2 = pfu.fused_split_block(ref, ref_pooled, *split)
+    sp_split = tuple(w[f"block_1.{n}.split"] for n in pfu.BLOCK_SPLIT)
+    out2, pooled2 = pfu.fused_split_block(ref, ref_pooled, *split, split=sp_split)
     ref2, ref_pooled2 = pfu.fused_split_block_plain(ref, ref_pooled, *split)
     assert rel_err(out2, ref2) < 1e-4 and rel_err(pooled2, ref_pooled2) < 1e-4
     full = pfu.pointnet_forward(w, pts)
@@ -181,10 +189,33 @@ def test_kernel_wrappers_refuse_bad_input(cuda):
     w = pfu.pointnet_weights(seeded(ResnetPointnet(64, 512), 5, cuda))
     pts = torch.randn(2, 40, 3, device=cuda)
     args = [w[n] for n in ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")]
+    in_split = tuple(w[f"{n}.split"] for n in pfu.INPUT_SPLIT)
+    before = pfu.fused_input_block.launches, pfu.fused_split_block.launches
     with pytest.raises(ValueError, match="contiguous float32"):
-        pfu.fused_input_block(pts.double(), *args)
+        pfu.fused_input_block(pts.double(), *args, split=in_split)
     with pytest.raises(ValueError, match="contiguous float32"):
-        pfu.fused_input_block(pts.transpose(0, 1).contiguous().transpose(0, 1), *args)
+        pfu.fused_input_block(pts.transpose(0, 1).contiguous().transpose(0, 1), *args,
+                              split=in_split)
+    # the split weights: missing, f32, a wrong shape, not contiguous
+    x = torch.randn(2, 40, 512, device=cuda)
+    pooled = x.amax(dim=1)
+    split = [w[f"block_1.{n}"] for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")]
+    sp_split = tuple(w[f"block_1.{n}.split"] for n in pfu.BLOCK_SPLIT)
+    with pytest.raises(ValueError, match="split bf16 product weights"):
+        pfu.fused_input_block(pts, *args)
+    with pytest.raises(ValueError, match="split bf16 product weights"):
+        pfu.fused_split_block(x, pooled, *split)
+    with pytest.raises(ValueError, match="contiguous bfloat16"):
+        pfu.fused_input_block(pts, *args, split=(in_split[0].float(), *in_split[1:]))
+    with pytest.raises(ValueError, match="expected shape"):
+        pfu.fused_input_block(pts, *args, split=(in_split[1], in_split[1], in_split[2]))
+    with pytest.raises(ValueError, match="expected shape"):
+        pfu.fused_split_block(x, pooled, *split, split=(in_split[0], *sp_split[1:]))
+    with pytest.raises(ValueError, match="contiguous bfloat16"):
+        pfu.fused_split_block(x, pooled, *split,
+                              split=(*sp_split[:2], sp_split[2].transpose(0, 1).contiguous()
+                                     .transpose(0, 1)))
+    assert before == (pfu.fused_input_block.launches, pfu.fused_split_block.launches)
     # feed-forward width 96: 12 columns a CTA, 3 float4 quads, which do not divide a warp
     sched = (DiffusionSchedule(), 4)
     z0 = torch.randn(2, 1, 256, device=cuda)

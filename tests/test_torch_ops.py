@@ -15,6 +15,7 @@ import jax.scipy.special
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from seeme_tpu.diffusion.sampling import ddim_sample
 from seeme_tpu.diffusion.schedulers import DiffusionSchedule as JSchedule
@@ -22,12 +23,16 @@ from seeme_tpu.models.denoiser import Denoiser as JDenoiser
 from seeme_tpu.nn.pointnet import ResnetPointnet as JPointnet
 from seeme_tpu.ops import denoiser_fused as j_df
 from seeme_tpu.ops import pointnet_pallas as j_pp
+from seeme_tpu_torch.core.smpl import synthetic_smpl
+from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset
 from seeme_tpu_torch.diffusion.schedulers import DiffusionSchedule
 from seeme_tpu_torch.models.denoiser import Denoiser
+from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
 from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
 from seeme_tpu_torch.nn.pointnet import ResnetPointnet
 from seeme_tpu_torch.ops import denoiser_fused as dfu
 from seeme_tpu_torch.ops import pointnet_fused as pfu
+from seeme_tpu_torch.ops import split_precision
 from tools import convert_checkpoint as cc
 
 NS, D = 5, 32  # DDIM steps and latent width of the small denoiser
@@ -106,6 +111,90 @@ def test_wrappers_check_their_inputs(pointnet_pair):
         pfu.fused_input_block(meta, *args)
     with pytest.raises(ValueError, match="hidden width"):
         pfu.fused_split_block(torch.empty(3, 64, 32, device="meta"), *([None] * 8))
+
+
+def test_split_bf16_rebuilds_its_input():
+    """hi + lo gives back t within 2^-16 relative, over six decades of
+    magnitude; `split_weight` holds the (out, in) transpose's pair, hi rows
+    over lo rows, K step by K step in the 32-byte swizzle."""
+    t = torch.as_tensor(rand(11, 64, 96) * np.float32(10.0) ** np.clip(rand(12, 64, 96), -3, 3))
+    hi, lo = pfu.split_bf16(t)
+    assert hi.dtype == lo.dtype == torch.bfloat16 and hi.shape == lo.shape == t.shape
+    assert bool(((hi.float() + lo.float() - t).abs() <= 2.0 ** -16 * t.abs()).all())
+    w = torch.as_tensor(rand(13, 48, 32))  # (in, out)
+    s = pfu.split_weight(w)
+    assert s.shape == (3, 64, 16) and s.dtype == torch.bfloat16 and s.is_contiguous()
+    stacked = torch.cat(pfu.split_bf16(w.t()))  # (64, 48): hi rows, then lo rows
+    step, row, col = torch.meshgrid(torch.arange(3), torch.arange(64), torch.arange(16),
+                                    indexing="ij")
+    where = ((col // 8) ^ ((row >> 2) & 1)) * 8 + col % 8  # the swizzled column
+    assert torch.equal(s[step, row, where], stacked[row, 16 * step + col])
+
+
+def _three_products(a, w):
+    """a w as the kernels compute it: hi hi + hi lo + lo hi of the bf16
+    splits of both operands, summed in f32."""
+    (a_hi, a_lo), (w_hi, w_lo) = (tuple(x.float() for x in pfu.split_bf16(t)) for t in (a, w))
+    return a_hi @ w_hi + a_hi @ w_lo + a_lo @ w_hi
+
+
+@pytest.mark.parametrize("block", ["input", "split"])
+def test_three_split_products_hold_the_kernels_gate(block):
+    """Each block with its products as three split-bf16 products stays within
+    2e-5 of max|out| of its plain f32 version, the precision argument of
+    `csrc/pointnet.cu` (the card's gate is 1e-4)."""
+    net = seeded(ResnetPointnet(out_dim=24, hidden_dim=64), 11)
+    w = pfu.pointnet_weights(net)
+    pts = torch.as_tensor(rand(12, 2, 300, 3))
+    x, pooled = pfu.fused_input_block_plain(
+        pts, *(w[n] for n in ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")))
+    if block == "input":
+        ref = x
+        h = pts @ w["wpos"] + w["bpos"]
+        hidden = F.relu(_three_products(F.relu(h), w["w0"]) + w["b0"])
+        got = _three_products(h, w["ws"]) + _three_products(hidden, w["w1"]) + w["b1"]
+    else:
+        b = {n: w[f"block_2.{n}"] for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")}
+        ref, _ = pfu.fused_split_block_plain(x, pooled, *b.values())
+        c0 = (F.relu(pooled) @ b["w0p"] + b["b0"])[:, None]
+        cs = (pooled @ b["wsp"] + b["b1"])[:, None]
+        hidden = F.relu(_three_products(F.relu(x), b["w0x"]) + c0)
+        got = _three_products(x, b["wsx"]) + _three_products(hidden, b["w1"]) + cs
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("scheme", list(split_precision.SCHEMES))
+def test_operand_schemes_against_the_gate(scheme):
+    """PERF.md's precision table at a small width: the gate of 1e-4 of
+    max|out| refuses every one-pass tensor-core scheme (TF32 rounded or
+    truncated, bf16) on some block and passes both three-product schemes
+    with a wide margin."""
+    net = seeded(ResnetPointnet(out_dim=32, hidden_dim=32), 13)
+    errors = split_precision.block_errors(net, torch.as_tensor(rand(14, 2, 200, 3)), scheme)
+    if scheme in split_precision.SPLIT:
+        assert max(errors) < 2e-5
+    else:
+        assert max(errors) > 1e-4
+
+
+def test_pointnet_operands_split_afresh_after_an_update():
+    """`SeeMeSystem._pointnet_operands` keeps its copies while the scene
+    encoder is unchanged and makes the split bf16 pairs again after an
+    in-place update of one of its weights."""
+    data = SyntheticEgoDataset(2, 60, scene_points=64, seed=0)
+    cfg = SeeMeConfig(latent_dim=(1, 32), ff_size=16, num_layers=3, scene_points=64,
+                      scene_feat_dim=32)
+    system = SeeMeSystem(cfg, synthetic_smpl(256), data.mean, data.std, device="cpu", seed=1)
+    before = system._pointnet_operands()
+    assert system._pointnet_operands() is before
+    fc = system.proscene["scene_enc"].block_2.fc_1
+    with torch.no_grad():
+        fc.weight.add_(0.01)  # fc_1 starts at zero
+    after = system._pointnet_operands()
+    assert after is not before
+    assert torch.equal(after["block_2.w1.split"], pfu.split_weight(fc.weight.t()))
+    assert not torch.equal(after["block_2.w1.split"], before["block_2.w1.split"])
+    assert torch.equal(after["w1.split"], before["w1.split"])  # block_0 untouched
 
 
 @pytest.fixture(scope="module")
