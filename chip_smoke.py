@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: EgoBody (SEE-ME, its
 image-conditioned, GIMO and interactee-only configs, both training stages,
-the test CLI) and HumanML3D text-to-motion.
+the test CLI), HumanML3D text-to-motion, and the ProHMR-Scene and EgoHMR
+perception stack's evaluation paths.
 
     python3 chip_smoke.py
 
@@ -80,11 +81,32 @@ Phases, each printing one line with its seconds as soon as it ends:
  15. the test CLI (`seeme_tpu_torch.test`) on that checkpoint, 2
      replications over the 64-sample synthetic test split (expected: the
      condition encode once, input block 1, split block 3, ResNet50 1, DDIM 2)
-     with finite mean / CI / min / max in its metrics JSON.
+     with finite mean / CI / min / max in its metrics JSON;
+ 16. set-up of ProHMR-Scene at full width (`ProHMRConfig()`: flow hidden
+     1024 x 4 layers x depth 2, context 2566; synthetic SMPL with 6890
+     vertices) and a correlated synthetic batch of 64 (20 000 scene points,
+     224 x 224 crops);
+ 17. both PointNet kernels at hidden width 256 (the perception stack's
+     scene encoder) against their plain versions at B=64, N=20 000 and at
+     B=1, N=1000 and B=3, N=1077 (ragged tiles): errors, ms, bound, split-bf16
+     floor, shares, TFLOP/s and launch plans;
+ 18. ProHMR-Scene `forward_step` (4 samples, the mode first) and the CLI's
+     metrics on the mode, counted (expected: H=256 input block 1, split block
+     3, nothing else), its parts timed alone (ResNet50, PointNet, flow, SMPL
+     over 256 bodies) and the whole step, and the card against the CPU's
+     plain path at B=2 (512 points, 224 x 224 crops, shared base noise);
+ 19. EgoHMR `sample` at full width (`EgoHmrConfig()`: GCN 1024 x 4, ddim50,
+     each step's two predictions in one GCN call) the same way (expected:
+     H=256 input block 1, split block 3; parts ResNet50, PointNet, the 50
+     GCN steps, SMPL), card vs CPU with injected noise;
+ 20-21. `python -m seeme_tpu_torch.test_prohmr_scene` and `test_egohmr` at
+     full width on the 16-example test split (one batch, 20 000 points),
+     counted the same way.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
-path; kernel 3's numbers at 1 and 3 condition tokens), the card's name and
-power limit, and, last, `{"ok": true, "device": {...}}`. Any failed check exits non-zero
-at once. Random weights: the seeded init plus a seeded perturbation, so the
+path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
+at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
+the ProHMR-Scene slice), the card's name and power limit, and, last, `{"ok":
+true, "device": {...}}`. Any failed check exits non-zero at once. Random weights: the seeded init plus a seeded perturbation, so the
 zero-initialized output projections carry signal.
 """
 
@@ -113,6 +135,7 @@ TRAIN_LOSS_RTOL = 1e-4   # one train step's loss, card vs CPU
 TRAIN_GRAD_RTOL = 1e-3   # its gradients, card vs CPU, relative to each tensor's max |g|
 GRAD_FLOOR = 1e-8        # absolute bound for a gradient that is zero but for f32 rounding
 TRAIN_LR = 1e-3          # the card-vs-CPU step's learning rate
+HMR_POINTS = 20000       # the perception stack's scene points at full width
 
 _t0 = time.perf_counter()
 
@@ -393,18 +416,29 @@ def main() -> int:
           f"{bound_ms(flops, nbytes):.4f} ms", t)
     del z_k, z_p
 
-    counters = {"pointnet_input_block": pfu.fused_input_block,
-                "pointnet_split_block": pfu.fused_split_block, "ddim_md_t1": dfu.ddim_fused,
-                "ddim_fused_grid": dfu.ddim_fused_grid, "ddim_tok_t1": dfu.ddim_fused_tok}
+    # each kernel of the JSON line: its wrapper, and the hidden width of a
+    # PointNet instantiation (the wrappers count launches by width too)
+    counters = {"pointnet_input_block": (pfu.fused_input_block, 512),
+                "pointnet_split_block": (pfu.fused_split_block, 512),
+                "ddim_md_t1": (dfu.ddim_fused, None), "ddim_fused_grid": (dfu.ddim_fused_grid, None),
+                "ddim_tok_t1": (dfu.ddim_fused_tok, None),
+                "pointnet_input_block_h256": (pfu.fused_input_block, 256),
+                "pointnet_split_block_h256": (pfu.fused_split_block, 256)}
 
     def counted(run):
         """Run with every launch count set to 0 just before; return the
         result and the counts read just after."""
-        for fn in counters.values():
+        for fn, width in counters.values():
             fn.launches = 0
+            if width is not None:
+                fn.launches_by_width = dict.fromkeys(pfu.WIDTHS, 0)
         out = run()
         torch.cuda.synchronize()
-        return out, {name: fn.launches for name, fn in counters.items()}
+        for fn in (pfu.fused_input_block, pfu.fused_split_block):
+            require(fn.launches == sum(fn.launches_by_width.values()),
+                    f"{fn.__name__}: {fn.launches} launches, by width {fn.launches_by_width}")
+        return out, {name: fn.launches if width is None else fn.launches_by_width[width]
+                     for name, (fn, width) in counters.items()}
 
     launches = {}
     by_path = {name: {} for name in counters}  # every kernel's launches on every path
@@ -430,8 +464,8 @@ def main() -> int:
     require(tuple(out["joints_rst"].shape) == (B, cfg.motion_length, 24, 3), "joints shape")
     for k, v in {**out, **per_seq}.items():
         require(bool(torch.isfinite(v).all()), f"{k} not finite")
-    expected = {"pointnet_input_block": 1, "pointnet_split_block": 3, "ddim_md_t1": 1,
-                "ddim_fused_grid": 0, "ddim_tok_t1": 0}
+    expected = {**{k: 0 for k in counters}, "pointnet_input_block": 1, "pointnet_split_block": 3,
+                "ddim_md_t1": 1}
     require(counts == expected, f"launch counts {counts}")
     for k in ("pointnet_input_block", "pointnet_split_block", "ddim_md_t1"):
         launches[k] = counts[k]
@@ -530,11 +564,12 @@ def main() -> int:
         by_cond = variant_phases(dev, counted, counters, record, s1_checkpoint, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    hmr_phases(dev, counted, counters, record, kernels, launches)
 
     for k in kernels:
         flops, nbytes = k.pop("flops"), k.pop("bytes")
         k["launches"] = launches[k["name"]]
-        k["launches_by_path"] = by_path[k["name"]]  # beside the EgoBody sampling path's count
+        k["launches_by_path"] = by_path[k["name"]]  # beside its main path's count
         if k["name"] == "ddim_md_t1":  # at the condition-token counts of the other configs
             k["at_n_cond"] = by_cond
         k["bound_ms"] = bound_ms(flops, nbytes)
@@ -1011,6 +1046,289 @@ def variant_phases(dev, counted, counters, record, s1_checkpoint: str, work: str
           f"{json.dumps({k: {n: round(x, 4) for n, x in v.items()} for k, v in stats.items()})}",
           t)
     return by_cond
+
+
+def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) -> None:
+    """Phases 16-21: the perception stack's evaluation paths at full width
+    (B = 64, 20 000 scene points, 224 x 224 crops, 6890 SMPL vertices): both
+    PointNet kernels at hidden width 256 against their plain versions (their
+    rows of the kernels line, launched by these paths), the ProHMR-Scene
+    `forward_step` and the EgoHMR `sample` counted, timed part by part and
+    held to the CPU's plain path on a small input, and both CLIs on one
+    batch each."""
+    import torch
+
+    from seeme_tpu_torch import test_egohmr, test_prohmr_scene
+    from seeme_tpu_torch.core.smpl import smpl_forward, synthetic_smpl
+    from seeme_tpu_torch.data import egohmr_images as images
+    from seeme_tpu_torch.data.synthetic import to_torch
+    from seeme_tpu_torch.eval.hmr_metrics import HmrMetrics
+    from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
+    from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import pointnet_fused as pfu
+
+    none = {k: 0 for k in counters}
+    pointnet_256 = {**none, "pointnet_input_block_h256": 1, "pointnet_split_block_h256": 3}
+    smpl = synthetic_smpl(n_verts=6890, seed=SEED)
+
+    def build(cls, cfg, device, seed):
+        m = cls(cfg, smpl, device=device, seed=SEED)
+        perturb_parameters_(m, torch.Generator().manual_seed(seed))
+        randomize_batch_stats_(m, torch.Generator().manual_seed(seed + 1))
+        return m
+
+    def small_pair(model, cls, cfg):
+        """The model's weights on the CPU and a small input (B = 2, 512
+        points, 224 x 224 crops) for the card-vs-CPU check."""
+        cpu = cls(cfg, smpl, device="cpu", seed=SEED)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        dm = images.EgoHmrImageDataModule(n_pts=512, img_size=224, smpl=smpl)
+        return cpu, next(dm.batches("test", 2, shuffle=False))
+
+    def mode_metrics(model, out_j, out_v, b, vis=None):
+        """The CLIs' metrics of one prediction a sample."""
+        gt_j, gt_v = test_prohmr_scene.ground_truth(model, b)
+        metrics = HmrMetrics()
+        metrics.update(out_j.cpu().numpy(), out_v.cpu().numpy(), gt_j.cpu().numpy(),
+                       gt_v.cpu().numpy(), None if vis is None else vis.cpu().numpy())
+        return metrics.compute()
+
+    # ---- 16. set-up: the ProHMR-Scene model and a full-width batch
+    t = time.perf_counter()
+    p_cfg = ProHMRConfig()
+    model = build(ProHMRScene, p_cfg, dev, SEED + 40)
+    dm = images.EgoHmrImageDataModule(n_pts=HMR_POINTS, img_size=p_cfg.image_size, smpl=smpl)
+    batch_np = next(dm.batches("train", BATCH, shuffle=False))
+    batch = to_torch(batch_np, dev)
+    require(tuple(batch["scene_pcd"].shape) == (BATCH, HMR_POINTS, 3)
+            and tuple(batch["img"].shape) == (BATCH, 224, 224, 3), "ProHMR batch shapes")
+    phase(f"set-up: ProHMRConfig() model ({sum(p.numel() for p in model.parameters())} params, "
+          f"flow hidden {p_cfg.flow_hidden} x {p_cfg.flow_layers} layers x depth "
+          f"{p_cfg.flow_depth}, context {p_cfg.total_context}), synthetic SMPL with "
+          f"{smpl.v_template.shape[0]} vertices, batch {BATCH}, {HMR_POINTS} points, "
+          f"224x224 crops", t)
+
+    # ---- 17. kernels 1 and 2 at H = 256 against their plain versions
+    w = pfu.pointnet_weights(model.scene_enc)
+    H = model.scene_enc.hidden_dim
+    require(H == 256, f"scene encoder width {H}")
+    for input_block in (True, False):
+        print_pointnet_launch(pfu.launch_info(input_block, H))
+    in_names = ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")
+    sp_names = ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")
+    in_split = tuple(w[f"{n}.split"] for n in pfu.INPUT_SPLIT)
+    sp_split = tuple(w[f"block_1.{n}.split"] for n in pfu.BLOCK_SPLIT)
+    for b, n in ((BATCH, HMR_POINTS), (1, 1000), (3, 1077)):
+        t = time.perf_counter()
+        points = batch["scene_pcd"][:b, :n].contiguous()
+        in_args = (points, *(w[k] for k in in_names))
+        out_k, pool_k = pfu.fused_input_block(*in_args, split=in_split)
+        out_p, pool_p = pfu.fused_input_block_plain(*in_args)
+        torch.cuda.synchronize()
+        scale = float(out_p.abs().max())
+        err = max(compare(f"input block H=256 B={b} N={n} out", out_k, out_p, scale, POINTNET_RTOL),
+                  compare(f"input block H=256 B={b} N={n} pool", pool_k, pool_p, scale,
+                          POINTNET_RTOL))
+        del out_k, pool_k
+        iters = 3 if b == BATCH else 20
+        ms = time_ms(lambda: pfu.fused_input_block(*in_args, split=in_split), iters)
+        plain_ms = time_ms(lambda: pfu.fused_input_block_plain(*in_args), 3)
+        macs = b * n * (3 * 2 * H + 2 * H * H + H * H + 2 * H * H)
+        nbytes = tensor_bytes(points, w["wpos"], w["bpos"], w["b0"], w["b1"], *in_split)
+        nbytes += 4 * (b * n * H + b * H)
+        phase(f"kernel pointnet_input_block (B={b}, N={n}, H={H}): {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, {pointnet_rates(2 * macs, nbytes, ms)}", t)
+        if b == BATCH:
+            kernels.append(dict(name="pointnet_input_block_h256", route="cuda",
+                                source="seeme_tpu_torch/csrc/pointnet.cu",
+                                replaces="seeme_tpu/ops/pointnet_pallas.py:112", hidden=H,
+                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                                flops=2 * macs))
+        t = time.perf_counter()
+        sp_args = (out_p, pool_p, *(w[f"block_1.{k}"] for k in sp_names))
+        out_k, pool_k = pfu.fused_split_block(*sp_args, split=sp_split)
+        out_s, pool_s = pfu.fused_split_block_plain(*sp_args)
+        torch.cuda.synchronize()
+        scale = float(out_s.abs().max())
+        err = max(compare(f"split block H=256 B={b} N={n} out", out_k, out_s, scale, POINTNET_RTOL),
+                  compare(f"split block H=256 B={b} N={n} pool", pool_k, pool_s, scale,
+                          POINTNET_RTOL))
+        del out_k, pool_k, out_s, pool_s
+        ms = time_ms(lambda: pfu.fused_split_block(*sp_args, split=sp_split), iters)
+        plain_ms = time_ms(lambda: pfu.fused_split_block_plain(*sp_args), 3)
+        macs = b * n * 3 * H * H + 2 * b * H * H
+        nbytes = tensor_bytes(*(sp_args[i] for i in (0, 1, 3, 4, 6, 8)), *sp_split)
+        nbytes += 4 * (b * n * H + b * H)
+        phase(f"kernel pointnet_split_block (B={b}, N={n}, H={H}): {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, {pointnet_rates(2 * macs, nbytes, ms)}", t)
+        if b == BATCH:
+            kernels.append(dict(name="pointnet_split_block_h256", route="cuda",
+                                source="seeme_tpu_torch/csrc/pointnet.cu",
+                                replaces="seeme_tpu/ops/pointnet_pallas.py:56", hidden=H,
+                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                                flops=2 * macs))
+        del out_p, pool_p, sp_args, in_args
+    torch.cuda.empty_cache()
+
+    def check_outputs(label, out, shapes):
+        for k, shape in shapes.items():
+            require(tuple(out[k].shape) == shape, f"{label} {k} shape {tuple(out[k].shape)}")
+        for k, v in out.items():
+            if torch.is_tensor(v):
+                require(bool(torch.isfinite(v.float()).all()), f"{label} {k} not finite")
+
+    # ---- 18. the ProHMR-Scene evaluation slice, counted
+    t = time.perf_counter()
+    NS = p_cfg.num_test_samples
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+
+    def prohmr_slice():
+        out = model.forward_step(batch, generator=gen)
+        return out, mode_metrics(model, out["pred_keypoints_3d"][:, 0, :24],
+                                 out["pred_vertices"][:, 0], batch)
+
+    (out, means), counts = counted(prohmr_slice)
+    wall = time.perf_counter() - t
+    require(counts == pointnet_256, f"ProHMR slice launch counts {counts}")
+    record("prohmr_eval", counts)
+    launches.update({k: counts[k] for k in ("pointnet_input_block_h256",
+                                            "pointnet_split_block_h256")})
+    check_outputs("ProHMR", out, {"pred_vertices": (BATCH, NS, 6890, 3),
+                                  "pred_keypoints_3d": (BATCH, NS, 45, 3),
+                                  "pred_keypoints_2d": (BATCH, NS, 45, 2),
+                                  "log_prob": (BATCH, NS),
+                                  "conditioning_feats": (BATCH, p_cfg.total_context)})
+    require(set(means) == {"MPJPE", "PA-MPJPE", "V2V"}
+            and all(math.isfinite(v) for v in means.values()), f"ProHMR metrics {means}")
+    phase(f"ProHMR-Scene slice B={BATCH} (forward_step, {NS} samples, mode first; metrics on "
+          f"the mode): launches {counts}, {json.dumps({k: round(v, 3) for k, v in means.items()})}"
+          f" mm on random weights ({wall:.3f} s)", t)
+
+    t = time.perf_counter()
+    with torch.no_grad():
+        ctx = model.conditioning_features(batch)
+        z_mode = torch.zeros(BATCH, 1, p_cfg.flow_dim, device=dev)
+        z_rnd = torch.randn(BATCH, NS - 1, p_cfg.flow_dim, generator=gen, device=dev)
+        pose = model.flow_forward(ctx, z=torch.cat([z_mode, z_rnd], dim=1))
+        parts = {
+            "resnet50": lambda: model.encode_image(batch["img"]),
+            "pointnet": lambda: model.encode_scene(batch["scene_pcd"]),
+            "flow": lambda: (model.flow_forward(ctx, z=z_mode), model.flow_forward(ctx, z=z_rnd)),
+            "smpl": lambda: smpl_forward(model.smpl, pose["betas"].reshape(-1, 10),
+                                         pose["body_pose"].reshape(-1, 23, 3, 3),
+                                         pose["global_orient"].reshape(-1, 1, 3, 3),
+                                         pose2rot=False),
+            "forward_step": lambda: model.forward_step(batch, generator=gen),
+        }
+        split_ms = {name: time_ms(fn, 3) for name, fn in parts.items()}
+    phase(f"ProHMR-Scene time split (ms, CUDA events, each part alone; smpl over "
+          f"{BATCH * NS} bodies): {json.dumps({k: round(v, 3) for k, v in split_ms.items()})}", t)
+
+    t = time.perf_counter()
+    cpu, small_np = small_pair(model, ProHMRScene, p_cfg)
+    noise = torch.randn(2, NS - 1, p_cfg.flow_dim,
+                        generator=torch.Generator().manual_seed(SEED + 44))
+    ref = cpu.forward_step(to_torch(small_np, "cpu"), noise=noise)
+    got = model.forward_step(to_torch(small_np, dev), noise=noise.to(dev))
+    for k in ("pose_6d", "log_prob", "betas", "cam", "pred_keypoints_3d", "pred_vertices",
+              "pred_cam_t_full", "pred_keypoints_2d_full", "conditioning_feats"):
+        compare(f"ProHMR {k}, card vs CPU", got[k].cpu(), ref[k], float(ref[k].abs().max()),
+                SLICE_RTOL)
+    del cpu, model, out, ctx, pose
+    torch.cuda.empty_cache()
+    phase("ProHMR-Scene reference: card path agrees with the CPU plain path (B=2, 512 points, "
+          "224x224 crops, 3 samples with shared base noise)", t)
+
+    # ---- 19. the EgoHMR sampling slice, counted
+    t = time.perf_counter()
+    e_cfg = EgoHmrConfig()
+    model = build(EgoHmr, e_cfg, dev, SEED + 45)
+    S = model.sample_schedule.num_train_timesteps
+    phase(f"set-up: EgoHmrConfig() model ({sum(p.numel() for p in model.parameters())} params, "
+          f"GCN {e_cfg.gcn_hid_dim} x {e_cfg.gcn_layers} layers over {e_cfg.gcn_in_dim} inputs a "
+          f"joint, {e_cfg.timestep_respacing}: {S} ancestral steps)", t)
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+
+    def egohmr_slice():
+        out = model.sample(batch, generator=gen)
+        return out, mode_metrics(model, out["pred_keypoints_3d"][:, :24], out["pred_vertices"],
+                                 batch, out["vis_mask_smpl"])
+
+    (out, means), counts = counted(egohmr_slice)
+    wall = time.perf_counter() - t
+    require(counts == pointnet_256, f"EgoHMR slice launch counts {counts}")
+    record("egohmr_sampling", counts)
+    check_outputs("EgoHMR", out, {"pred_vertices": (BATCH, 6890, 3),
+                                  "pred_keypoints_3d": (BATCH, 45, 3),
+                                  "pred_x_start": (BATCH, 144), "vis_mask_smpl": (BATCH, 24)})
+    require(set(means) == {"MPJPE", "PA-MPJPE", "V2V", "MPJPE-vis", "MPJPE-invis"}
+            and all(math.isfinite(v) for v in means.values()), f"EgoHMR metrics {means}")
+    phase(f"EgoHMR slice B={BATCH} (sample: {S} steps, each both predictions in one GCN call, "
+          f"then forward at t=0): launches {counts}, "
+          f"{json.dumps({k: round(v, 3) for k, v in means.items()})} mm on random weights "
+          f"({wall:.3f} s)", t)
+
+    t = time.perf_counter()
+    with torch.no_grad():
+        enc = model.encode(batch)
+        vis = model.visibility_mask(batch)
+        cond = model.conditioning(enc, vis)
+        cond_un = model.mask_cond(cond)
+        vis6 = vis.repeat_interleave(6, dim=-1)
+        x0 = torch.randn(BATCH, 144, generator=gen, device=dev)
+
+        def steps():
+            x = x0
+            for i in range(S - 1, -1, -1):
+                mt = torch.full((BATCH,), int(model.timestep_map[i]), dtype=torch.long, device=dev)
+                x = model.sample_schedule.ddpm_step(model._fused_x0(cond, cond_un, vis6, x, mt),
+                                                    i, x, x0)
+            return x
+
+        final = model(batch, x0, torch.zeros(BATCH, dtype=torch.long, device=dev),
+                      eval_with_uncond=True, enc=enc)
+        rot = final["pred_smpl_params"]
+        parts = {
+            "resnet50": lambda: model.backbone(batch["img"]),
+            "pointnet": lambda: model.encode_scene(batch["scene_pcd"]),
+            f"gcn_{S}_steps": steps,
+            "smpl": lambda: smpl_forward(model.smpl, rot["betas"], rot["body_pose"],
+                                         rot["global_orient"], pose2rot=False),
+            "sample": lambda: model.sample(batch, generator=gen),
+        }
+        split_ms = {name: time_ms(fn, 2) for name, fn in parts.items()}
+    phase(f"EgoHMR time split (ms, CUDA events, each part alone): "
+          f"{json.dumps({k: round(v, 3) for k, v in split_ms.items()})}", t)
+
+    t = time.perf_counter()
+    cpu, small_np = small_pair(model, EgoHmr, e_cfg)
+    g = torch.Generator().manual_seed(SEED + 48)
+    x_init, noise = torch.randn(2, 144, generator=g), torch.randn(S, 2, 144, generator=g)
+    ref = cpu.sample(to_torch(small_np, "cpu"), x_init=x_init, noise=noise)
+    got = model.sample(to_torch(small_np, dev), x_init=x_init.to(dev),
+                       noise=noise.to(dev))
+    require(torch.equal(got["vis_mask_smpl"].cpu(), ref["vis_mask_smpl"]), "EgoHMR vis mask")
+    for k in ("pred_x_start", "pred_keypoints_3d", "pred_vertices"):
+        compare(f"EgoHMR {k}, card vs CPU", got[k].cpu(), ref[k], float(ref[k].abs().max()),
+                SLICE_RTOL)
+    del cpu, model, out, enc, cond, cond_un, final, batch
+    torch.cuda.empty_cache()
+    phase(f"EgoHMR reference: card path agrees with the CPU plain path (B=2, 512 points, "
+          f"224x224 crops, {S} steps with shared noise)", t)
+
+    # ---- 20-21. each CLI on one full-width batch (the 16-example test split)
+    for label, cli in (("test_prohmr_scene", test_prohmr_scene), ("test_egohmr", test_egohmr)):
+        t = time.perf_counter()
+        result, counts = counted(lambda: cli.main(["--batch_size", "16", "--scene_points",
+                                                   str(HMR_POINTS)]))
+        require(counts == pointnet_256, f"{label} CLI launch counts {counts}")
+        require(all(math.isfinite(v) for v in result.values()) and "MPJPE" in result,
+                f"{label} CLI metrics {result}")
+        record(f"{label}_cli", counts)
+        phase(f"CLI {label} (full width, one batch of 16, {HMR_POINTS} points): launches "
+              f"{counts}, {json.dumps({k: round(v, 3) for k, v in result.items()})} mm", t)
 
 
 def forward_counter(module) -> list:

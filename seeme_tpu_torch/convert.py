@@ -13,6 +13,10 @@ join back into one `fc_0` / `shortcut` over [x; pooled]; the VAE's
 `dist_layer` (MLP_DIST) and an all-encoder decoder map as they are; the
 ResNet's conv kernels go from HWIO to OIHW and its batch statistics to
 `running_mean` / `running_var`.
+
+`prohmr_state_dict` and `egohmr_state_dict` do the same for the perception
+stack's `init_params` trees (`seeme_tpu/models/{prohmr,egohmr}.py`), the
+inverses of `convert_checkpoint.py`'s ProHMR branch and `convert_egohmr`.
 """
 
 from __future__ import annotations
@@ -173,6 +177,94 @@ def resnet_state_dict(tree: Tree, prefix: str = "image_encoder") -> Dict:
     return sd
 
 
+def glow_state_dict(tree: Tree, prefix: str = "flow.flow") -> Dict:
+    """`seeme_tpu/flows/glow.py` params {"layers": [...]} -> the nflows keys
+    of `flows/glow.py::ConditionalGlow` (slots 3i, 3i + 1, 3i + 2), the
+    inverse of `convert_glow`."""
+    sd: Dict = {}
+
+    def wb(key: str, p: Tree) -> None:
+        _put(sd, f"{key}.weight", p["w"])
+        _put(sd, f"{key}.bias", p["b"])
+
+    for i, layer in enumerate(tree["layers"]):
+        t = f"{prefix}._transform._transforms"
+        for name in ("log_scale", "shift"):
+            _put(sd, f"{t}.{3 * i}.{name}", layer["actnorm"][name])
+        for name in ("lower_entries", "upper_entries", "unconstrained_upper_diag", "bias"):
+            _put(sd, f"{t}.{3 * i + 1}.{name}", layer["lu"][name])
+        net, p = f"{t}.{3 * i + 2}.transform_net", layer["coupling"]["resnet"]
+        wb(f"{net}.initial_layer", p["initial"])
+        wb(f"{net}.final_layer", p["final"])
+        for j, block in enumerate(p["blocks"]):
+            for k in (0, 1):
+                wb(f"{net}.blocks.{j}.linear_layers.{k}", block[f"linear{k}"])
+                bn, key = block[f"bn{k}"], f"{net}.blocks.{j}.batch_norm_layers.{k}"
+                _norm(sd, key, bn)
+                _put(sd, f"{key}.running_mean", bn["mean"])
+                _put(sd, f"{key}.running_var", bn["var"])
+    return sd
+
+
+def gcn_state_dict(tree: Tree, prefix: str = "diffusion_model") -> Dict:
+    """flax `ModulatedGCN` {"params", "batch_stats"} (`seeme_tpu/nn/gcn.py`)
+    -> `nn/gcn.py` keys, the inverse of `convert_egohmr`'s GCN part."""
+    params, stats = tree["params"], tree["batch_stats"]
+    sd: Dict = {}
+
+    def gconv(key: str, p: Tree) -> None:
+        for name in ("W", "M", "adj2", "bias"):
+            _put(sd, f"{key}.{name}", p[name])
+
+    def block(key: str, p: Tree, s: Tree) -> None:
+        gconv(f"{key}.gconv", p["gconv"])
+        _norm(sd, f"{key}.bn", p["bn"])
+        _put(sd, f"{key}.bn.running_mean", s["bn"]["mean"])
+        _put(sd, f"{key}.bn.running_var", s["bn"]["var"])
+
+    block(f"{prefix}.gconv_input.0", params["gconv_input"], stats["gconv_input"])
+    layers = sorted(int(k.split("_")[1]) for k in params if k.startswith("res_"))
+    for i in layers:
+        for j in (1, 2):
+            block(f"{prefix}.gconv_layers.{i}.gconv{j}", params[f"res_{i}"][f"gconv{j}"],
+                  stats[f"res_{i}"][f"gconv{j}"])
+    gconv(f"{prefix}.gconv_output", params["gconv_output"])
+    return sd
+
+
+def _mlp(sd: Dict, prefix: str, p: Tree, names=("fc1", "fc2")) -> None:
+    """Two flax Dense layers -> elements 0 and 2 of a Linear-act-Linear."""
+    _linear(sd, f"{prefix}.0", p[names[0]])
+    _linear(sd, f"{prefix}.2", p[names[1]])
+
+
+def prohmr_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """`ProHMRScene.init_params` tree (`seeme_tpu/models/prohmr.py`) -> the
+    state dict of `models/prohmr.py::ProHMRScene`; the discriminator is
+    training's and is left out."""
+    sd: Dict = {}
+    sd.update(resnet_state_dict(tree["backbone"], "backbone"))
+    sd.update(pointnet_state_dict(tree["scene_enc"]["params"], "scene_enc"))
+    sd.update(glow_state_dict(tree["flow"], "flow.flow"))
+    _mlp(sd, "flow.fc_head.layers", tree["fc_head"]["params"])
+    return sd
+
+
+def egohmr_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """`EgoHmr.init_params` tree (`seeme_tpu/models/egohmr.py`) -> the state
+    dict of `models/egohmr.py::EgoHmr`."""
+    sd: Dict = {}
+    sd.update(resnet_state_dict(tree["backbone"], "backbone"))
+    sd.update(pointnet_state_dict(tree["scene_enc"]["params"], "scene_enc"))
+    _mlp(sd, "transl_enc.layers", tree["transl_enc"]["params"])
+    _mlp(sd, "embed_timestep.time_embed", tree["timestep_embedder"]["params"],
+         ("linear_1", "linear_2"))
+    _linear(sd, "input_process.poseEmbedding", tree["input_process"]["params"])
+    sd.update(gcn_state_dict(tree["gcn"]))
+    _mlp(sd, "beta_layer.layers", tree["beta_layer"]["params"])
+    return sd
+
+
 def from_jax_params(tree: Tree) -> Dict[str, torch.Tensor]:
     """{'vae', 'denoiser', 'scene_encoder', 'output_scene', 'image_encoder',
     'output_images'} flax trees (any subset) -> one port state dict."""
@@ -189,3 +281,20 @@ def from_jax_params(tree: Tree) -> Dict[str, torch.Tensor]:
         if name in tree:
             _linear(sd, f"{name}.1", tree[name]["params"]["linear"])
     return sd
+
+
+def load_reference_checkpoint(module: torch.nn.Module, path: str, drop=("smpl",)) -> list:
+    """Load a torch checkpoint with the reference's key names (its
+    `state_dict` entry, or the file itself) into `module`, without the keys
+    under the `drop` prefixes (`smpl.*`, as `convert_checkpoint.py` filters
+    them). Every key the module holds must be there; returns the keys the
+    module has no place for (buffers such as `num_batches_tracked`, modules
+    of training)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt)
+    sd = {k: v for k, v in sd.items() if not k.startswith(tuple(drop))}
+    result = module.load_state_dict(sd, strict=False)
+    if result.missing_keys:
+        raise KeyError(f"{path}: missing {len(result.missing_keys)} keys, e.g. "
+                       f"{result.missing_keys[:5]}")
+    return list(result.unexpected_keys)

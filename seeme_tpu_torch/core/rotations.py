@@ -97,3 +97,20 @@ def rotmat_to_rot6d(R: torch.Tensor, mode: str = "diffusion") -> torch.Tensor:
     if mode == "prohmr":
         return torch.stack([R[..., :, 0], R[..., :, 1]], dim=-2).reshape(*R.shape[:-2], 6)
     raise ValueError(f"unknown rot6d mode: {mode}")
+
+
+def perspective_projection(points: torch.Tensor, translation: torch.Tensor,
+                           focal_length: torch.Tensor,
+                           camera_center: torch.Tensor | None = None,
+                           rotation: torch.Tensor | None = None) -> torch.Tensor:
+    """Pinhole projection of (B, N, 3) points -> (B, N, 2) pixels
+    (`seeme_tpu/core/rotations.py:153`): optional camera rotation (B, 3, 3),
+    the translation (B, 3), the perspective divide, the focal lengths (B, 2)
+    and the optional principal point (B, 2)."""
+    if rotation is not None:
+        points = torch.einsum("bij,bkj->bki", rotation, points)
+    points = points + translation[:, None, :]
+    xy = points[..., :2] / points[..., 2:3] * focal_length[:, None, :]
+    if camera_center is not None:
+        xy = xy + camera_center[:, None, :]
+    return xy

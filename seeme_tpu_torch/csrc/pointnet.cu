@@ -23,41 +23,54 @@
 // of max|out|). That is three times the bf16 operations: the floor of this
 // scheme is 3x the tensor-core bound.
 //
-// The design. One CTA takes TM = 64 points of one batch row, 384 threads:
-//  - two consumer warpgroups each own H / 2 = 256 output columns in one
-//    m64n256k16 f32 accumulator (128 registers a thread, setmaxnreg 232); one
-//    thread of the producer warpgroup (setmaxnreg 40) feeds the ring;
+// The design. One CTA takes TM points of one batch row, 384 threads:
+//  - two consumer warpgroups share the (TM, H) output tile, each in one
+//    m64nWG_COLSk16 f32 accumulator: at H = 512 (EgoBody's scene encoder),
+//    TM = 64 and each owns 256 of the columns (128 registers a thread,
+//    setmaxnreg 232); at H = 256 (the ProHMR-Scene and EgoHMR scene
+//    encoders), TM = 128 and each owns 64 of the points across all 256
+//    columns, so the same m64n256k16 products serve both widths and every
+//    weight slot feeds 128 points (WG_COLS_256 = 128 instead gives the other
+//    design at H = 256: TM = 64, each warpgroup 128 columns in m64n128k16
+//    products, 64 registers of accumulators; `ops/pointnet_profile.py`
+//    builds it as variant `n128`). One thread of the producer warpgroup
+//    (setmaxnreg 40) feeds the ring;
 //  - the weights stream through a ring of STAGES slots in shared memory, one
 //    K step (16) of all 2H rows of a product weight a slot, hi rows over lo
-//    rows, 32 KB in wgmma's 32-byte swizzle. Each weight is stored slot image
-//    by slot image (`ops/pointnet_fused.py::split_weight`: nn.Linear's (out,
-//    in) rows, K-major for wgmma's B, cut into K steps, pre-swizzled), so a
-//    slot arrives by TMA bulk copies of contiguous bytes (2D TMA boxes of
-//    the slot's 32-byte rows were slower, PERF.md). CLUSTER CTAs on
+//    rows, 32 KB at H = 512 (16 KB at 256) in wgmma's 32-byte swizzle. Each
+//    weight is stored slot image by slot image
+//    (`ops/pointnet_fused.py::split_weight`: nn.Linear's (out, in) rows,
+//    K-major for wgmma's B, cut into K steps, pre-swizzled), so a slot
+//    arrives by TMA bulk copies of contiguous bytes (2D TMA boxes of the
+//    slot's 32-byte rows were slower, PERF.md). CLUSTER CTAs on
 //    neighbouring tiles share every slot: each copies its share and
 //    multicasts it to all, so L2 serves each weight byte once per cluster (a
-//    CTA alone would read 3 MB, or 5.2 MB in the input block, per 64 points);
+//    CTA alone would read 3 MB, or 5.2 MB in the input block, per 64 points
+//    at H = 512);
 //  - the A operand of the two products over the block input is built in
 //    registers in wgmma's fragment layout: x (f32, from L2, loaded a step
 //    ahead) or, in the input block, h recomputed from the tile's three
-//    coordinates (three FMAs an element; the (64, 2H) embedding is never
+//    coordinates (three FMAs an element; the (TM, 2H) embedding is never
 //    stored), relu where the product takes it, split into hi/lo;
-//  - relu(net + bias) goes to shared memory as hi/lo bf16 (2 x 64 KB at H =
-//    512) in wgmma's swizzled K-major layout and is the A operand, from
-//    shared memory, of W_1, accumulated onto the shortcut product;
+//  - relu(net + bias) goes to shared memory as hi/lo bf16 (2 x 64 KB at
+//    either width) in wgmma's swizzled K-major layout and is the A operand,
+//    from shared memory, of W_1, accumulated onto the shortcut product;
 //  - the epilogue adds the bias, writes out for the tile's valid rows and
 //    reduces the column max over them.
-// Shared memory: 3 x 32 KB ring + 128 KB relu(net) + barriers, 230,448 of
-// the 232,448 bytes a CTA may have; the ring cannot be deeper. The point
-// count need not divide the tile: rows past N load as zero and are neither
-// stored nor pooled. The grid is rounded up to whole clusters; a CTA past
-// the last tile runs the pipeline for its peers and writes nothing.
-// Measured (PERF.md, NVIDIA H100 80GB HBM3 at 700 W): 22.5 ms and 17.0 ms at
-// B = 64, N = 20 000, 45% and 36% of the split-bf16 floor; each warpgroup
-// waits for its products before building the next fragments, and the ring's
-// two slots of lead do not hide the weight stream fully.
-// H is a template parameter; only H = 512, the EgoBody scene encoder's width,
-// is instantiated (H = 256 would need m64n128 products).
+// Shared memory at H = 512: 3 x 32 KB ring + 128 KB relu(net) + barriers,
+// 230,448 of the 232,448 bytes a CTA may have; the ring cannot be deeper.
+// At H = 256: 6 x 16 KB ring + 128 KB relu(net) + barriers, 230,496 bytes.
+// The point count need not divide the tile: rows past N load as zero and
+// are neither stored nor pooled. The grid is rounded up to whole clusters; a
+// CTA past the last tile runs the pipeline for its peers and writes nothing.
+// Measured (PERF.md, NVIDIA H100 80GB HBM3 at 700 W), B = 64, N = 20 000: at
+// H = 512 22.5 ms and 17.0 ms, 45% and 36% of the split-bf16 floor; each
+// warpgroup waits for its products before building the next fragments, and
+// the ring's two slots of lead do not hide the weight stream fully. At
+// H = 256 5.7 ms and 4.4 ms, 45% and 35% of the floor; there the split
+// block's bound is its bytes (2.6 GB of activations in and out), not its
+// operations.
+// H is a template parameter, instantiated at 512 and 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,26 +79,34 @@
 
 namespace {
 
-constexpr int TM = 64;         // points per CTA: wgmma's M
 constexpr int KS = 16;         // K of one ring slot: one bf16 wgmma step
-constexpr int STAGES = 3;      // ring slots
 constexpr int CLUSTER = 2;     // CTAs that share every slot through TMA multicast
-constexpr int CONSUMERS = 2;   // wgmma warpgroups, H / CONSUMERS output columns each
+constexpr int CONSUMERS = 2;   // wgmma warpgroups
 constexpr int NT = 128 * (CONSUMERS + 1);
+constexpr int WG_COLS_256 = 256;  // wgmma's N at H = 256: 256, or 128 for the other design
 
 template <int H>
 struct Smem {
-  static constexpr int WG_COLS = H / CONSUMERS;  // wgmma's N
-  static constexpr int HALF = H * KS * 2;        // the hi (or lo) rows of one slot
+  static constexpr int WG_COLS = H == 512 ? 256 : WG_COLS_256;  // wgmma's N
+  static constexpr int COL_GROUPS = H / WG_COLS;  // warpgroups side by side over the columns
+  static constexpr int ROW_GROUPS = CONSUMERS / COL_GROUPS;  // ... over the points
+  static constexpr int TM = 64 * ROW_GROUPS;      // points per CTA
+  static constexpr int ACC = WG_COLS / 2;         // f32 accumulators a consumer thread
+  static constexpr int STAGES = H == 512 ? 3 : 6;  // ring slots
+  static constexpr int HALF = H * KS * 2;         // the hi (or lo) rows of one slot
   static constexpr int SLOT = 2 * HALF;
-  static constexpr int NET = TM * H * 2;         // relu(net), hi or lo
+  static constexpr int NET = TM * H * 2;          // relu(net), hi or lo
   static constexpr int NET_HI = STAGES * SLOT;
   static constexpr int NET_LO = NET_HI + NET;
-  static constexpr int BARS = NET_LO + NET;      // full[STAGES], then empty[STAGES]
+  static constexpr int BARS = NET_LO + NET;       // full[STAGES], then empty[STAGES]
   static constexpr int BYTES = BARS + 2 * STAGES * 8 + 1024;  // + 1024-byte alignment
-  static constexpr int SHARE = SLOT / CLUSTER;   // the bytes of a slot each CTA loads
-  static_assert(WG_COLS == 256, "the wgmma helpers below are m64n256k16");
+  static constexpr int SHARE = SLOT / CLUSTER;    // the bytes of a slot each CTA loads
+  static_assert(H == 512 || H == 256, "instantiated widths");
+  static_assert(WG_COLS == 256 || WG_COLS == 128, "the wgmma helpers below");
+  static_assert(COL_GROUPS * ROW_GROUPS == CONSUMERS && (COL_GROUPS == 1 || ROW_GROUPS == 1),
+                "the warpgroups split the tile by columns or by points");
   static_assert(SHARE % 16 == 0, "bulk copies move multiples of 16 bytes");
+  static_assert(CONSUMERS * 4 * WG_COLS * 4 <= NET_HI, "the epilogue's scratch in the ring");
   static_assert(BYTES <= 232448, "shared memory of one CTA");
 };
 
@@ -228,17 +249,24 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accumulator accesses across the asynchronous
 // products' issue and wait.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define ACC8(i)                                                                              \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC64 ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
 #define ACC128                                                                                 \
   ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56), ACC8(64),     \
       ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)
+#define D_REGS64                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define D_REGS                                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
@@ -251,25 +279,48 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   "%124, %125, %126, %127}"
 
 // d (+)= A B for a 64 x 16 A in registers (bf16 pairs, wgmma's fragment
-// layout) and a 16 x 256 K-major B in shared memory; d += when acc != 0.
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+// layout) and a 16 x N K-major B in shared memory, N = 2 x the thread's
+// accumulators (m64n256k16 or m64n128k16); d += when acc != 0.
+template <int ACC>
+__device__ __forceinline__ void wgmma_rs(float (&d)[ACC], const uint32_t (&a)[4], uint64_t b,
                                          uint32_t acc) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %132, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
-      ", {%128, %129, %130, %131}, %133, p, 1, 1, 0;\n\t}"
-      : ACC128
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(b));
+  static_assert(ACC == 128 || ACC == 64, "m64n256k16 or m64n128k16");
+  if constexpr (ACC == 128) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %132, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
+        ", {%128, %129, %130, %131}, %133, p, 1, 1, 0;\n\t}"
+        : ACC128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(b));
+  } else {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %68, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D_REGS64
+        ", {%64, %65, %66, %67}, %69, p, 1, 1, 0;\n\t}"
+        : ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(b));
+  }
 }
 
 // The same with A (64 x 16, K-major) in shared memory too.
-__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b, uint32_t acc) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
-      ", %128, %129, p, 1, 1, 0, 0;\n\t}"
-      : ACC128
-      : "l"(a), "l"(b), "r"(acc));
+template <int ACC>
+__device__ __forceinline__ void wgmma_ss(float (&d)[ACC], uint64_t a, uint64_t b, uint32_t acc) {
+  static_assert(ACC == 128 || ACC == 64, "m64n256k16 or m64n128k16");
+  if constexpr (ACC == 128) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
+        ", %128, %129, p, 1, 1, 0, 0;\n\t}"
+        : ACC128
+        : "l"(a), "l"(b), "r"(acc));
+  } else {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D_REGS64
+        ", %64, %65, p, 1, 1, 0, 0;\n\t}"
+        : ACC64
+        : "l"(a), "l"(b), "r"(acc));
+  }
 }
 
 // (x, y) -> their bf16 pair and the bf16 pair of what it leaves out.
@@ -348,7 +399,9 @@ struct HRows {
 };
 
 // A consumer warpgroup's place in the ring.
+template <int H>
 struct Ring {
+  static constexpr int STAGES = Smem<H>::STAGES;
   uint32_t slots, bars;
   int stage;
   uint32_t phase;
@@ -375,8 +428,8 @@ struct Ring {
 // warpgroup's products fill the tensor cores meanwhile. A slot is released
 // as soon as its products are done.
 template <int H, bool RELU, class Src>
-__device__ __forceinline__ void product_regs(float (&acc)[128], Src& src, int steps, bool zero,
-                                             Ring& ring, uint32_t b_off, int wt) {
+__device__ __forceinline__ void product_regs(float (&acc)[Smem<H>::ACC], Src& src, int steps,
+                                             bool zero, Ring<H>& ring, uint32_t b_off, int wt) {
   fence_acc(acc);
   src.load(0);
 #pragma unroll 1
@@ -398,10 +451,13 @@ __device__ __forceinline__ void product_regs(float (&acc)[128], Src& src, int st
   fence_acc(acc);
 }
 
-// acc += relu(net) W_1, relu(net) hi/lo from shared memory.
+// acc += relu(net) W_1, relu(net) hi/lo from shared memory; `net_hi` and
+// `net_lo` point at this warpgroup's first row.
 template <int H>
-__device__ __forceinline__ void product_net(float (&acc)[128], uint32_t net_hi, uint32_t net_lo,
-                                            Ring& ring, uint32_t b_off, int wt) {
+__device__ __forceinline__ void product_net(float (&acc)[Smem<H>::ACC], uint32_t net_hi,
+                                            uint32_t net_lo, Ring<H>& ring, uint32_t b_off,
+                                            int wt) {
+  constexpr int TM = Smem<H>::TM;
   fence_acc(acc);
 #pragma unroll 1
   for (int j = 0; j < H / KS; ++j) {
@@ -421,19 +477,21 @@ __device__ __forceinline__ void product_net(float (&acc)[128], uint32_t net_hi, 
 }
 
 // relu(acc + bias) as hi/lo bf16 into shared memory, the A operand of W_1:
-// K step k16 of it is a (64, 16) K-major block at k16 * 2 KB in the 32-byte
-// swizzle (16-byte chunk index XOR bit 2 of the row).
+// K step k16 of it is a (TM, 16) K-major block at k16 * TM * 32 bytes in the
+// 32-byte swizzle (16-byte chunk index XOR bit 2 of the row). The warpgroup
+// holds rows from `row0` and columns from `col0`.
 template <int H>
-__device__ __forceinline__ void store_net(const float (&acc)[128], const float* bias,
-                                          uint8_t* net_hi, uint8_t* net_lo, int wg, int w, int g,
-                                          int c) {
+__device__ __forceinline__ void store_net(const float (&acc)[Smem<H>::ACC], const float* bias,
+                                          uint8_t* net_hi, uint8_t* net_lo, int row0, int col0,
+                                          int w, int g, int c) {
+  constexpr int TM = Smem<H>::TM;
 #pragma unroll
   for (int i = 0; i < Smem<H>::WG_COLS / 8; ++i) {
-    const int n = wg * Smem<H>::WG_COLS + 8 * i + 2 * c;
+    const int n = col0 + 8 * i + 2 * c;
     const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + n));
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int m = 16 * w + g + 8 * r;
+      const int m = row0 + 16 * w + g + 8 * r;
       uint32_t hi, lo;
       split2(fmaxf(acc[4 * i + 2 * r] + bv.x, 0.f), fmaxf(acc[4 * i + 2 * r + 1] + bv.y, 0.f), hi,
              lo);
@@ -447,19 +505,23 @@ __device__ __forceinline__ void store_net(const float (&acc)[128], const float* 
 }
 
 // out = acc + bias for the tile's valid rows, and the column max over them
-// (warp maxima through `scratch`, 4 KB a warpgroup); tile_max null for a CTA
-// past the last tile.
+// (warp maxima through `scratch`, COLS floats a warp); tile_max null for a
+// CTA past the last tile. The warpgroup holds rows from `row0` and columns
+// from `col0`; where the two warpgroups split the points (ROW_GROUPS 2),
+// the column max takes all eight warps' maxima.
 template <int H>
-__device__ __forceinline__ void store_out(const float (&acc)[128], const float* bias, float* out,
-                                          float* tile_max, int rows, float* scratch, int wg,
-                                          int w, int g, int c, int wt) {
+__device__ __forceinline__ void store_out(const float (&acc)[Smem<H>::ACC], const float* bias,
+                                          float* out, float* tile_max, int rows, float* scratch,
+                                          int wg, int row0, int col0, int w, int g, int c,
+                                          int wt) {
   constexpr int COLS = Smem<H>::WG_COLS;
-  const int r0 = 16 * w + g;
+  constexpr int ROW_GROUPS = Smem<H>::ROW_GROUPS;
+  const int r0 = row0 + 16 * w + g;
   const bool v0 = r0 < rows, v1 = r0 + 8 < rows;
   float* warp_max = scratch + (wg * 4 + w) * COLS;
 #pragma unroll
   for (int i = 0; i < COLS / 8; ++i) {
-    const int n = wg * COLS + 8 * i + 2 * c;
+    const int n = col0 + 8 * i + 2 * c;
     const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + n));
     const float2 o0 = make_float2(acc[4 * i] + bv.x, acc[4 * i + 1] + bv.y);
     const float2 o1 = make_float2(acc[4 * i + 2] + bv.x, acc[4 * i + 3] + bv.y);
@@ -474,12 +536,24 @@ __device__ __forceinline__ void store_out(const float (&acc)[128], const float* 
     }
     if (g == 0) *reinterpret_cast<float2*>(warp_max + 8 * i + 2 * c) = make_float2(mx, my);
   }
-  named_sync(2 + wg, 128);
-  if (tile_max) {
-    const float* m = scratch + wg * 4 * COLS;
-    for (int col = wt; col < COLS; col += 128)
-      tile_max[wg * COLS + col] = fmaxf(fmaxf(m[col], m[COLS + col]),
-                                        fmaxf(m[2 * COLS + col], m[3 * COLS + col]));
+  if constexpr (ROW_GROUPS == 1) {
+    named_sync(2 + wg, 128);
+    if (tile_max) {
+      const float* m = scratch + wg * 4 * COLS;
+      for (int col = wt; col < COLS; col += 128)
+        tile_max[col0 + col] = fmaxf(fmaxf(m[col], m[COLS + col]),
+                                     fmaxf(m[2 * COLS + col], m[3 * COLS + col]));
+    }
+  } else {
+    named_sync(1, 128 * CONSUMERS);
+    if (tile_max) {
+      for (int col = wg * 128 + wt; col < COLS; col += 128 * CONSUMERS) {
+        float mx = scratch[col];
+#pragma unroll
+        for (int j = 1; j < 4 * CONSUMERS; ++j) mx = fmaxf(mx, scratch[j * COLS + col]);
+        tile_max[col] = mx;
+      }
+    }
   }
 }
 
@@ -496,11 +570,11 @@ __device__ __forceinline__ void produce(const Params& p, int steps0, uint32_t ba
   for (int it = 0; it < total; ++it) {
     const uint8_t* w = it < steps0 ? p.w0 : it < 2 * steps0 ? p.ws : p.w1;
     const int step = it < steps0 ? it : it < 2 * steps0 ? it - steps0 : it - 2 * steps0;
-    bar_wait<true>(bars + 8 * (STAGES + stage), phase ^ 1);
+    bar_wait<true>(bars + 8 * (S::STAGES + stage), phase ^ 1);
     bar_expect_tx(bars + 8 * stage, S::SLOT);
     bulk_load(base + stage * S::SLOT + share, w + (size_t)step * S::SLOT + share, S::SHARE,
               bars + 8 * stage);
-    if (++stage == STAGES) {
+    if (++stage == S::STAGES) {
       stage = 0;
       phase ^= 1;
     }
@@ -511,18 +585,24 @@ template <int H, bool INPUT>
 __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t base,
                                         uint32_t bars) {
   using S = Smem<H>;
+  constexpr int TM = S::TM;
   constexpr int K0 = INPUT ? 2 * H : H;  // depth of the products over the block input
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, w = wt >> 5;
   const int g = (tid & 31) >> 2, c = tid & 3;
+  // this warpgroup's part of the tile: 64 rows from wg_row, WG_COLS columns from
+  // wg_col; one of the two is 0 at compile time, so that the H = 512 code is
+  // that of a kernel with one row group
+  const int wg_row = S::ROW_GROUPS == 1 ? 0 : wg * 64;
+  const int wg_col = S::COL_GROUPS == 1 ? 0 : wg * S::WG_COLS;
   const int tile = blockIdx.x;
   const bool real = tile < p.n_tiles;
   const int b = real ? tile / p.tiles : 0;
   const int row0 = real ? (tile - b * p.tiles) * TM : 0;
   const int rows = real ? min(TM, p.N - row0) : 0;
-  const int r0 = 16 * w + g;  // this thread's rows of the tile: r0 and r0 + 8
-  Ring ring{base, bars, 0, 0};
-  const uint32_t b_off = wg * S::WG_COLS * KS * 2;
-  float acc[128] = {};
+  const int r0 = wg_row + 16 * w + g;  // this thread's rows of the tile: r0 and r0 + 8
+  Ring<H> ring{base, bars, 0, 0};
+  const uint32_t b_off = wg_col * KS * 2;
+  float acc[S::ACC] = {};
   if constexpr (INPUT) {
     HRows src;
 #pragma unroll
@@ -534,7 +614,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t
     src.bpos = p.bpos + 2 * c;
     src.K = K0;
     product_regs<H, true>(acc, src, K0 / KS, true, ring, b_off, wt);
-    store_net<H>(acc, p.bias0, smem + S::NET_HI, smem + S::NET_LO, wg, w, g, c);
+    store_net<H>(acc, p.bias0, smem + S::NET_HI, smem + S::NET_LO, wg_row, wg_col, w, g, c);
     product_regs<H, false>(acc, src, K0 / KS, true, ring, b_off, wt);
   } else {
     XRows src;
@@ -543,15 +623,17 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t
       src.row[r] = r0 + 8 * r < rows ? p.in + ((size_t)b * p.N + row0 + r0 + 8 * r) * H + 2 * c
                                      : nullptr;
     product_regs<H, true>(acc, src, K0 / KS, true, ring, b_off, wt);
-    store_net<H>(acc, p.bias0 + (size_t)b * H, smem + S::NET_HI, smem + S::NET_LO, wg, w, g, c);
+    store_net<H>(acc, p.bias0 + (size_t)b * H, smem + S::NET_HI, smem + S::NET_LO, wg_row,
+                 wg_col, w, g, c);
     product_regs<H, false>(acc, src, K0 / KS, true, ring, b_off, wt);
   }
   named_sync(1, 128 * CONSUMERS);  // relu(net) complete from both warpgroups
-  product_net<H>(acc, base + S::NET_HI, base + S::NET_LO, ring, b_off, wt);
-  named_sync(1, 128 * CONSUMERS);  // both done with the ring: its first slot is scratch now
+  product_net<H>(acc, base + S::NET_HI + wg_row * 32, base + S::NET_LO + wg_row * 32, ring, b_off,
+                 wt);
+  named_sync(1, 128 * CONSUMERS);  // both done with the ring: its first slots are scratch now
   store_out<H>(acc, p.bias1 + (INPUT ? 0 : (size_t)b * H), p.out + ((size_t)b * p.N + row0) * H,
                real ? p.tile_max + (size_t)tile * H : nullptr, rows, reinterpret_cast<float*>(smem),
-               wg, w, g, c, wt);
+               wg, wg_row, wg_col, w, g, c, wt);
 }
 
 template <int H, bool INPUT>
@@ -563,9 +645,9 @@ __device__ __forceinline__ void block_body(const Params& p) {
   uint8_t* smem = smem_raw + (base - raw);
   const uint32_t bars = base + S::BARS;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      bar_init(bars + 8 * s, 1);                                // the producer's arrive + bytes
-      bar_init(bars + 8 * (STAGES + s), CONSUMERS * CLUSTER);  // every consumer of the cluster
+    for (int s = 0; s < S::STAGES; ++s) {
+      bar_init(bars + 8 * s, 1);                                   // the producer's arrive + bytes
+      bar_init(bars + 8 * (S::STAGES + s), CONSUMERS * CLUSTER);  // every consumer of the cluster
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -615,9 +697,10 @@ struct Launch {
   Launch(const Launch&) = delete;
 };
 
-template <typename Kernel>
-cudaError_t run(Kernel kernel, const Params& p, void* stream) {
-  const int smem = Smem<512>::BYTES;
+template <int H, bool INPUT>
+cudaError_t run(const Params& p, void* stream) {
+  void (*kernel)(const Params) = INPUT ? &input_block_kernel<H> : &split_block_kernel<H>;
+  const int smem = Smem<H>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const Launch launch(p.n_tiles, smem, stream);
@@ -625,20 +708,53 @@ cudaError_t run(Kernel kernel, const Params& p, void* stream) {
   return cudaGetLastError();
 }
 
+template <int H>
+Params make_params(const void* w0, const void* ws, const void* w1, const float* in,
+                   const float* wpos, const float* bpos, const float* bias0, const float* bias1,
+                   float* out, float* tile_max, int B, int N) {
+  const int tiles = (N + Smem<H>::TM - 1) / Smem<H>::TM;
+  return Params{static_cast<const uint8_t*>(w0), static_cast<const uint8_t*>(ws),
+                static_cast<const uint8_t*>(w1), in, wpos, bpos, bias0, bias1, out, tile_max,
+                N, tiles, B * tiles};
+}
+
+template <int H>
+cudaError_t info_of(int input, int* info) {
+  using S = Smem<H>;
+  void (*kernel)(const Params) = input ? &input_block_kernel<H> : &split_block_kernel<H>;
+  const Launch launch(CLUSTER, S::BYTES, nullptr);
+  cudaError_t err;
+  int fit = 0;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES)) ||
+      (err = cudaOccupancyMaxActiveClusters(&fit, kernel, &launch.config)))
+    return err;
+  const int values[6] = {S::TM, CLUSTER, S::STAGES, S::SLOT, S::BYTES, fit};
+  for (int i = 0; i < 6; ++i) info[i] = values[i];
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// Points a CTA takes at hidden width H (the wrapper sizes tile_max by it),
+// or 0 for a width that is not instantiated.
+extern "C" int pointnet_tile(int H) {
+  return H == 512 ? Smem<512>::TM : H == 256 ? Smem<256>::TM : 0;
+}
+
 // w0, ws: (2H / 16, 2H, 16) and w1: (H / 16, 2H, 16) bf16, each product
-// weight's K steps as `ops/pointnet_fused.py::split_weight` lays them out.
+// weight's K steps as `ops/pointnet_fused.py::split_weight` lays them out;
+// tile_max: (B, ceil(N / pointnet_tile(H)), H).
 extern "C" int pointnet_input_block(const float* pts, const float* wpos, const float* bpos,
                                     const void* w0, const float* b0, const void* w1,
                                     const float* b1, const void* ws, float* out,
                                     float* tile_max, int B, int N, int H, void* stream) {
-  if (H != 512) return cudaErrorInvalidValue;
-  const int tiles = (N + TM - 1) / TM;
-  const Params p{static_cast<const uint8_t*>(w0), static_cast<const uint8_t*>(ws),
-                 static_cast<const uint8_t*>(w1), pts, wpos, bpos, b0, b1, out, tile_max,
-                 N, tiles, B * tiles};
-  return run(input_block_kernel<512>, p, stream);
+  if (H == 512)
+    return run<512, true>(make_params<512>(w0, ws, w1, pts, wpos, bpos, b0, b1, out, tile_max, B,
+                                           N), stream);
+  if (H == 256)
+    return run<256, true>(make_params<256>(w0, ws, w1, pts, wpos, bpos, b0, b1, out, tile_max, B,
+                                           N), stream);
+  return cudaErrorInvalidValue;
 }
 
 // w0x, w1, wsx: (H / 16, 2H, 16) bf16, laid out by `split_weight`.
@@ -646,33 +762,21 @@ extern "C" int pointnet_split_block(const float* x, const float* c0, const float
                                     const void* w0x, const void* w1, const void* wsx,
                                     float* out, float* tile_max, int B, int N, int H,
                                     void* stream) {
-  if (H != 512) return cudaErrorInvalidValue;
-  const int tiles = (N + TM - 1) / TM;
-  const Params p{static_cast<const uint8_t*>(w0x), static_cast<const uint8_t*>(wsx),
-                 static_cast<const uint8_t*>(w1), x, nullptr, nullptr, c0, cs, out, tile_max,
-                 N, tiles, B * tiles};
-  return run(split_block_kernel<512>, p, stream);
+  if (H == 512)
+    return run<512, false>(make_params<512>(w0x, wsx, w1, x, nullptr, nullptr, c0, cs, out,
+                                            tile_max, B, N), stream);
+  if (H == 256)
+    return run<256, false>(make_params<256>(w0x, wsx, w1, x, nullptr, nullptr, c0, cs, out,
+                                            tile_max, B, N), stream);
+  return cudaErrorInvalidValue;
 }
 
-extern "C" int pointnet_info(int input, int* info) {
-  using S = Smem<512>;
-  const Launch launch(CLUSTER, S::BYTES, nullptr);
-  cudaError_t err;
-  int fit = 0;
-  if (input) {
-    if ((err = cudaFuncSetAttribute(input_block_kernel<512>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES)) ||
-        (err = cudaOccupancyMaxActiveClusters(&fit, input_block_kernel<512>, &launch.config)))
-      return err;
-  } else {
-    if ((err = cudaFuncSetAttribute(split_block_kernel<512>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES)) ||
-        (err = cudaOccupancyMaxActiveClusters(&fit, split_block_kernel<512>, &launch.config)))
-      return err;
-  }
-  const int values[6] = {TM, CLUSTER, STAGES, S::SLOT, S::BYTES, fit};
-  for (int i = 0; i < 6; ++i) info[i] = values[i];
-  return cudaSuccess;
+// The launch at width H: points a CTA, CTAs a cluster, ring slots, bytes a
+// slot, dynamic shared memory a CTA, clusters that fit at once.
+extern "C" int pointnet_info(int input, int H, int* info) {
+  if (H == 512) return info_of<512>(input, info);
+  if (H == 256) return info_of<256>(input, info);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* seeme_error_string(int err) {

@@ -102,5 +102,7 @@ class SyntheticEgoDataset:
             yield self._rows(sel)
 
 
-def to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in batch.items()}
+def to_torch(batch: Dict, device) -> Dict:
+    """A batch of numpy arrays (nested dicts of them too) as tensors on `device`."""
+    return {k: to_torch(v, device) if isinstance(v, dict)
+            else torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in batch.items()}

@@ -39,7 +39,8 @@ SIGNATURES = {
     "ddim_tok_t1": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     "ddim_md_t1_info": [_I] * 7 + [_P],
     "ddim_tok_t1_info": [_I] * 5 + [_P],
-    "pointnet_info": [_I, _P],
+    "pointnet_info": [_I, _I, _P],
+    "pointnet_tile": [_I],
 }
 BUILD_TIMEOUT = 600  # seconds for the compiles together, and again for the link
 

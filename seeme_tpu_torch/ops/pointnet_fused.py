@@ -3,7 +3,11 @@
 `fused_input_block` and `fused_split_block` launch the CUDA kernels of
 `csrc/pointnet.cu` for CUDA tensors and run their plain PyTorch versions
 (`*_plain`) for CPU tensors. Weights are (in, out), as in the JAX package.
-Each wrapper counts its kernel launches in `.launches`.
+Each wrapper counts its kernel launches in `.launches`, and by hidden width
+in `.launches_by_width`. Both kernels are instantiated at hidden width
+H = 512 (EgoBody's scene encoder, 64 points a CTA) and H = 256 (the
+ProHMR-Scene and EgoHMR scene encoders, 128 points a CTA); the wrappers
+refuse any other width on the card.
 
 The kernels run every product as three bf16 tensor-core products of split
 operands (`split_bf16`): the weights' hi/lo pairs come in `split`, made once
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-TILE = 64  # points per CTA, `csrc/pointnet.cu`
+WIDTHS = (256, 512)  # the hidden widths `csrc/pointnet.cu` instantiates
 INPUT_SPLIT = ("w0", "w1", "ws")     # the product weights each kernel reads split,
 BLOCK_SPLIT = ("w0x", "w1", "wsx")   # in the order of its `split` argument
 
@@ -87,12 +91,27 @@ def _check_split(name: str, split, shapes, device) -> None:
         _check(f"{name} split[{i}]", t, shape, device, torch.bfloat16)
 
 
-def launch_info(input_block: bool) -> Dict[str, int]:
-    """The launch a kernel makes at H = 512, asked of the CUDA runtime
-    without launching: points a CTA, CTAs a cluster, ring slots, bytes a
-    slot, dynamic shared memory bytes a CTA, clusters that fit at once."""
+def _check_width(name: str, H: int) -> None:
+    if H not in WIDTHS:
+        raise ValueError(f"{name}: hidden width {H} is not one of {WIDTHS}")
+
+
+def _tile_max(lib, B: int, N: int, H: int, dev) -> torch.Tensor:
+    """The kernels' per-tile column maxima, (B, tiles, H): a tile is the
+    points one CTA takes at this width."""
+    tile = lib.pointnet_tile(H)
+    return torch.empty(B, (N + tile - 1) // tile, H, device=dev)
+
+
+def launch_info(input_block: bool, hidden: int = 512) -> Dict[str, int]:
+    """The launch a kernel makes at hidden width `hidden`, asked of the CUDA
+    runtime without launching: points a CTA, CTAs a cluster, ring slots,
+    bytes a slot, dynamic shared memory bytes a CTA, clusters that fit at
+    once."""
+    _check_width("launch_info", hidden)
     info = (ctypes.c_int * 6)()
-    _build.check(_build.load_library().pointnet_info(int(input_block), info), "pointnet_info")
+    _build.check(_build.load_library().pointnet_info(int(input_block), hidden, info),
+                 "pointnet_info")
     return dict(zip(("tile", "cluster", "stages", "slot_bytes", "smem_bytes",
                      "active_clusters"), info))
 
@@ -105,8 +124,7 @@ def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws, split=None):
         return fused_input_block_plain(points, wpos, bpos, w0, b0, w1, b1, ws)
     B, N, _ = points.shape
     H = w1.shape[-1]
-    if H != 512:
-        raise ValueError(f"fused_input_block: hidden width {H} is not 512")
+    _check_width("fused_input_block", H)
     dev = points.device
     for name, t, shape in (("points", points, (B, N, 3)), ("wpos", wpos, (3, 2 * H)),
                            ("bpos", bpos, (2 * H,)), ("w0", w0, (2 * H, H)), ("b0", b0, (H,)),
@@ -114,12 +132,12 @@ def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws, split=None):
         _check(name, t, shape, dev)
     _check_split("fused_input_block", split,
                  ((2 * H // 16, 2 * H, 16), (H // 16, 2 * H, 16), (2 * H // 16, 2 * H, 16)), dev)
-    n_tiles = (N + TILE - 1) // TILE
-    out = torch.empty(B, N, H, device=dev)
-    tile_max = torch.empty(B, n_tiles, H, device=dev)
     lib = _build.load_library()
+    out = torch.empty(B, N, H, device=dev)
+    tile_max = _tile_max(lib, B, N, H, dev)
     s0, s1, ss = split
     fused_input_block.launches += 1
+    fused_input_block.launches_by_width[H] += 1
     _build.check(lib.pointnet_input_block(
         points.data_ptr(), wpos.data_ptr(), bpos.data_ptr(), s0.data_ptr(), b0.data_ptr(),
         s1.data_ptr(), b1.data_ptr(), ss.data_ptr(), out.data_ptr(), tile_max.data_ptr(),
@@ -128,6 +146,7 @@ def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws, split=None):
 
 
 fused_input_block.launches = 0
+fused_input_block.launches_by_width = dict.fromkeys(WIDTHS, 0)
 
 
 def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp, split=None):
@@ -137,8 +156,7 @@ def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp, split=None):
     if x.device.type == "cpu":
         return fused_split_block_plain(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp)
     B, N, H = x.shape
-    if H != 512:
-        raise ValueError(f"fused_split_block: hidden width {H} is not 512")
+    _check_width("fused_split_block", H)
     dev = x.device
     for name, t, shape in (("x", x, (B, N, H)), ("pooled", pooled, (B, H)),
                            ("w0x", w0x, (H, H)), ("w0p", w0p, (H, H)), ("b0", b0, (H,)),
@@ -148,12 +166,12 @@ def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp, split=None):
     _check_split("fused_split_block", split, ((H // 16, 2 * H, 16),) * 3, dev)
     c0 = (F.relu(pooled) @ w0p + b0).contiguous()
     cs = (pooled @ wsp + b1).contiguous()
-    n_tiles = (N + TILE - 1) // TILE
-    out = torch.empty(B, N, H, device=dev)
-    tile_max = torch.empty(B, n_tiles, H, device=dev)
     lib = _build.load_library()
+    out = torch.empty(B, N, H, device=dev)
+    tile_max = _tile_max(lib, B, N, H, dev)
     s0, s1, ss = split
     fused_split_block.launches += 1
+    fused_split_block.launches_by_width[H] += 1
     _build.check(lib.pointnet_split_block(
         x.data_ptr(), c0.data_ptr(), cs.data_ptr(), s0.data_ptr(), s1.data_ptr(),
         ss.data_ptr(), out.data_ptr(), tile_max.data_ptr(), B, N, H,
@@ -162,6 +180,7 @@ def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp, split=None):
 
 
 fused_split_block.launches = 0
+fused_split_block.launches_by_width = dict.fromkeys(WIDTHS, 0)
 
 
 @torch.no_grad()

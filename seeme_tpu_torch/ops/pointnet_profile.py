@@ -1,20 +1,24 @@
 """The PointNet kernels' time under variants of their design.
 
     python -m seeme_tpu_torch.ops.pointnet_profile [--variants cluster1,cluster2,cluster4,nowait]
-        [--points 20000] [--batch 64]
+        [--hidden 512|256] [--points 20000] [--batch 64]
 
 Copies `csrc/pointnet.cu` into a temporary directory under
 `seeme_tpu_torch/_build/`, patches one design choice per variant, builds
 each copy (with the DDIM sources) into its own library, and runs both
-kernels through their wrappers on a seeded `ResnetPointnet(512, 512)` at
-the EgoBody shapes: the variants in turn, then in reverse order. Variants:
+kernels through their wrappers on a seeded `ResnetPointnet(512, hidden)`
+(512: the EgoBody scene encoder; 256: the ProHMR-Scene and EgoHMR ones)
+at B x N points: the variants in turn, then in reverse order. Variants:
 `clusterK` shares each weight slot across K CTAs (the source's own is 2;
 1 is no multicast); `nowait` is a timing-only build in which the producer
 copies nothing and the products do not wait for their slots, so its
 results are meaningless and its time is the kernels' without the weight
-stream. One JSON line per variant and kernel: ms (CUDA events, mean of 3
-launches after a warm-up) and, except for `nowait`, the error relative to
-max |out| of the plain version. Needs nvcc and a card.
+stream; `source` is the source as it is; `n128` changes only H = 256: two
+warpgroups of 128 columns each over 64 points a CTA (m64n128k16 products)
+in place of the source's two of 64 points each over all 256 columns of 128
+points a CTA. One JSON line per variant and kernel: ms (CUDA events, mean
+of 3 launches after a warm-up) and, except for `nowait`, the larger error of
+out and the pool relative to max |out| of the plain version. Needs nvcc and a card.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pathlib import Path
 from . import _build
 
 _CLUSTER = "constexpr int CLUSTER = 2;"
+_N128 = ("constexpr int WG_COLS_256 = 256;", "constexpr int WG_COLS_256 = 128;", 1)
 # (anchor, replacement, times the anchor occurs)
 _NOWAIT = (
     ("    bar_wait<false>(ring.full(ring.stage), ring.phase);\n", "", 2),  # both products
@@ -45,6 +50,10 @@ def _patch(text: str, edits) -> str:
 
 def variant_source(name: str) -> str:
     text = (_build.CSRC / "pointnet.cu").read_text()
+    if name == "source":
+        return text
+    if name == "n128":
+        return _patch(text, (_N128,))
     if name.startswith("cluster"):
         return _patch(text, ((_CLUSTER, f"constexpr int CLUSTER = {int(name[7:])};", 1),))
     if name == "nowait":
@@ -86,6 +95,7 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default="cluster1,cluster2,cluster4,nowait")
+    ap.add_argument("--hidden", type=int, default=512, choices=(256, 512))
     ap.add_argument("--points", type=int, default=20000)
     ap.add_argument("--batch", type=int, default=64)
     args = ap.parse_args()
@@ -94,7 +104,7 @@ def main() -> None:
         raise SystemExit("pointnet_profile: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    net = ResnetPointnet(512, 512)
+    net = ResnetPointnet(512, args.hidden)
     init_parameters_(net, torch.Generator().manual_seed(1))
     perturb_parameters_(net, torch.Generator().manual_seed(101))
     w = pfu.pointnet_weights(net.requires_grad_(False).to(dev))
@@ -106,7 +116,7 @@ def main() -> None:
     sp_args = (x, pooled, *(w[f"block_1.{n}"]
                             for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")))
     sp_split = tuple(w[f"block_1.{n}.split"] for n in pfu.BLOCK_SPLIT)
-    plain = {"input": x, "split": pfu.fused_split_block_plain(*sp_args)[0]}
+    plain = {"input": (x, pooled), "split": pfu.fused_split_block_plain(*sp_args)}
     runs = {"input": lambda: pfu.fused_input_block(*in_args, split=in_split),
             "split": lambda: pfu.fused_split_block(*sp_args, split=sp_split)}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -115,12 +125,13 @@ def main() -> None:
         for name in names + names[::-1] if len(names) > 1 else names:
             _build._lib = libs[name]  # the wrappers launch this variant's kernels
             for kernel, run in runs.items():
-                out = run()[0]
+                got = run()
                 torch.cuda.synchronize()
-                ref = plain[kernel]
+                ref, ref_pool = plain[kernel]
                 err = None if name == "nowait" else float(
-                    (out - ref).abs().max() / ref.abs().max())
-                del out
+                    max((got[0] - ref).abs().max(), (got[1] - ref_pool).abs().max())
+                    / ref.abs().max())
+                del got
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -128,7 +139,8 @@ def main() -> None:
                     run()
                 end.record()
                 torch.cuda.synchronize()
-                print(json.dumps({"variant": name, "kernel": kernel, "batch": args.batch,
+                print(json.dumps({"variant": name, "kernel": kernel, "hidden": args.hidden,
+                                  "batch": args.batch,
                                   "points": args.points, "ms": start.elapsed_time(end) / 3,
                                   "relative_error": err}), flush=True)
         _build._lib = None

@@ -12,16 +12,22 @@ image-conditioned configs; their launch plan fits at both guidances); the token
 kernel at 1, 3 and 8 condition tokens (up to 20 token rows a cluster) and at
 the action-to-motion shape (text width 256, no emb_proj); and widths that do
 not split into the cluster's column slices. A stage-2 train step on the
-card agrees with the same step on the CPU.
+card agrees with the same step on the CPU. Both PointNet kernels again at
+hidden width 256 (128 points a CTA), at batch 1, 3 and 64 and tiles filled
+partly or not at all, and the ProHMR-Scene and EgoHMR evaluation paths on
+the card against the CPU at their CLIs' tiny sizes.
 """
 
 import pytest
 import torch
 
 from seeme_tpu_torch.core.smpl import synthetic_smpl
+from seeme_tpu_torch.data import egohmr_images as images
 from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
 from seeme_tpu_torch.diffusion.schedulers import DiffusionSchedule
 from seeme_tpu_torch.models.denoiser import Denoiser
+from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
+from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
 from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
 from seeme_tpu_torch.nn.pointnet import ResnetPointnet
@@ -76,6 +82,107 @@ def test_pointnet_blocks(cuda, batch, points):
     assert rel_err(full, net(pts)) < 1e-4
     assert pfu.fused_input_block.launches == n_in + 2
     assert pfu.fused_split_block.launches == n_split + 4
+
+
+def check_blocks(net, w, pts):
+    """Both kernels and the whole encode against their plain versions."""
+    args = [w[n] for n in ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")]
+    in_split = tuple(w[f"{n}.split"] for n in pfu.INPUT_SPLIT)
+    out, pooled = pfu.fused_input_block(pts, *args, split=in_split)
+    ref, ref_pooled = pfu.fused_input_block_plain(pts, *args)
+    assert rel_err(out, ref) < 1e-4 and rel_err(pooled, ref_pooled) < 1e-4
+    del out, pooled
+    split = [w[f"block_1.{n}"] for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")]
+    sp_split = tuple(w[f"block_1.{n}.split"] for n in pfu.BLOCK_SPLIT)
+    out2, pooled2 = pfu.fused_split_block(ref, ref_pooled, *split, split=sp_split)
+    ref2, ref_pooled2 = pfu.fused_split_block_plain(ref, ref_pooled, *split)
+    assert rel_err(out2, ref2) < 1e-4 and rel_err(pooled2, ref_pooled2) < 1e-4
+    del out2, ref2, ref
+    assert rel_err(pfu.pointnet_forward(w, pts), net(pts)) < 1e-4
+
+
+@pytest.mark.parametrize("batch,points", [(3, 1000), (3, 77), (3, 128), (3, 129), (3, 257),
+                                          (1, 64), (1, 128), (1, 385), (1, 1000),
+                                          (64, 1000), (64, 20000)])
+def test_pointnet_blocks_width_256(cuda, batch, points):
+    """Both kernels at H = 256, the ProHMR-Scene and EgoHMR scene encoders'
+    width (128 points a CTA, two warpgroups of 64 points each): fewer points
+    than a tile, one tile, a ragged second and third (an odd tile count
+    leaves the grid's last cluster a CTA past the last tile), batch 1, and
+    the full-width shape."""
+    net = seeded(ResnetPointnet(out_dim=512, hidden_dim=256), 11, cuda)
+    w = pfu.pointnet_weights(net)
+    pts = torch.randn(batch, points, 3, generator=torch.Generator().manual_seed(12)).to(cuda)
+    n_in, n_split = pfu.fused_input_block.launches, pfu.fused_split_block.launches
+    check_blocks(net, w, pts)
+    assert pfu.fused_input_block.launches == n_in + 2
+    assert pfu.fused_split_block.launches == n_split + 4
+
+
+def test_pointnet_launch_at_both_widths(cuda):
+    for hidden, tile in ((512, 64), (256, 128)):
+        for input_block in (True, False):
+            info = pfu.launch_info(input_block, hidden)
+            assert info["tile"] == tile and info["cluster"] == 2, info
+            assert info["smem_bytes"] <= 232448 and info["active_clusters"] >= 1, info
+    w = pfu.pointnet_weights(seeded(ResnetPointnet(64, 128), 13, cuda))
+    args = [w[n] for n in ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")]
+    before = pfu.fused_input_block.launches
+    with pytest.raises(ValueError, match="hidden width 128"):
+        pfu.fused_input_block(torch.randn(2, 64, 3, device=cuda), *args,
+                              split=tuple(w[f"{n}.split"] for n in pfu.INPUT_SPLIT))
+    with pytest.raises(ValueError, match="hidden width 128"):
+        pfu.launch_info(True, 128)
+    assert pfu.fused_input_block.launches == before
+
+
+def hmr_batch(device):
+    dm = images.EgoHmrImageDataModule(n_pts=256, img_size=64, smpl=synthetic_smpl(256))
+    batch = next(dm.batches("test", 4, shuffle=False))
+    return to_torch(batch, device)
+
+
+def test_prohmr_forward_step_matches_cpu(cuda):
+    """`forward_step` at the CLI's tiny size, three samples with shared base
+    noise: the card (PointNet kernels at H = 256, input block 1, split
+    block 3) within 1e-3 of each output's max on the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ProHMRConfig(flow_hidden=128, flow_depth=1, num_test_samples=3)
+    noise = torch.randn(4, 2, 144, generator=torch.Generator().manual_seed(4))
+    outs = {}
+    for device in ("cpu", cuda):
+        model = seeded(ProHMRScene(cfg, synthetic_smpl(256), device=device), 14, device)
+        before = pfu.fused_input_block.launches, pfu.fused_split_block.launches
+        outs[str(device)] = model.forward_step(hmr_batch(device), noise=noise.to(device))
+        launched = (pfu.fused_input_block.launches - before[0],
+                    pfu.fused_split_block.launches - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 3))
+    for k, v in outs["cpu"].items():
+        assert rel_err(outs["cuda"][k].cpu(), v) < 1e-3, k
+
+
+def test_egohmr_sample_matches_cpu(cuda):
+    """The whole 10-step sampling at the CLI's tiny size with injected
+    noise: the card within 1e-3 of the CPU, the visibility mask equal, the
+    scene encoded once (input block 1, split block 3)."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = EgoHmrConfig(gcn_hid_dim=128, gcn_layers=1, num_train_timesteps=100,
+                       timestep_respacing="ddim10")
+    g = torch.Generator().manual_seed(5)
+    x_init, noise = torch.randn(4, 144, generator=g), torch.randn(10, 4, 144, generator=g)
+    outs = {}
+    for device in ("cpu", cuda):
+        model = seeded(EgoHmr(cfg, synthetic_smpl(256), device=device), 15, device)
+        before = pfu.fused_input_block.launches, pfu.fused_split_block.launches
+        outs[str(device)] = model.sample(hmr_batch(device), x_init=x_init.to(device),
+                                         noise=noise.to(device))
+        launched = (pfu.fused_input_block.launches - before[0],
+                    pfu.fused_split_block.launches - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 3))
+    cpu, card = outs["cpu"], outs["cuda"]
+    assert torch.equal(cpu["vis_mask_smpl"], card["vis_mask_smpl"].cpu())
+    for k in ("pred_x_start", "pred_keypoints_3d", "pred_vertices"):
+        assert rel_err(card[k].cpu(), cpu[k]) < 1e-3, k
 
 
 BATCHES = [1, 3, 5, 17, 64]  # the last cluster of 4 samples partly filled or full

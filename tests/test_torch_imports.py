@@ -15,6 +15,9 @@ import torch
 import seeme_tpu_torch
 from seeme_tpu_torch._device import resolve_device
 from seeme_tpu_torch.core.smpl import synthetic_smpl
+from seeme_tpu_torch import test_egohmr, test_prohmr_scene
+from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
+from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
 from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
 from seeme_tpu_torch.ops import _build
@@ -55,7 +58,11 @@ def test_every_module_imports():
     assert {"seeme_tpu_torch.ops.denoiser_fused", "seeme_tpu_torch.models.t2m",
             "seeme_tpu_torch.core.ric", "seeme_tpu_torch.data.humanml",
             "seeme_tpu_torch.eval.t2m_metrics", "seeme_tpu_torch.nn.resnet",
-            "seeme_tpu_torch.eval.stats", "seeme_tpu_torch.test.__main__"} <= set(names)
+            "seeme_tpu_torch.eval.stats", "seeme_tpu_torch.test.__main__",
+            "seeme_tpu_torch.flows.glow", "seeme_tpu_torch.nn.gcn",
+            "seeme_tpu_torch.models.prohmr", "seeme_tpu_torch.models.egohmr",
+            "seeme_tpu_torch.data.egohmr_images", "seeme_tpu_torch.eval.hmr_metrics",
+            "seeme_tpu_torch.test_prohmr_scene", "seeme_tpu_torch.test_egohmr"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -80,6 +87,14 @@ def test_entry_points_raise_without_cuda():
         SeeMeSystem(SeeMeConfig(), synthetic_smpl(32), np.zeros(75), np.ones(75))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T2MSystem(T2MConfig(), np.zeros(263), np.ones(263))
+    small = synthetic_smpl(32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ProHMRScene(ProHMRConfig(flow_hidden=8, flow_layers=1, flow_depth=1), small)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EgoHmr(EgoHmrConfig(gcn_hid_dim=8, gcn_layers=0), small)
+    for cli in (test_prohmr_scene, test_egohmr):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["--tiny"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
