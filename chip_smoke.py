@@ -257,7 +257,7 @@ def main() -> int:
     t = time.perf_counter()
     in_args = (points, pw["wpos"], pw["bpos"], pw["w0"], pw["b0"], pw["w1"], pw["b1"], pw["ws"])
     in_split = tuple(pw[f"{n}.split"] for n in pfu.INPUT_SPLIT)
-    print_pointnet_launch(pfu.launch_info(True))
+    print_pointnet_launch(pfu.launch_info(True, H), pfu.TILE[H])
     out_k, pool_k = pfu.fused_input_block(*in_args, split=in_split)
     out_p, pool_p = pfu.fused_input_block_plain(*in_args)
     torch.cuda.synchronize()
@@ -281,7 +281,7 @@ def main() -> int:
     sp_args = (out_p, pool_p, *(pw[f"block_1.{n}"]
                                 for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")))
     sp_split = tuple(pw[f"block_1.{n}.split"] for n in pfu.BLOCK_SPLIT)
-    print_pointnet_launch(pfu.launch_info(False))
+    print_pointnet_launch(pfu.launch_info(False, H), pfu.TILE[H])
     out_k, pool_k = pfu.fused_split_block(*sp_args, split=sp_split)
     out_s, pool_s = pfu.fused_split_block_plain(*sp_args)
     torch.cuda.synchronize()
@@ -1114,7 +1114,7 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
     H = model.scene_enc.hidden_dim
     require(H == 256, f"scene encoder width {H}")
     for input_block in (True, False):
-        print_pointnet_launch(pfu.launch_info(input_block, H))
+        print_pointnet_launch(pfu.launch_info(input_block, H), pfu.TILE[H])
     in_names = ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")
     sp_names = ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")
     in_split = tuple(w[f"{n}.split"] for n in pfu.INPUT_SPLIT)
@@ -1498,14 +1498,16 @@ def pointnet_rates(flops: float, nbytes: float, ms: float) -> str:
             f"{bound_f32_ms(flops, nbytes):.3f} ms")
 
 
-def print_pointnet_launch(info: dict) -> None:
+def print_pointnet_launch(info: dict, tile: int) -> None:
     """Print a PointNet kernel's launch plan; fail unless it is a cluster of
-    at least 2 CTAs of which at least one fits on the card."""
+    at least 2 CTAs of which at least one fits on the card, and its tile is
+    `tile`, the points a CTA the wrapper sizes the pool by."""
     print(f"    launch: {info['tile']} points a CTA, clusters of {info['cluster']} CTAs sharing "
           f"each weight slot by TMA multicast, {info['stages']} ring slots of "
           f"{info['slot_bytes']} B, {info['smem_bytes']} B shared memory a CTA, "
           f"{info['active_clusters']} clusters fit at once", flush=True)
-    require(info["cluster"] >= 2 and info["active_clusters"] >= 1, f"pointnet launch {info}")
+    require(info["cluster"] >= 2 and info["active_clusters"] >= 1
+            and info["tile"] == tile, f"pointnet launch {info}")
 
 
 def ddim_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int) -> float:

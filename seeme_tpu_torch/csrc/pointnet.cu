@@ -25,16 +25,13 @@
 //
 // The design. One CTA takes TM points of one batch row, 384 threads:
 //  - two consumer warpgroups share the (TM, H) output tile, each in one
-//    m64nWG_COLSk16 f32 accumulator: at H = 512 (EgoBody's scene encoder),
-//    TM = 64 and each owns 256 of the columns (128 registers a thread,
-//    setmaxnreg 232); at H = 256 (the ProHMR-Scene and EgoHMR scene
-//    encoders), TM = 128 and each owns 64 of the points across all 256
-//    columns, so the same m64n256k16 products serve both widths and every
-//    weight slot feeds 128 points (WG_COLS_256 = 128 instead gives the other
-//    design at H = 256: TM = 64, each warpgroup 128 columns in m64n128k16
-//    products, 64 registers of accumulators; `ops/pointnet_profile.py`
-//    builds it as variant `n128`). One thread of the producer warpgroup
-//    (setmaxnreg 40) feeds the ring;
+//    m64n256k16 f32 accumulator (128 registers a thread, setmaxnreg 232):
+//    at H = 512 (EgoBody's scene encoder), TM = 64 and each owns 256 of the
+//    columns; at H = 256 (the ProHMR-Scene and EgoHMR scene encoders),
+//    TM = 128 and each owns 64 of the points across all 256 columns, so the
+//    same products serve both widths and every weight slot feeds 128 points
+//    (PERF.md has the rejected m64n128k16 design's times). One thread of the
+//    producer warpgroup (setmaxnreg 40) feeds the ring;
 //  - the weights stream through a ring of STAGES slots in shared memory, one
 //    K step (16) of all 2H rows of a product weight a slot, hi rows over lo
 //    rows, 32 KB at H = 512 (16 KB at 256) in wgmma's 32-byte swizzle. Each
@@ -83,11 +80,10 @@ constexpr int KS = 16;         // K of one ring slot: one bf16 wgmma step
 constexpr int CLUSTER = 2;     // CTAs that share every slot through TMA multicast
 constexpr int CONSUMERS = 2;   // wgmma warpgroups
 constexpr int NT = 128 * (CONSUMERS + 1);
-constexpr int WG_COLS_256 = 256;  // wgmma's N at H = 256: 256, or 128 for the other design
 
 template <int H>
 struct Smem {
-  static constexpr int WG_COLS = H == 512 ? 256 : WG_COLS_256;  // wgmma's N
+  static constexpr int WG_COLS = 256;             // wgmma's N
   static constexpr int COL_GROUPS = H / WG_COLS;  // warpgroups side by side over the columns
   static constexpr int ROW_GROUPS = CONSUMERS / COL_GROUPS;  // ... over the points
   static constexpr int TM = 64 * ROW_GROUPS;      // points per CTA
@@ -102,7 +98,6 @@ struct Smem {
   static constexpr int BYTES = BARS + 2 * STAGES * 8 + 1024;  // + 1024-byte alignment
   static constexpr int SHARE = SLOT / CLUSTER;    // the bytes of a slot each CTA loads
   static_assert(H == 512 || H == 256, "instantiated widths");
-  static_assert(WG_COLS == 256 || WG_COLS == 128, "the wgmma helpers below");
   static_assert(COL_GROUPS * ROW_GROUPS == CONSUMERS && (COL_GROUPS == 1 || ROW_GROUPS == 1),
                 "the warpgroups split the tile by columns or by points");
   static_assert(SHARE % 16 == 0, "bulk copies move multiples of 16 bytes");
@@ -258,15 +253,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #define ACC8(i)                                                                              \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC64 ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
 #define ACC128                                                                                 \
   ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56), ACC8(64),     \
       ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)
-#define D_REGS64                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define D_REGS                                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
@@ -279,48 +268,26 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   "%124, %125, %126, %127}"
 
 // d (+)= A B for a 64 x 16 A in registers (bf16 pairs, wgmma's fragment
-// layout) and a 16 x N K-major B in shared memory, N = 2 x the thread's
-// accumulators (m64n256k16 or m64n128k16); d += when acc != 0.
-template <int ACC>
-__device__ __forceinline__ void wgmma_rs(float (&d)[ACC], const uint32_t (&a)[4], uint64_t b,
+// layout) and a 16 x 256 K-major B in shared memory (m64n256k16); d += when
+// acc != 0.
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
                                          uint32_t acc) {
-  static_assert(ACC == 128 || ACC == 64, "m64n256k16 or m64n128k16");
-  if constexpr (ACC == 128) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %132, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
-        ", {%128, %129, %130, %131}, %133, p, 1, 1, 0;\n\t}"
-        : ACC128
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(b));
-  } else {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %68, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D_REGS64
-        ", {%64, %65, %66, %67}, %69, p, 1, 1, 0;\n\t}"
-        : ACC64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(b));
-  }
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %132, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
+      ", {%128, %129, %130, %131}, %133, p, 1, 1, 0;\n\t}"
+      : ACC128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(b));
 }
 
 // The same with A (64 x 16, K-major) in shared memory too.
-template <int ACC>
-__device__ __forceinline__ void wgmma_ss(float (&d)[ACC], uint64_t a, uint64_t b, uint32_t acc) {
-  static_assert(ACC == 128 || ACC == 64, "m64n256k16 or m64n128k16");
-  if constexpr (ACC == 128) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
-        ", %128, %129, p, 1, 1, 0, 0;\n\t}"
-        : ACC128
-        : "l"(a), "l"(b), "r"(acc));
-  } else {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D_REGS64
-        ", %64, %65, p, 1, 1, 0, 0;\n\t}"
-        : ACC64
-        : "l"(a), "l"(b), "r"(acc));
-  }
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b, uint32_t acc) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " D_REGS
+      ", %128, %129, p, 1, 1, 0, 0;\n\t}"
+      : ACC128
+      : "l"(a), "l"(b), "r"(acc));
 }
 
 // (x, y) -> their bf16 pair and the bf16 pair of what it leaves out.
@@ -733,17 +700,14 @@ cudaError_t info_of(int input, int* info) {
   return cudaSuccess;
 }
 
-}  // namespace
+static_assert(Smem<512>::TM == 64 && Smem<256>::TM == 128, "ops/pointnet_fused.py::TILE");
 
-// Points a CTA takes at hidden width H (the wrapper sizes tile_max by it),
-// or 0 for a width that is not instantiated.
-extern "C" int pointnet_tile(int H) {
-  return H == 512 ? Smem<512>::TM : H == 256 ? Smem<256>::TM : 0;
-}
+}  // namespace
 
 // w0, ws: (2H / 16, 2H, 16) and w1: (H / 16, 2H, 16) bf16, each product
 // weight's K steps as `ops/pointnet_fused.py::split_weight` lays them out;
-// tile_max: (B, ceil(N / pointnet_tile(H)), H).
+// tile_max: (B, ceil(N / TM), H), TM the points a CTA takes at width H
+// (`ops/pointnet_fused.py::TILE`).
 extern "C" int pointnet_input_block(const float* pts, const float* wpos, const float* bpos,
                                     const void* w0, const float* b0, const void* w1,
                                     const float* b1, const void* ws, float* out,

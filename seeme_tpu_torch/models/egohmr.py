@@ -39,7 +39,8 @@ from ..nn.gcn import ModulatedGCN, smpl_adjacency
 from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
-from .prohmr import CAM_FEATURES, SCENE_HIDDEN, FusedPointnet, cam_features
+from ..ops.pointnet_fused import FusedPointnet
+from .prohmr import CAM_FEATURES, SCENE_HIDDEN, cam_features
 
 # OpenPose-25 joint whose confidence gives each SMPL joint's visibility
 # (`egohmr.py:119`, pelvis_vis_loosen=False)

@@ -32,26 +32,10 @@ from ..flows.glow import ConditionalGlow, GlowConfig
 from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
-from ..ops.pointnet_fused import pointnet_forward, pointnet_weights
-from .seeme import tensor_versions
+from ..ops.pointnet_fused import FusedPointnet
 
 SCENE_HIDDEN = 256  # the scene encoder's hidden width (`seeme_tpu/models/prohmr.py:153`)
 CAM_FEATURES = 6    # cam_center / fx, bbox / fx, fx
-
-
-class FusedPointnet:
-    """A `ResnetPointnet` forward through the fused blocks, with their
-    kernel-layout weights made again whenever the encoder's tensors change
-    (`load_state_dict`, a move, an in-place update)."""
-
-    def __init__(self):
-        self._key, self._weights = None, None
-
-    def __call__(self, pointnet: ResnetPointnet, points: torch.Tensor) -> torch.Tensor:
-        key = tensor_versions(pointnet)
-        if key != self._key:
-            self._key, self._weights = key, pointnet_weights(pointnet)
-        return pointnet_forward(self._weights, points)
 
 
 @dataclass(frozen=True)

@@ -31,7 +31,6 @@ caller gives none, from `generator` through `loss_draws`.
 
 from __future__ import annotations
 
-import itertools
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -46,20 +45,13 @@ from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
 from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid
-from ..ops.pointnet_fused import pointnet_forward, pointnet_weights
+from ..ops import tensor_versions
+from ..ops.pointnet_fused import FusedPointnet, pointnet_forward
 from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
 from .denoiser import Denoiser
 from .vae import MotionVae, reparameterize
 
 WEARER, INTERACTEE = 0, 1  # actor indices in the 2-person batch layout
-
-
-def tensor_versions(*modules: nn.Module) -> tuple:
-    """Storage address and version counter of every tensor of the modules:
-    it changes with `load_state_dict`, an in-place update or a move, so it
-    keys the kernel-layout weight copies."""
-    return tuple((t.data_ptr(), t._version)
-                 for m in modules for t in itertools.chain(m.parameters(), m.buffers()))
 
 
 @dataclass(frozen=True)
@@ -173,7 +165,7 @@ class SeeMeSystem(nn.Module):
         self.register_buffer("std", std[: cfg.nfeats].clone(), persistent=False)
         self.schedule = DiffusionSchedule()
         self._ddim_operands = None
-        self._scene_operands = None
+        self._fused_scene = FusedPointnet()
 
     def kernel_operands(self):
         """(denoiser state dict, DDIM kernel weights, PointNet kernel weights).
@@ -193,10 +185,7 @@ class SeeMeSystem(nn.Module):
     def _pointnet_operands(self):
         if not self.use_scene:
             return None
-        key = tensor_versions(self.proscene)
-        if self._scene_operands is None or self._scene_operands[0] != key:
-            self._scene_operands = (key, pointnet_weights(self.proscene["scene_enc"]))
-        return self._scene_operands[1]
+        return self._fused_scene.weights(self.proscene["scene_enc"])
 
     # ------------------------------------------------------------- primitives
     def renorm(self, feats: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,9 @@ from .._device import resolve_device
 from ..data.humanml import feats2joints
 from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.init import init_parameters_
+from ..ops import tensor_versions
 from ..ops.denoiser_fused import TOK_MAX_COND, KernelWeights, ddim_fused_tok
 from .denoiser import Denoiser
-from .seeme import tensor_versions
 from .vae import MotionVae
 
 

@@ -40,7 +40,6 @@ SIGNATURES = {
     "ddim_md_t1_info": [_I] * 7 + [_P],
     "ddim_tok_t1_info": [_I] * 5 + [_P],
     "pointnet_info": [_I, _I, _P],
-    "pointnet_tile": [_I],
 }
 BUILD_TIMEOUT = 600  # seconds for the compiles together, and again for the link
 

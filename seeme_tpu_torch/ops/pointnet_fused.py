@@ -4,7 +4,9 @@
 `csrc/pointnet.cu` for CUDA tensors and run their plain PyTorch versions
 (`*_plain`) for CPU tensors. Weights are (in, out), as in the JAX package.
 Each wrapper counts its kernel launches in `.launches`, and by hidden width
-in `.launches_by_width`. Both kernels are instantiated at hidden width
+in `.launches_by_width`. `FusedPointnet` runs a whole `ResnetPointnet`
+through them and keeps its kernel-layout weights while the encoder is
+unchanged. Both kernels are instantiated at hidden width
 H = 512 (EgoBody's scene encoder, 64 points a CTA) and H = 256 (the
 ProHMR-Scene and EgoHMR scene encoders, 128 points a CTA); the wrappers
 refuse any other width on the card.
@@ -27,9 +29,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, tensor_versions
 
-WIDTHS = (256, 512)  # the hidden widths `csrc/pointnet.cu` instantiates
+TILE = {256: 128, 512: 64}  # the widths `csrc/pointnet.cu` instantiates: points a CTA
+WIDTHS = tuple(TILE)
 INPUT_SPLIT = ("w0", "w1", "ws")     # the product weights each kernel reads split,
 BLOCK_SPLIT = ("w0x", "w1", "wsx")   # in the order of its `split` argument
 
@@ -92,15 +95,14 @@ def _check_split(name: str, split, shapes, device) -> None:
 
 
 def _check_width(name: str, H: int) -> None:
-    if H not in WIDTHS:
+    if H not in TILE:
         raise ValueError(f"{name}: hidden width {H} is not one of {WIDTHS}")
 
 
-def _tile_max(lib, B: int, N: int, H: int, dev) -> torch.Tensor:
+def _tile_max(B: int, N: int, H: int, dev) -> torch.Tensor:
     """The kernels' per-tile column maxima, (B, tiles, H): a tile is the
     points one CTA takes at this width."""
-    tile = lib.pointnet_tile(H)
-    return torch.empty(B, (N + tile - 1) // tile, H, device=dev)
+    return torch.empty(B, (N + TILE[H] - 1) // TILE[H], H, device=dev)
 
 
 def launch_info(input_block: bool, hidden: int = 512) -> Dict[str, int]:
@@ -134,7 +136,7 @@ def fused_input_block(points, wpos, bpos, w0, b0, w1, b1, ws, split=None):
                  ((2 * H // 16, 2 * H, 16), (H // 16, 2 * H, 16), (2 * H // 16, 2 * H, 16)), dev)
     lib = _build.load_library()
     out = torch.empty(B, N, H, device=dev)
-    tile_max = _tile_max(lib, B, N, H, dev)
+    tile_max = _tile_max(B, N, H, dev)
     s0, s1, ss = split
     fused_input_block.launches += 1
     fused_input_block.launches_by_width[H] += 1
@@ -168,7 +170,7 @@ def fused_split_block(x, pooled, w0x, w0p, b0, w1, b1, wsx, wsp, split=None):
     cs = (pooled @ wsp + b1).contiguous()
     lib = _build.load_library()
     out = torch.empty(B, N, H, device=dev)
-    tile_max = _tile_max(lib, B, N, H, dev)
+    tile_max = _tile_max(B, N, H, dev)
     s0, s1, ss = split
     fused_split_block.launches += 1
     fused_split_block.launches_by_width[H] += 1
@@ -222,3 +224,22 @@ def pointnet_forward(weights: Dict[str, torch.Tensor], points: torch.Tensor) -> 
                          for n in ("w0x", "w0p", "b0", "w1", "b1", "wsx", "wsp")),
             split=tuple(weights[f"block_{i}.{n}.split"] for n in BLOCK_SPLIT))
     return F.linear(F.relu(pooled), weights["fc_c_w"], weights["fc_c_b"])
+
+
+class FusedPointnet:
+    """A `ResnetPointnet` forward through the fused blocks, with their
+    kernel-layout weights made again whenever the encoder's tensors change
+    (`load_state_dict`, a move, an in-place update)."""
+
+    def __init__(self):
+        self._key, self._weights = None, None
+
+    def weights(self, pointnet) -> Dict[str, torch.Tensor]:
+        """`pointnet_weights(pointnet)`, made afresh only when it changed."""
+        key = tensor_versions(pointnet)
+        if key != self._key:
+            self._key, self._weights = key, pointnet_weights(pointnet)
+        return self._weights
+
+    def __call__(self, pointnet, points: torch.Tensor) -> torch.Tensor:
+        return pointnet_forward(self.weights(pointnet), points)

@@ -13,12 +13,10 @@ at B x N points: the variants in turn, then in reverse order. Variants:
 1 is no multicast); `nowait` is a timing-only build in which the producer
 copies nothing and the products do not wait for their slots, so its
 results are meaningless and its time is the kernels' without the weight
-stream; `source` is the source as it is; `n128` changes only H = 256: two
-warpgroups of 128 columns each over 64 points a CTA (m64n128k16 products)
-in place of the source's two of 64 points each over all 256 columns of 128
-points a CTA. One JSON line per variant and kernel: ms (CUDA events, mean
-of 3 launches after a warm-up) and, except for `nowait`, the larger error of
-out and the pool relative to max |out| of the plain version. Needs nvcc and a card.
+stream; `source` is the source as it is. One JSON line per variant and
+kernel: ms (CUDA events, mean of 3 launches after a warm-up) and, except for
+`nowait`, the larger error of out and the pool relative to max |out| of the
+plain version. Needs nvcc and a card.
 """
 
 from __future__ import annotations
@@ -32,7 +30,6 @@ from pathlib import Path
 from . import _build
 
 _CLUSTER = "constexpr int CLUSTER = 2;"
-_N128 = ("constexpr int WG_COLS_256 = 256;", "constexpr int WG_COLS_256 = 128;", 1)
 # (anchor, replacement, times the anchor occurs)
 _NOWAIT = (
     ("    bar_wait<false>(ring.full(ring.stage), ring.phase);\n", "", 2),  # both products
@@ -52,8 +49,6 @@ def variant_source(name: str) -> str:
     text = (_build.CSRC / "pointnet.cu").read_text()
     if name == "source":
         return text
-    if name == "n128":
-        return _patch(text, (_N128,))
     if name.startswith("cluster"):
         return _patch(text, ((_CLUSTER, f"constexpr int CLUSTER = {int(name[7:])};", 1),))
     if name == "nowait":

@@ -65,7 +65,7 @@ def make_optimizer(stage: str, system: nn.Module, lr: float = 1e-4,
     package gives optax; returns (optimizer, schedule). `loop.train_step` sets the learning rate
     from the schedule before every update. `foreach` updates the parameters
     in place with ops that bump their version counters, which key the
-    kernel-layout weight copies (`models/seeme.py::tensor_versions`)."""
+    kernel-layout weight copies (`ops/__init__.py::tensor_versions`)."""
     params = set_stage(system, stage)
     optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                   weight_decay=1e-2, foreach=True)

@@ -123,7 +123,7 @@ def test_pointnet_launch_at_both_widths(cuda):
     for hidden, tile in ((512, 64), (256, 128)):
         for input_block in (True, False):
             info = pfu.launch_info(input_block, hidden)
-            assert info["tile"] == tile and info["cluster"] == 2, info
+            assert info["tile"] == tile == pfu.TILE[hidden] and info["cluster"] == 2, info
             assert info["smem_bytes"] <= 232448 and info["active_clusters"] >= 1, info
     w = pfu.pointnet_weights(seeded(ResnetPointnet(64, 128), 13, cuda))
     args = [w[n] for n in ("wpos", "bpos", "w0", "b0", "w1", "b1", "ws")]
