@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: EgoBody (SEE-ME, its
 image-conditioned, GIMO and interactee-only configs, both training stages,
-the test CLI), HumanML3D text-to-motion, and the ProHMR-Scene and EgoHMR
-perception stack's evaluation paths.
+the test CLI), HumanML3D text-to-motion (sampling, both training stages,
+the test CLI, the diffusion-only model and the token text mode), and the
+ProHMR-Scene and EgoHMR perception stack's evaluation paths.
 
     python3 chip_smoke.py
 
@@ -101,7 +102,30 @@ Phases, each printing one line with its seconds as soon as it ends:
      GCN steps, SMPL), card vs CPU with injected noise;
  20-21. `python -m seeme_tpu_torch.test_prohmr_scene` and `test_egohmr` at
      full width on the 16-example test split (one batch, 20 000 points),
-     counted the same way.
+     counted the same way;
+ 22. the HumanML3D text-to-motion model's stage 1 (`vae_humanml3d`, B=64, 196
+     x 263) through the CLI's `main` for 2 epochs of the synthetic 256-sample
+     split: ms per step, peak memory, device idle share, falling epoch
+     losses, no launch, and one step card vs CPU at the small size;
+ 23. stage 2 (`mld_humanml3d`) over that checkpoint: the same report, the VAE
+     bitwise unchanged, the denoiser changed, the fixed-draw val loss lower;
+     then `sample` on the trained weights at the preset's guidance 1.0 (64
+     condition rows) and at 7.5 (128): one token-kernel launch each, the
+     kernel within 1e-3 of max|z| of its plain version and timed at that
+     shape, and card vs CPU at B=2 on features and on joints recovered in
+     float64 on both sides;
+ 24. the test CLI on that checkpoint, 2 replications with `--count_time` and
+     MultiModality at 32 x 8 (expected: token kernel 2 x batches + 8), finite
+     MR, TM2T and MultiModality statistics, `times.txt` and the metrics
+     JSON; the stage-1 preset reconstructs with no launch;
+ 25. the diffusion-only model (`novae_humanml3d`, trans_dec 9 x 512): a
+     training step at B=64 (ms, peak memory), then `sample` at B=32 x 196 x
+     263, 50 steps at guidance 7.5 through the loop (its wall time, no
+     launch), card vs CPU at B=2 on features and on the RIC recovery of the
+     same features (the joints' whole gap printed, not gated: on a barely
+     trained model's large features RIC magnifies the features' gap);
+ 26. the token text mode: the clip_hidden fallback's 77 tokens with their
+     mask through the loop (no launch), card vs CPU at B=2 as in 25.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
 path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
 at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
@@ -565,6 +589,11 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     hmr_phases(dev, counted, counters, record, kernels, launches)
+    work = tempfile.mkdtemp(prefix="seeme_t2m_")
+    try:
+        t2m_phases(dev, counted, counters, record, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     for k in kernels:
         flops, nbytes = k.pop("flops"), k.pop("bytes")
@@ -1329,6 +1358,272 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
         record(f"{label}_cli", counts)
         phase(f"CLI {label} (full width, one batch of 16, {HMR_POINTS} points): launches "
               f"{counts}, {json.dumps({k: round(v, 3) for k, v in result.items()})} mm", t)
+
+
+def t2m_phases(dev, counted, counters, record, work: str) -> None:
+    """Phases 22-26: the HumanML3D text-to-motion model trained and
+    evaluated through the CLIs at full width (B = 64, 196 x 263) in `work`:
+    both stages, sampling on the trained weights at the preset's guidance
+    1.0 and at 7.5, the test CLI with MultiModality, the diffusion-only
+    model and the token text mode, each counted and held to the CPU."""
+    import torch
+
+    from seeme_tpu_torch.data.humanml import SyntheticT2MDataset
+    from seeme_tpu_torch.data.synthetic import to_torch
+    from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
+    from seeme_tpu_torch.models.text_encoder import ClipTextEncoder
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.test.__main__ import main as test_main
+    from seeme_tpu_torch.train.__main__ import Trainer, main, parse_args
+    from seeme_tpu_torch.train.loop import train_step, validate
+    from seeme_tpu_torch.train.state import make_optimizer, set_stage
+
+    none = {k: 0 for k in counters}
+    tok = {**none, "ddim_tok_t1": 1}
+
+    def report(trainer):
+        """Losses, per-step ms (after one warm-up step) and the epoch means."""
+        losses = [x["total"] for r in trainer.history for x in r["steps"]]
+        ms = sorted(m for r in trainer.history for m in r["step_ms"][int(r is trainer.history[0]):])
+        require(all(math.isfinite(v) for v in losses), f"losses not finite: {losses}")
+        first, last = trainer.history[0]["means"]["total"], trainer.history[-1]["means"]["total"]
+        busy, wall, _ = device_busy(trainer, 3)
+        return (f"{len(losses)} steps, losses {[round(v, 5) for v in losses]}, epoch means "
+                f"{first:.5f} -> {last:.5f}, {ms[len(ms) // 2]:.3f} ms a step (median of "
+                f"{len(ms)}, min {ms[0]:.3f}, max {ms[-1]:.3f}), device idle share "
+                f"{1 - busy / wall:.3f} over 3 more steps"), first, last, len(losses)
+
+    def fixed_eval_loss(trainer):
+        set_stage(trainer.system, None)
+        out = validate(trainer.system, trainer.stage, trainer.val_batches())["total"]
+        set_stage(trainer.system, trainer.stage)
+        return out
+
+    def card_vs_cpu_step(stage, **kw):
+        """One step at the CPU tests' size (d 32, 3 layers, 24 frames, B 3,
+        dropout 0) on both devices with the same draws."""
+        data = SyntheticT2MDataset(3, 24, 8, seed=SEED, text_dim=48)
+        cfg = T2MConfig(latent_dim=(1, 32), ff_size=16, num_layers=3, text_encoded_dim=48,
+                        max_len=24, dropout=0.0, **kw)
+        runs = {}
+        for device in ("cpu", dev):
+            sys_ = T2MSystem(cfg, data.mean, data.std, device=device, seed=SEED)
+            perturb_parameters_(sys_, torch.Generator().manual_seed(SEED + 21))
+            runs[str(device)] = (sys_, *make_optimizer(stage, sys_, lr=TRAIN_LR))
+        cpu_batch = to_torch(data.batch(0, 3), "cpu")
+        draws = runs["cpu"][0].loss_draws(stage, cpu_batch, torch.Generator().manual_seed(SEED + 22))
+        out = {}
+        for device, (sys_, opt, sched) in runs.items():
+            on = {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in cpu_batch.items()}
+            out[device] = train_step(sys_, stage, opt, sched, 0, on,
+                                     draws={k: v.to(device) for k, v in draws.items()})["total"]
+        compare_step(stage, runs["cpu"][0], runs[str(dev)][0], out["cpu"], out[str(dev)], TRAIN_LR)
+
+    def card_vs_cpu_sample(system, text, name, cond_mask=None, gate_joints=True):
+        """`sample` of the same weights at B = 2 on the CPU's plain path and
+        on the card: features, and joints recovered in float64 on both.
+        Without `gate_joints` the joints' gap is printed, split into the
+        recovery's own (gated) and the features' gap carried through the
+        CPU's recovery: RIC integrates the root's rotation and velocity
+        over 196 frames, so on the large features of a barely trained model
+        it magnifies a feature gap far inside the gate into a joint gap
+        over it."""
+        cfg = system.cfg
+        cpu = T2MSystem(cfg, system.mean.cpu(), system.std.cpu(), device="cpu", seed=SEED)
+        cpu.load_state_dict({k: v.cpu() for k, v in system.state_dict().items()})
+        shape = (2, cfg.max_len, cfg.nfeats) if system.diffusion_only else (2, *cfg.latent_dim)
+        z = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 23))
+        mask = None if cond_mask is None else cond_mask[:2].cpu()
+        ref = cpu.sample(text[:2].cpu(), cond_mask=mask, z_init=z)
+        got = system.sample(text[:2], cond_mask=None if mask is None else mask.to(dev),
+                            z_init=z.to(dev))
+        compare(f"{name} features, card vs CPU", got.cpu(), ref, float(ref.abs().max()),
+                SLICE_RTOL)
+        ref_j = cpu.feats_to_joints(ref)
+        got_j = system.feats_to_joints(got).cpu()
+        if gate_joints:
+            compare(f"{name} joints (float64 recovery), card vs CPU", got_j, ref_j,
+                    float(ref_j.abs().max()), SLICE_RTOL)
+            return
+        scale = float(ref_j.abs().max())
+        compare(f"{name} RIC recovery (float64), card vs CPU on the same features",
+                system.feats_to_joints(ref.to(dev)).cpu(), ref_j, scale, SLICE_RTOL)
+        carried = float((cpu.feats_to_joints(got.cpu()) - ref_j).abs().max())
+        print(f"    {name} joints, card vs CPU (not gated): relative "
+              f"{float((got_j - ref_j).abs().max()) / scale:.3e}, of which the features' gap "
+              f"through the CPU recovery {carried / scale:.3e} (max |joint| {scale:.4g}, max "
+              f"|feature| {float(ref.abs().max()):.4g})", flush=True)
+
+    # ---- 22. stage 1
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    s1, counts = counted(lambda: main(["--preset", "vae_humanml3d", "--epochs", "2",
+                                       "--out", os.path.join(work, "s1")]))
+    peak = torch.cuda.max_memory_allocated()
+    require(counts == none, f"t2m stage 1 launch counts {counts}")
+    record("t2m_train_stage1", counts)
+    text, first, last, n = report(s1)
+    require(n >= 5 and last < first, f"t2m stage 1: {n} steps, epoch means {first} -> {last}")
+    card_vs_cpu_step("vae")
+    phase(f"t2m train stage 1 (vae_humanml3d, B={s1.batch_size}, {s1.system.cfg.max_len} x "
+          f"{s1.system.cfg.nfeats}): {text}, peak memory {peak} B, launches {counts}; one "
+          f"step card vs CPU agrees", t)
+
+    # ---- 23. stage 2, then sampling on its weights at guidance 1.0 and 7.5
+    t = time.perf_counter()
+    s2 = Trainer(parse_args(["--preset", "mld_humanml3d", "--epochs", "2", "--out",
+                             os.path.join(work, "s2"), "--pretrained_vae", s1.checkpoints[-1],
+                             "train.val_every_steps=2"]))
+    saved = torch.load(s1.checkpoints[-1], map_location=dev, weights_only=False)["state_dict"]
+    vae = {k[len("vae."):]: v for k, v in saved.items() if k.startswith("vae.")}
+    require(all(torch.equal(v, vae[k]) for k, v in s2.system.vae.state_dict().items()),
+            "t2m stage 2 did not load the stage-1 VAE")
+    den = {k: v.clone() for k, v in s2.system.denoiser.state_dict().items()}
+    val_before = fixed_eval_loss(s2)
+    torch.cuda.reset_peak_memory_stats()
+    _, counts = counted(s2.fit)
+    peak = torch.cuda.max_memory_allocated()
+    require(counts == none, f"t2m stage 2 launch counts {counts}")
+    record("t2m_train_stage2", counts)
+    val_after = fixed_eval_loss(s2)
+    require(all(torch.equal(v, vae[k]) for k, v in s2.system.vae.state_dict().items()),
+            "t2m stage 2 changed the VAE")
+    require(any(not torch.equal(v, den[k]) for k, v in s2.system.denoiser.state_dict().items()),
+            "t2m stage 2 did not change the denoiser")
+    require(val_after < val_before, f"t2m fixed-draw val loss {val_before} -> {val_after}")
+    text, first, last, n = report(s2)
+    require(n >= 5, f"t2m stage 2 took {n} steps")
+    card_vs_cpu_step("diffusion", guidance_scale=1.0)
+    phase(f"t2m train stage 2 (mld_humanml3d, B={s2.batch_size}): {text}, fixed-draw val "
+          f"{val_before:.5f} -> {val_after:.5f}, peak memory {peak} B, launches {counts}, VAE "
+          f"bitwise unchanged; one step card vs CPU agrees", t)
+
+    t = time.perf_counter()
+    system = s2.system
+    set_stage(system, None)
+    vb = to_torch(next(s2.datamodule.batches("val", s2.batch_size, shuffle=False)), dev)
+    emb = vb["text_emb"][:, None, :].contiguous()
+    cfg75 = dataclasses.replace(system.cfg, guidance_scale=7.5)
+    cfg_system = T2MSystem(cfg75, system.mean, system.std, device=dev, seed=SEED)
+    cfg_system.load_state_dict(system.state_dict())
+    z0 = torch.randn(emb.shape[0], 1, 256, generator=torch.Generator().manual_seed(SEED + 24)).to(dev)
+    for g, sys_ in ((1.0, system), (7.5, cfg_system)):
+        feats, counts = counted(lambda: sys_.sample(emb, z_init=z0))
+        require(counts == tok, f"t2m sampling at guidance {g}: launch counts {counts}")
+        record(f"t2m_sample_after_training_g{g}", counts)
+        sd, weights = sys_.kernel_operands()
+        cond = torch.cat([torch.zeros_like(emb), emb]) if g > 1 else emb
+        args = (sd, cond.contiguous(), z0, sys_.schedule, 50, sys_.cfg.num_layers, g)
+        z_p = dfu.ddim_fused_plain(*args, md_trans=False)
+        compare(f"ddim_tok on the trained weights, guidance {g} ({cond.shape[0]} condition rows)",
+                dfu.ddim_fused_tok(*args, weights=weights), z_p, float(z_p.abs().max()), DDIM_RTOL)
+        ms = time_ms(lambda: dfu.ddim_fused_tok(*args, weights=weights), 3)
+        flops = tok_flops(sd, sys_.cfg.num_layers, cond.shape[0], 1, 50)
+        nbytes = 4 * (sum(v.numel() for v in sd.values()) + cond.numel() + 2 * z0.numel() + 100)
+        print(f"    kernel ddim_tok_t1 at this shape: {ms:.3f} ms, bound "
+              f"{bound_ms(flops, nbytes):.4f} ms ({bound_by(flops, nbytes)}), f32 bound "
+              f"{bound_f32_ms(flops, nbytes):.4f} ms", flush=True)
+        require(bool(torch.isfinite(feats).all()), "t2m sampled features not finite")
+        card_vs_cpu_sample(sys_, emb, f"t2m trained, guidance {g}")
+    phase(f"t2m sampling after training (B={emb.shape[0]}, text width {emb.shape[-1]}): one "
+          f"token-kernel launch at guidance 1.0 and at 7.5; card vs CPU at B=2 agrees", t)
+    del cfg_system
+
+    # ---- 24. the test CLI, in process
+    t = time.perf_counter()
+    result, counts = counted(lambda: test_main([
+        "--preset", "mld_humanml3d", "--checkpoint", s2.checkpoints[-1], "--replication_times",
+        "2", "--count_time", "--out", os.path.join(work, "test"), "test.mm=True",
+        "test.mm_num_samples=32", "test.mm_num_repeats=8"]))
+    batches = -(-64 // s2.batch_size)  # the synthetic test split, padded tail counted
+    require(counts == {**none, "ddim_tok_t1": 2 * batches + 8}, f"t2m test CLI launches {counts}")
+    record("t2m_test_cli", counts)
+    stats = result["stats"]
+    require({"MPJPE", "PAMPJPE", "ACCEL", "FID", "R_precision_top_1", "Matching_score",
+             "Diversity", "MultiModality"} <= set(stats)
+            and all(math.isfinite(x) for v in stats.values() for x in v.values()),
+            f"t2m test CLI statistics {stats}")
+    require(os.path.exists(os.path.join(work, "test", "times.txt"))
+            and os.path.exists(result["metrics_path"]), "times.txt or metrics_*.json missing")
+    vae_result, vae_counts = counted(lambda: test_main([
+        "--preset", "vae_humanml3d", "--checkpoint", s1.checkpoints[-1], "--out",
+        os.path.join(work, "test_vae")]))
+    require(vae_counts == none, f"t2m stage-1 test CLI launches {vae_counts}")
+    record("t2m_test_cli_vae", vae_counts)
+    require(all(math.isfinite(v["mean"]) for v in vae_result["stats"].values()),
+            f"t2m stage-1 test CLI statistics {vae_result['stats']}")
+    times = result["times"]
+    phase(f"t2m test CLI (mld_humanml3d, 2 replications of {batches} batch over the 64-sample "
+          f"test split, MultiModality 32 x 8): launches {counts}, batch seconds "
+          f"{[round(x, 4) for x in times]}, means "
+          f"{json.dumps({k: round(v['mean'], 4) for k, v in sorted(stats.items())})}; stage-1 "
+          f"preset reconstructs with launches {vae_counts}", t)
+    del s1, s2, system
+    torch.cuda.empty_cache()
+
+    # ---- 25. the diffusion-only model: one step, then sampling through the loop
+    t = time.perf_counter()
+    nv = Trainer(parse_args(["--preset", "novae_humanml3d", "--out", os.path.join(work, "nv")]))
+    batch = to_torch(next(nv.train_batches(0)), dev)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(2):  # the first warms up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        terms, counts = counted(lambda: train_step(nv.system, "diffusion", nv.optimizer,
+                                                   nv.schedule, i, batch, nv.generator))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        require(counts == none and math.isfinite(terms["total"]), f"novae step {terms} {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    record("t2m_novae_train_step", counts)
+    system = nv.system
+    set_stage(system, None)
+    emb = batch["text_emb"][:32, None, :]
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    feats, counts = counted(lambda: system.sample(emb, generator=torch.Generator(device=dev)
+                                                  .manual_seed(SEED + 25)))
+    sample_s = time.perf_counter() - t_s
+    require(counts == none, f"novae sampling launches {counts}")
+    record("t2m_novae_sampling", counts)
+    require(tuple(feats.shape) == (32, 196, 263) and bool(torch.isfinite(feats).all()),
+            f"novae features {tuple(feats.shape)}")
+    card_vs_cpu_sample(system, emb, "novae, guidance 7.5", gate_joints=False)
+    phase(f"t2m novae (trans_dec 9 x 512, 4 heads): a step at B={batch['motion'].shape[0]} "
+          f"{step_ms[-1]:.3f} ms (first {step_ms[0]:.3f}), peak memory {peak} B; sampling "
+          f"B=32 x 196 x 263, 50 steps at guidance 7.5 through the loop {sample_s:.3f} s, "
+          f"launches {counts}; card vs CPU at B=2 agrees", t)
+    del nv, system, feats
+    torch.cuda.empty_cache()
+
+    # ---- 26. the token text mode: 77 hashed-word tokens with their mask, through the loop
+    t = time.perf_counter()
+    cfg = dataclasses.replace(T2MConfig(), text_encoded_dim=256, guidance_scale=1.0)
+    data = SyntheticT2MDataset(BATCH, cfg.max_len, seed=SEED, text_dim=256)
+    system = T2MSystem(cfg, data.mean, data.std, device=dev, seed=SEED)
+    perturb_parameters_(system, torch.Generator().manual_seed(SEED + 26))
+    encoder = ClipTextEncoder(None, latent_dim=256, last_hidden_state=True)
+    texts = data.texts
+    tokens = torch.as_tensor(encoder(texts), device=dev)
+    mask = torch.as_tensor(encoder.token_mask(texts), device=dev)
+    require(encoder.name == "clip_hidden" and tuple(tokens.shape) == (BATCH, 77, 256),
+            f"token mode {encoder.name} {tuple(tokens.shape)}")
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    feats, counts = counted(lambda: system.sample(tokens, cond_mask=mask,
+                                                  generator=torch.Generator(device=dev)
+                                                  .manual_seed(SEED + 27)))
+    sample_s = time.perf_counter() - t_s
+    require(counts == none and bool(torch.isfinite(feats).all()),
+            f"token mode launches {counts}")
+    record("t2m_token_mode_sampling", counts)
+    card_vs_cpu_sample(system, tokens, "token mode", cond_mask=mask, gate_joints=False)
+    phase(f"t2m token text mode (clip_hidden fallback, 77 tokens, {int(mask[0].sum())} valid in "
+          f"row 0): B={BATCH} through the loop {sample_s:.3f} s, launches {counts}; card vs CPU "
+          f"at B=2 agrees", t)
 
 
 def forward_counter(module) -> list:

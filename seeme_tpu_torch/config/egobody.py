@@ -57,12 +57,23 @@ class TestConfig:
     fact: float = 1.0           # TEST.FACT (base.yaml:54): stage 1's eps scale
     count_time: bool = False    # TEST.COUNT_TIME (base.yaml:46)
     save_predictions: bool = False  # TEST.SAVE_PREDICTIONS (base.yaml:45)
+    # the text-to-motion evaluation's (`test.py:222-364`): TEST.MM turns the
+    # MultiModality pass on; its samples, repeats and pair draws
+    # (base.yaml:48-50); the TM2T evaluator's weights (TEST.T2M_EVALUATOR_DIR)
+    # and GloVe files (DATASET.WORD_VERTILIZER_PATH), empty = random init
+    # and hashed word vectors
+    mm: bool = False
+    mm_num_samples: int = 100
+    mm_num_repeats: int = 30
+    mm_num_times: int = 10
+    evaluator_dir: str = ""
+    word_vectorizer_path: str = ""
 
 
 @dataclass(frozen=True)
 class Preset:
     name: str                   # NAME (:3), the experiment folder's name
-    model: SeeMeConfig
+    model: SeeMeConfig          # or a T2MConfig (`config/humanml3d.py`)
     train: TrainConfig
     dataset: str = "egobody"    # DATASET_NAME (:8)
     test: TestConfig = field(default_factory=TestConfig)
@@ -158,13 +169,17 @@ def _literal(raw: str):
 
 def apply_overrides(preset: Preset, pairs: Sequence[str]) -> Preset:
     """`model.X=V`, `train.X=V` or `test.X=V` pairs (V a Python literal)
-    over the preset's fields, as `train.py`'s dotted overrides."""
+    over the preset's fields, as `train.py`'s dotted overrides, and
+    `dataset=NAME` (DATASET_NAME: `kit` on a HumanML3D preset)."""
     for pair in pairs:
         path, sep, raw = pair.partition("=")
+        if path == "dataset" and raw:
+            preset = dataclasses.replace(preset, dataset=raw)
+            continue
         section, _, name = path.partition(".")
         if not sep or section not in SECTIONS or not name:
-            raise ValueError(f"override {pair!r} is not model.FIELD=VALUE, train.FIELD=VALUE "
-                             "or test.FIELD=VALUE")
+            raise ValueError(f"override {pair!r} is not model.FIELD=VALUE, train.FIELD=VALUE, "
+                             "test.FIELD=VALUE or dataset=NAME")
         sub = dataclasses.replace(getattr(preset, section), **{name: _literal(raw)})
         preset = dataclasses.replace(preset, **{section: sub})
     return preset

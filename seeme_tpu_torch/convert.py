@@ -17,6 +17,12 @@ ResNet's conv kernels go from HWIO to OIHW and its batch statistics to
 `prohmr_state_dict` and `egohmr_state_dict` do the same for the perception
 stack's `init_params` trees (`seeme_tpu/models/{prohmr,egohmr}.py`), the
 inverses of `convert_checkpoint.py`'s ProHMR branch and `convert_egohmr`.
+A text-to-motion denoiser of either arch (`trans_enc`'s U-skip encoder,
+`trans_dec`'s decoder stack and `mem_pos`) and the diffusion-only
+`pose_embd` / `pose_proj` map too, so `from_jax_params` takes a whole
+`T2MSystem.init_params` tree; `t2m_{text,movement,motion}_state_dict` map
+the TM2T evaluator's three flax trees (`seeme_tpu/nn/gru.py`) onto
+`nn/gru.py`'s reference keys.
 """
 
 from __future__ import annotations
@@ -118,14 +124,27 @@ def vae_state_dict(p: Tree, prefix: str = "vae") -> Dict:
 
 
 def denoiser_state_dict(p: Tree, prefix: str = "denoiser") -> Dict:
+    """Either arch: the U-skip `encoder` (MD or plain layers) or the plain
+    `decoder` stack with `mem_pos`; the diffusion-only `pose_embd` /
+    `pose_proj` when present."""
     sd: Dict = {}
     _linear(sd, f"{prefix}.time_embedding.linear_1", p["time_embedding"]["linear_1"])
     _linear(sd, f"{prefix}.time_embedding.linear_2", p["time_embedding"]["linear_2"])
     _pe(sd, f"{prefix}.query_pos.pe", p["query_pos"])
-    md_trans = "sa_block" in p["encoder"]["middle"]
-    _skip_stack(sd, f"{prefix}.encoder", p["encoder"], _md_layer if md_trans else _encoder_layer)
-    if "emb_proj_dense" in p:
-        _linear(sd, f"{prefix}.emb_proj.1", p["emb_proj_dense"])
+    if "decoder" in p:  # arch="trans_dec"
+        _pe(sd, f"{prefix}.mem_pos.pe", p["mem_pos"])
+        _norm(sd, f"{prefix}.decoder.norm", p["decoder"]["norm"])
+        for name, sub in p["decoder"].items():
+            if name.startswith("layer_"):
+                _decoder_layer(sd, f"{prefix}.decoder.layers.{name.split('_')[1]}", sub)
+    else:
+        md_trans = "sa_block" in p["encoder"]["middle"]
+        _skip_stack(sd, f"{prefix}.encoder", p["encoder"],
+                    _md_layer if md_trans else _encoder_layer)
+    for name, key in (("emb_proj_dense", "emb_proj.1"), ("pose_embd", "pose_embd"),
+                      ("pose_proj", "pose_proj")):
+        if name in p:
+            _linear(sd, f"{prefix}.{key}", p[name])
     return sd
 
 
@@ -280,6 +299,53 @@ def from_jax_params(tree: Tree) -> Dict[str, torch.Tensor]:
     for name in ("output_scene", "output_images"):
         if name in tree:
             _linear(sd, f"{name}.1", tree[name]["params"]["linear"])
+    return sd
+
+
+def _bigru(sd: Dict, prefix: str, p: Tree) -> None:
+    """`nn/gru.py::BiGru` (torch's `nn.GRU` keys) from the flax `fwd` / `bwd`
+    cells, the inverse of `convert_checkpoint.py::convert_bigru`."""
+    for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        cell = p[direction]["cell"]
+        for gate in ("ih", "hh"):
+            _put(sd, f"{prefix}.weight_{gate}_l0{suffix}",
+                 np.asarray(cell[f"weight_{gate}"]["kernel"]).T)
+            _put(sd, f"{prefix}.bias_{gate}_l0{suffix}", cell[f"weight_{gate}"]["bias"])
+
+
+def _gru_encoder(sd: Dict, p: Tree) -> None:
+    _linear(sd, "input_emb", p["input_emb"])
+    _put(sd, "hidden", p["hidden"])
+    _bigru(sd, "gru", p["gru"])
+    _linear(sd, "output_net.0", p["out_0"])
+    _norm(sd, "output_net.1", p["out_ln"])
+    _linear(sd, "output_net.3", p["out_1"])
+
+
+def t2m_text_state_dict(tree: Tree) -> Dict:
+    """flax `TextEncoderBiGRUCo` {"params"} -> `nn/gru.py` keys, the inverse
+    of `convert_t2m_textencoder`."""
+    sd: Dict = {}
+    _linear(sd, "pos_emb", tree["params"]["pos_emb"])
+    _gru_encoder(sd, tree["params"])
+    return sd
+
+
+def t2m_motion_state_dict(tree: Tree) -> Dict:
+    """flax `MotionEncoderBiGRUCo` -> `nn/gru.py` keys (`convert_t2m_motionencoder`)."""
+    sd: Dict = {}
+    _gru_encoder(sd, tree["params"])
+    return sd
+
+
+def t2m_movement_state_dict(tree: Tree) -> Dict:
+    """flax `MovementConvEncoder` -> `nn/gru.py` keys: the (k, in, out)
+    convolution kernels as (out, in, k) (`convert_t2m_movementencoder`)."""
+    p, sd = tree["params"], {}
+    for name, key in (("conv1", "main.0"), ("conv2", "main.3")):
+        _put(sd, f"{key}.weight", np.asarray(p[name]["kernel"]).transpose(2, 1, 0))
+        _put(sd, f"{key}.bias", p[name]["bias"])
+    _linear(sd, "out_net", p["out_net"])
     return sd
 
 

@@ -1,10 +1,13 @@
-"""Dataset name -> datamodule (`seeme_tpu/data/registry.py:34-111`).
+"""Dataset name -> datamodule (`seeme_tpu/data/registry.py:34-138`).
 
 EgoBody and GIMO load the preprocessed release (`data/egobody.py`) when
 `<root>/EgoBody` or `<root>/GIMO` exists; otherwise `SyntheticDataModule`
 keeps the path runnable, as the JAX package does (256 train, 64 val and 64
 test samples from seeds 0, 1 and 2; GIMO's 66 pose features, and its val
-split the test split, as `dataset.py:1840-1842` aliases them).
+split the test split, as `dataset.py:1840-1842` aliases them). HumanML3D
+and KIT read `<root>/HumanML3D` or `<root>/KIT-ML` through
+`data/humanml.py::HumanML3DDataModule`, which falls back to its synthetic
+splits when the folder is not there.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Sequence
 import numpy as np
 
 from .egobody import EgoBodyDataModule
+from .humanml import HUMANML_NFEATS, KIT_NFEATS, MIN_LEN, HumanML3DDataModule
 from .synthetic import SyntheticEgoDataset
 
 
@@ -76,14 +80,24 @@ class SyntheticDataModule:
 
 
 RELEASES = {"egobody": ("EgoBody", 72), "gimo": ("GIMO", 66)}  # name -> (folder, pose feats)
+T2M_RELEASES = {"humanml3d": ("HumanML3D", HUMANML_NFEATS), "kit": ("KIT-ML", KIT_NFEATS)}
 
 
 def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int = 60,
-                   scene_points: int = 1024, root: str = "./datasets", image_size: int = 224):
+                   scene_points: int = 1024, root: str = "./datasets", image_size: int = 224,
+                   text_dim: int = 768, min_len: int = MIN_LEN):
     """The datamodule of DATASET_NAME `name`: its release under `root` when
-    it is there, else the synthetic data (`image_size` sizes its crops)."""
+    it is there, else the synthetic data (`image_size` sizes its crops; a
+    text-to-motion set takes clips of `min_len` to `motion_length` frames
+    and makes its synthetic text embeddings `text_dim` wide)."""
+    if name in T2M_RELEASES:
+        folder, nfeats = T2M_RELEASES[name]
+        path = os.path.join(root, folder)
+        return HumanML3DDataModule(path if os.path.isdir(path) else None, nfeats,
+                                   max_len=motion_length, min_len=min_len, text_dim=text_dim)
     if name not in RELEASES:
-        raise KeyError(f"unknown dataset {name!r}; registered: {sorted(RELEASES)}")
+        raise KeyError(f"unknown dataset {name!r}; registered: "
+                       f"{sorted({**RELEASES, **T2M_RELEASES})}")
     folder, pose_feats = RELEASES[name]
     path = os.path.join(root, folder)
     if os.path.isdir(path):

@@ -103,6 +103,8 @@ class SyntheticEgoDataset:
 
 
 def to_torch(batch: Dict, device) -> Dict:
-    """A batch of numpy arrays (nested dicts of them too) as tensors on `device`."""
+    """A batch of numpy arrays (nested dicts of them too) as tensors on
+    `device`; lists (captions) stay as they are."""
     return {k: to_torch(v, device) if isinstance(v, dict)
+            else v if isinstance(v, list)
             else torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in batch.items()}

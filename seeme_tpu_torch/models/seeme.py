@@ -46,7 +46,7 @@ from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
 from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid
 from ..ops import tensor_versions
-from ..ops.pointnet_fused import FusedPointnet, pointnet_forward
+from ..ops.pointnet_fused import FusedPointnet
 from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
 from .denoiser import Denoiser
 from .vae import MotionVae, reparameterize
@@ -256,7 +256,7 @@ class SeeMeSystem(nn.Module):
     def scene_features(self, scene: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) point cloud -> (B, 512) frozen PointNet features,
         through the fused blocks, without a gradient."""
-        return pointnet_forward(self._pointnet_operands(), scene)
+        return self._fused_scene(self.proscene["scene_enc"], scene)
 
     def encode_scene(self, scene: torch.Tensor) -> torch.Tensor:
         """(B, 1, d) scene token: frozen PointNet, then the trainable

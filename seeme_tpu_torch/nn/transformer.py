@@ -96,6 +96,21 @@ class TransformerDecoderLayer(nn.Module):
         return self.norm3(tgt + drop(h))
 
 
+class TransformerDecoder(nn.Module):
+    """Plain decoder stack with a final norm, no U-skip
+    (`seeme_tpu/nn/transformer.py:156-179`): the `trans_dec` denoiser's."""
+
+    def __init__(self, make_layer: Callable[[], nn.Module], num_layers: int, d_model: int):
+        super().__init__()
+        self.layers = nn.ModuleList([make_layer() for _ in range(num_layers)])
+        self.norm = nn.LayerNorm(d_model)
+
+    def forward(self, tgt, memory, tgt_valid_mask=None, memory_valid_mask=None):
+        for layer in self.layers:
+            tgt = layer(tgt, memory, tgt_valid_mask, memory_valid_mask)
+        return self.norm(tgt)
+
+
 class _SkipStack(nn.Module):
     """(L-1)/2 input blocks, a middle block, (L-1)/2 output blocks, each
     output block preceded by Linear(2d -> d) over [x; popped skip]."""

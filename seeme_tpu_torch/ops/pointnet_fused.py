@@ -229,7 +229,12 @@ def pointnet_forward(weights: Dict[str, torch.Tensor], points: torch.Tensor) -> 
 class FusedPointnet:
     """A `ResnetPointnet` forward through the fused blocks, with their
     kernel-layout weights made again whenever the encoder's tensors change
-    (`load_state_dict`, a move, an in-place update)."""
+    (`load_state_dict`, a move, an in-place update).
+
+    The fused blocks have no backward yet (the JAX package's `custom_vjp`,
+    `seeme_tpu/ops/pointnet_pallas.py:178-197`, is not ported), so a call
+    with grad mode on while an encoder parameter requires grad raises
+    rather than leave the encoder silently untrained."""
 
     def __init__(self):
         self._key, self._weights = None, None
@@ -242,4 +247,7 @@ class FusedPointnet:
         return self._weights
 
     def __call__(self, pointnet, points: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and any(p.requires_grad for p in pointnet.parameters()):
+            raise RuntimeError("the fused PointNet blocks have no backward yet: freeze the "
+                               "scene encoder or run it under torch.no_grad()")
         return pointnet_forward(self.weights(pointnet), points)

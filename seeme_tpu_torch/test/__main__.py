@@ -1,12 +1,13 @@
-"""Evaluation CLI for the ego configs: the EgoBody/GIMO branch of `test.py`
-(`test.py:80-205`).
+"""Evaluation CLI: the EgoBody/GIMO branch of `test.py` (`test.py:80-205`)
+and its text-to-motion branch (`_t2m_eval`, `test.py:222-364`).
 
     python -m seeme_tpu_torch.test --preset NAME [--batch_size N]
         [--replication_times N] [--checkpoint PATH] [--count_time]
         [--save_predictions] [--device cpu] [--out DIR]
         [model.FIELD=VALUE ...] [test.FIELD=VALUE ...]
 
-NAME is a preset of `config/egobody.py`. The system is built from it and,
+NAME is a preset of `config/egobody.py` or `config/humanml3d.py`. The
+system is built from it and,
 with a checkpoint (`--checkpoint`, else the preset's `test.checkpoint`: a
 trainer's `<step>.pt`, its experiment dir or `.../checkpoints/latest`),
 loaded; without one it evaluates the seeded random init, as `test.py`
@@ -27,6 +28,20 @@ with `--save_predictions` one `pred_<i>.npy` / `gt_<i>.npy` of joints per
 sequence of the first replication, under `--out` (default
 `experiments/torch/<preset name>`).
 
+A text-to-motion preset evaluates the test split the same number of
+times: each batch's captions are encoded on the host when it carries no
+`text_emb`; a stage-`vae` preset reconstructs through the VAE, the others
+`sample` the text (with the token mask in the token modes; the pooled VAE
+model through the token DDIM kernel, once a batch); joints by RIC recovery
+and `MRMetrics` over the `n_valid` rows; `TM2TMetrics` on the TM2T
+evaluator's embeddings of the captions and of the sampled and reference
+features in the evaluator's normalization (`renorm4t2m`). The evaluator
+runs its seeded random init unless `test.evaluator_dir` names the released
+weights. With `test.mm=True` it then samples the first
+`test.mm_num_samples` test captions `test.mm_num_repeats` times (noise from
+a generator seeded with 7) and adds `MMMetrics`' MultiModality over the
+flattened features to every replication.
+
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
 float32 (TF32 off).
@@ -46,21 +61,23 @@ import numpy as np
 import torch
 
 from .._device import full_float32, resolve_device
-from ..config.egobody import OUT_ROOT, PRESETS, apply_overrides
+from ..config.egobody import OUT_ROOT, apply_overrides
+from ..config.presets import PRESETS, build
 from ..core.masks import lengths_to_mask
-from ..core.smpl import synthetic_smpl
 from ..data.batch import eval_batches
-from ..data.registry import get_datamodule
 from ..data.synthetic import to_torch
 from ..eval.metrics import EgoMetric
 from ..eval.stats import get_metric_statistics
-from ..models.seeme import SeeMeSystem
+from ..eval.t2m_evaluator import T2MEvaluator
+from ..eval.t2m_metrics import MMMetrics, MRMetrics, TM2TMetrics
+from ..models.t2m import T2MSystem
 from ..train.checkpoint import load_weights
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seeme_tpu_torch.test")
-    p.add_argument("--preset", required=True, choices=sorted(PRESETS))
+    p.add_argument("--preset", required=True, choices=sorted(PRESETS),
+                   help="a preset of config/egobody.py or config/humanml3d.py")
     p.add_argument("--batch_size", type=int, default=None, help="TEST.BATCH_SIZE")
     p.add_argument("--replication_times", type=int, default=None, help="TEST.REPLICATION_TIMES")
     p.add_argument("--checkpoint", default=None, help="TEST.CHECKPOINTS")
@@ -91,13 +108,9 @@ class Evaluator:
         os.makedirs(self.exp_dir, exist_ok=True)
         self._log_path = os.path.join(self.exp_dir, "test_log.txt")
         self.stage, self.seed = preset.train.stage, preset.train.seed
-        cfg = preset.model
-        self.datamodule = get_datamodule(preset.dataset, cfg.condition, cfg.motion_length,
-                                         cfg.scene_points, image_size=cfg.image_size)
+        self.datamodule, self.system = build(preset, self.device)
         if self.datamodule.is_synthetic:
             self.log("dataset release not found -> synthetic datamodule")
-        self.system = SeeMeSystem(cfg, synthetic_smpl(n_verts=6890), self.datamodule.mean,
-                                  self.datamodule.std, device=self.device, seed=self.seed)
         if tc.checkpoint:
             self.log(f"loaded checkpoint {load_weights(tc.checkpoint, self.system)}")
         else:
@@ -118,6 +131,8 @@ class Evaluator:
     def run(self) -> Dict:
         """Every replication over the test split; returns {"stats", "replications",
         "metrics_path", "times"}."""
+        if isinstance(self.system, T2MSystem):
+            return self._finish(*self._run_t2m())
         system, tc = self.system, self.preset.test
         T = self.preset.model.motion_length
         fact = None if tc.fact == 1 else float(tc.fact)
@@ -154,7 +169,70 @@ class Evaluator:
             replications.append(metric.compute())
             self.log(f"replication {rep}: " + " ".join(
                 f"{k}={v:.3f}" for k, v in sorted(replications[-1].items())))
+        return self._finish(replications, times)
 
+    def _run_t2m(self):
+        """The text-to-motion replications: (metrics of each, batch seconds)."""
+        system, tc, dm = self.system, self.preset.test, self.datamodule
+        evaluator = T2MEvaluator(nfeats=system.cfg.nfeats, ckpt=tc.evaluator_dir or None,
+                                 glove_root=tc.word_vectorizer_path or None, device=self.device)
+        if not evaluator.is_pretrained:
+            self.log("t2m evaluator running with its seeded random init "
+                     "(test.evaluator_dir names the released weights)")
+        replications: List[Dict[str, float]] = []
+        times: List[float] = []
+        for rep in range(tc.replication_times):
+            mr, tm2t = MRMetrics(), TM2TMetrics()
+            gen = torch.Generator(device=self.device).manual_seed(self.seed + rep)
+            for batch_np, n_valid in eval_batches(dm, "test", tc.batch_size):
+                texts = batch_np.get("text")
+                batch_np = system.encode_captions(batch_np)
+                batch = to_torch(batch_np, self.device)
+                t0 = time.perf_counter()
+                if self.stage == "vae":
+                    feats = system.reconstruct(batch, generator=gen)
+                else:
+                    feats = system.sample(batch["text_emb"], cond_mask=batch.get("text_mask"),
+                                          generator=gen)
+                if tc.count_time:
+                    self._sync()
+                    times.append(time.perf_counter() - t0)
+                lengths = batch_np["length"]
+                mr.update(system.feats_to_joints(feats)[:n_valid].cpu().numpy(),
+                          system.feats_to_joints(batch["motion"])[:n_valid].cpu().numpy(),
+                          lengths[:n_valid])
+                if texts is not None:
+                    rec = dm.renorm4t2m(feats.cpu().numpy())
+                    gt = dm.renorm4t2m(batch_np["motion"])
+                    tm2t.update(evaluator.embed_text(texts)[:n_valid],
+                                evaluator.embed_motion(rec, lengths)[:n_valid],
+                                evaluator.embed_motion(gt, lengths)[:n_valid])
+            results = mr.compute()
+            if tm2t.text_embeddings:
+                results.update(tm2t.compute())
+            replications.append(results)
+            self.log(f"replication {rep}: " + " ".join(
+                f"{k}={v:.3f}" for k, v in sorted(results.items())))
+        if tc.mm:
+            mm = MMMetrics(mm_num_times=tc.mm_num_times)
+            gen = torch.Generator(device=self.device).manual_seed(7)
+            batch_np, mm_valid = next(eval_batches(dm, "test", min(tc.mm_num_samples,
+                                                                   tc.batch_size)))
+            batch = to_torch(system.encode_captions(batch_np), self.device)
+            repeats = []
+            for _ in range(tc.mm_num_repeats):
+                feats = system.sample(batch["text_emb"], cond_mask=batch.get("text_mask"),
+                                      generator=gen)
+                repeats.append(feats.reshape(len(feats), -1)[:mm_valid].cpu().numpy())
+            mm.update(np.stack(repeats, axis=1))
+            value = mm.compute()
+            replications = [dict(m, **value) for m in replications]
+            self.log(f"MultiModality: {value['MultiModality']:.4f}")
+        return replications, times
+
+    def _finish(self, replications: List[Dict[str, float]], times: List[float]) -> Dict:
+        """Statistics over the replications, `metrics_<stamp>.json`, `times.txt`."""
+        tc = self.preset.test
         stats = get_metric_statistics(replications)
         for k, s in sorted(stats.items()):
             self.log(f"{k}: {s['mean']:.4f} +- {s['conf_interval']:.4f} "

@@ -1,21 +1,28 @@
-"""Training CLI for the ego configs (`train.py`).
+"""Training CLI (`train.py`) for the ego and text-to-motion configs.
 
     python -m seeme_tpu_torch.train --preset NAME
         [--batch_size N] [--epochs N] [--out DIR] [--resume DIR]
         [--pretrained_vae PATH] [--device cpu] [model.FIELD=VALUE ...] [train.FIELD=VALUE ...]
 
-NAME is a preset of `config/egobody.py`: vae_egobody, mld_egobody,
-mld_egobody_image, vae_gimo, mld_gimo, vae_interactee, mld_interactee.
-The flow is `train.py`'s: the datamodule (the EgoBody or GIMO release under
-`./datasets` when it is there, else the synthetic one), the system, stage
-2's pretrained VAE, the optimizer, the resume; then stage 2's cache of the
+NAME is a preset of `config/egobody.py` (vae_egobody, mld_egobody,
+mld_egobody_image, vae_gimo, mld_gimo, vae_interactee, mld_interactee) or
+of `config/humanml3d.py` (vae_humanml3d, mld_humanml3d, novae_humanml3d;
+`dataset=kit` trains them on KIT). The flow is `train.py`'s: the datamodule
+(the EgoBody, GIMO, HumanML3D or KIT release under `./datasets` when it is
+there, else the synthetic one), the system (`SeeMeSystem`, or `T2MSystem`
+for a text-to-motion preset, whose width in features follows the data),
+stage 2's pretrained VAE, the optimizer, the resume; then stage 2's cache of the
 frozen encoders' features (`train.py:185-236`: the PointNet's `scene_feats`
 and the ResNet50's `image_feats`, in chunks of max(batch, 8), the tail
 padded, the train and val splits, only at guidance <= 1; on by default on
 the card), and the epochs with logging, validation every `val_every_steps`
 epochs and a checkpoint every `save_checkpoint_epoch` epochs and at the
 end. Trailing `model.X=V` / `train.X=V` pairs override preset fields (V a
-Python literal), as `train.py`'s dotted overrides do.
+Python literal), as `train.py`'s dotted overrides do. A text-to-motion
+batch without `text_emb` (the releases) has its captions encoded on the
+host by the system's text encoder before the step (`train.py:337-367`);
+the text-to-motion presets have no feature cache, and `vae_type="no"`
+(novae_humanml3d) has no VAE stage.
 
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
@@ -40,11 +47,10 @@ import numpy as np
 import torch
 
 from .._device import full_float32, resolve_device
-from ..config.egobody import OUT_ROOT, PRESETS, apply_overrides
-from ..core.smpl import synthetic_smpl
+from ..config.egobody import OUT_ROOT, apply_overrides
+from ..config.presets import PRESETS, build
 from ..data.batch import eval_batches
-from ..data.registry import get_datamodule
-from ..models.seeme import SeeMeSystem
+from ..models.t2m import T2MSystem
 from .checkpoint import (
     clear_stale_steps,
     load_pretrained_vae,
@@ -60,7 +66,8 @@ from .state import make_optimizer
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seeme_tpu_torch.train")
-    p.add_argument("--preset", required=True, choices=sorted(PRESETS))
+    p.add_argument("--preset", required=True, choices=sorted(PRESETS),
+                   help="a preset of config/egobody.py or config/humanml3d.py")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None, help="END_EPOCH")
     p.add_argument("--out", default=None, help="experiment dir")
@@ -91,16 +98,15 @@ class Trainer:
         os.makedirs(self.exp_dir, exist_ok=True)
         self._log_path = os.path.join(self.exp_dir, "train_log.txt")
         self.stage, self.seed = tc.stage, tc.seed
-        cfg = preset.model
-
-        self.datamodule = get_datamodule(preset.dataset, cfg.condition, cfg.motion_length,
-                                         cfg.scene_points, image_size=cfg.image_size)
+        self.datamodule, self.system = build(preset, self.device)
+        self.preset = preset = dataclasses.replace(preset, model=self.system.cfg)
+        self.is_t2m = isinstance(self.system, T2MSystem)
+        if self.is_t2m and self.system.diffusion_only and self.stage == "vae":
+            raise ValueError("the vae stage is undefined for vae_type 'no' "
+                             "(config_novae_*: train the diffusion stage only)")
         if self.datamodule.is_synthetic:
             self.log("dataset release not found -> synthetic datamodule")
-        torch.manual_seed(self.seed)  # dropout draws from torch's default generators
-        self.system = SeeMeSystem(cfg, synthetic_smpl(n_verts=6890), self.datamodule.mean,
-                                  self.datamodule.std, device=self.device, seed=self.seed)
-        if self.stage == "diffusion" and tc.pretrained_vae:
+        if self.stage == "diffusion" and tc.pretrained_vae and hasattr(self.system, "vae"):
             path = resolve_latest(tc.pretrained_vae)
             if os.path.exists(path):
                 n = load_pretrained_vae(path, self.system)
@@ -157,9 +163,9 @@ class Trainer:
             cache = self.device.type == "cuda"
         system = self.system
         encoders = []
-        if system.use_scene:
+        if getattr(system, "use_scene", False):
             encoders.append(("scene", "scene_feats", system.scene_features))
-        if system.use_image:
+        if getattr(system, "use_image", False):
             encoders.append(("image", "image_feats", system.image_features))
         if not (cache and self.stage == "diffusion" and encoders
                 and self.preset.model.guidance_scale <= 1.0):
@@ -188,12 +194,22 @@ class Trainer:
         return time.perf_counter() - t0
 
     def train_batches(self, epoch: int):
-        """The train split's batches of `epoch`, without the keys the stage never reads."""
+        """The train split's batches of `epoch`, without the keys the stage
+        never reads, captions encoded."""
+        if self.is_t2m:
+            for b in self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch):
+                yield self.system.encode_captions(b)
+            return
         drop = {"scene", "image"} if self.stage == "vae" else set()
         if not self.system.use_image:
             drop.add("image")
         for b in self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch):
             yield {k: v for k, v in b.items() if k not in drop}
+
+    def val_batches(self):
+        """`eval_batches` of the val split, captions encoded."""
+        for b, n in eval_batches(self.datamodule, "val", self.batch_size):
+            yield (self.system.encode_captions(b) if self.is_t2m else b), n
 
     def fit(self) -> List[Dict]:
         tc = self.preset.train
@@ -209,8 +225,7 @@ class Trainer:
             self.log(f"epoch {epoch}/{tc.end_epoch} step {self.step} "
                      + " ".join(f"{k}={v:.5f}" for k, v in sorted(means.items())) + mem)
             if (epoch + 1) % val_every == 0:
-                record["val"] = validate(self.system, self.stage,
-                                         eval_batches(self.datamodule, "val", self.batch_size))
+                record["val"] = validate(self.system, self.stage, self.val_batches())
                 self.log(f"val epoch {epoch} " + " ".join(
                     f"{k}={v:.5f}" for k, v in sorted(record["val"].items())))
             if (epoch + 1) % tc.save_checkpoint_epoch == 0 or epoch + 1 == tc.end_epoch:

@@ -15,11 +15,17 @@ not split into the cluster's column slices. A stage-2 train step on the
 card agrees with the same step on the CPU. Both PointNet kernels again at
 hidden width 256 (128 points a CTA), at batch 1, 3 and 64 and tiles filled
 partly or not at all, and the ProHMR-Scene and EgoHMR evaluation paths on
-the card against the CPU at their CLIs' tiny sizes.
+the card against the CPU at their CLIs' tiny sizes. The text-to-motion
+model's sampling at the shipped guidance 1.0 is one token-kernel launch
+over 64 condition rows.
 """
+
+import dataclasses
 
 import pytest
 import torch
+
+from seeme_tpu_torch.config.humanml3d import mld_humanml3d
 
 from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.data import egohmr_images as images
@@ -29,6 +35,7 @@ from seeme_tpu_torch.models.denoiser import Denoiser
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
+from seeme_tpu_torch.models.t2m import T2MSystem
 from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
 from seeme_tpu_torch.nn.pointnet import ResnetPointnet
 from seeme_tpu_torch.ops import denoiser_fused as dfu
@@ -273,6 +280,30 @@ def test_ddim_tok_kernel(cuda, n_cond, guidance, batch, text_dim):
     ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance,
                                md_trans=False)
     assert rel_err(z, ref) < 1e-3
+
+
+@pytest.mark.parametrize("text_dim", [768, 256])
+def test_t2m_guidance_one_sample_is_one_launch(cuda, text_dim):
+    """`T2MSystem.sample` at the shipped guidance 1.0 (`mld_humanml3d`): a
+    condition batch of 64 rows, no CFG doubling, 50 steps, one token-kernel
+    launch, within 1e-3 of max |z| of the plain version and its features
+    within 1e-3 of max |features| of the decoded plain latents; text width
+    768 (`T2MConfig()`, with emb_proj) and 256 (the preset, without)."""
+    cfg = dataclasses.replace(mld_humanml3d().model, text_encoded_dim=text_dim)
+    system = T2MSystem(cfg, torch.zeros(263), torch.ones(263), device=cuda, seed=3)
+    perturb_parameters_(system, torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    text = torch.randn(64, 1, text_dim, generator=g).to(cuda)
+    z0 = torch.randn(64, 1, 256, generator=g).to(cuda)
+    before = dfu.ddim_fused_tok.launches
+    feats = system.sample(text, z_init=z0)
+    assert dfu.ddim_fused_tok.launches == before + 1
+    sd, _ = system.kernel_operands()
+    z_plain = dfu.ddim_fused_plain(sd, text, z0, system.schedule, 50, 5, 1.0, md_trans=False)
+    z_kernel = dfu.ddim_fused_tok(sd, text, z0, system.schedule, 50, 5, 1.0,
+                                  weights=system.kernel_operands()[1])
+    assert rel_err(z_kernel, z_plain) < 1e-3
+    assert rel_err(feats, system.vae.decode(z_plain, cfg.max_len)) < 1e-3
 
 
 def test_ddim_tok_refuses_bad_input(cuda):

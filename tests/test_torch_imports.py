@@ -15,6 +15,7 @@ import torch
 import seeme_tpu_torch
 from seeme_tpu_torch._device import resolve_device
 from seeme_tpu_torch.core.smpl import synthetic_smpl
+from seeme_tpu_torch.eval.t2m_evaluator import T2MEvaluator
 from seeme_tpu_torch import test_egohmr, test_prohmr_scene
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
@@ -62,7 +63,10 @@ def test_every_module_imports():
             "seeme_tpu_torch.flows.glow", "seeme_tpu_torch.nn.gcn",
             "seeme_tpu_torch.models.prohmr", "seeme_tpu_torch.models.egohmr",
             "seeme_tpu_torch.data.egohmr_images", "seeme_tpu_torch.eval.hmr_metrics",
-            "seeme_tpu_torch.test_prohmr_scene", "seeme_tpu_torch.test_egohmr"} <= set(names)
+            "seeme_tpu_torch.test_prohmr_scene", "seeme_tpu_torch.test_egohmr",
+            "seeme_tpu_torch.nn.gru", "seeme_tpu_torch.eval.t2m_evaluator",
+            "seeme_tpu_torch.models.text_encoder", "seeme_tpu_torch.data.word_vectorizer",
+            "seeme_tpu_torch.config.humanml3d", "seeme_tpu_torch.config.presets"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -87,6 +91,8 @@ def test_entry_points_raise_without_cuda():
         SeeMeSystem(SeeMeConfig(), synthetic_smpl(32), np.zeros(75), np.ones(75))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T2MSystem(T2MConfig(), np.zeros(263), np.ones(263))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T2MEvaluator(text_hidden=8, move_hidden=8, move_out=8, motion_hidden=8, output_size=8)
     small = synthetic_smpl(32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ProHMRScene(ProHMRConfig(flow_hidden=8, flow_layers=1, flow_depth=1), small)

@@ -170,13 +170,16 @@ def test_kernel_operands_follow_the_parameters(datamodule):
 
 
 def test_unported_modes_raise(datamodule):
-    system, _, _ = build(7.5, datamodule)
-    text = torch.zeros(2, 1, TEXT)
-    with pytest.raises(ValueError, match="token text modes"):
-        system.sample(torch.zeros(2, 9, TEXT))
-    # the unported variants have no setting that could select them
-    with pytest.raises(TypeError):
-        system.sample(text, cond_mask=torch.ones(2, 1, dtype=torch.bool))
-    for kw in ({"vae_type": "no"}, {"arch": "trans_dec"}):
-        with pytest.raises(TypeError):
-            T2MConfig(**SMALL, **kw)
+    """The token modes, `vae_type="no"` and `trans_dec` are ported now
+    (`tests/test_torch_t2m_train.py`); what is still refused: a VAE stage
+    or a reconstruction without a VAE, and settings that name no mode."""
+    novae = T2MSystem(T2MConfig(**{**SMALL, "vae_type": "no", "arch": "trans_dec"}),
+                      datamodule.mean, datamodule.std, device="cpu")
+    batch = {"motion": torch.zeros(2, T, 263), "length": torch.tensor([T, 9])}
+    with pytest.raises(ValueError, match="vae stage is undefined"):
+        novae.vae_loss(batch)
+    with pytest.raises(ValueError, match="needs a VAE"):
+        novae.reconstruct(batch)
+    for kw, match in (({"vae_type": "actor"}, "vae_type"), ({"arch": "mdm"}, "arch")):
+        with pytest.raises(ValueError, match=match):
+            T2MSystem(T2MConfig(**SMALL, **kw), datamodule.mean, datamodule.std, device="cpu")
