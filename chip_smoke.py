@@ -3,7 +3,7 @@
 image-conditioned, GIMO and interactee-only configs, both training stages,
 the test CLI), HumanML3D text-to-motion (sampling, both training stages,
 the test CLI, the diffusion-only model and the token text mode), and the
-ProHMR-Scene and EgoHMR perception stack's evaluation paths.
+ProHMR-Scene and EgoHMR perception stack's evaluation and training paths.
 
     python3 chip_smoke.py
 
@@ -125,17 +125,43 @@ Phases, each printing one line with its seconds as soon as it ends:
      same features (the joints' whole gap printed, not gated: on a barely
      trained model's large features RIC magnifies the features' gap);
  26. the token text mode: the clip_hidden fallback's 77 tokens with their
-     mask through the loop (no launch), card vs CPU at B=2 as in 25.
+     mask through the loop (no launch), card vs CPU at B=2 as in 25;
+ 27. the fused PointNet's backward (`ops/pointnet_fused.py`, kernels 1-2
+     forward, the eager twin's chunked recompute backward) at H=256, B=64
+     and H=512, B=16, both with 20 000 points: the gradients of a seeded
+     projection of the output against the plain twin's, each parameter
+     within TRAIN_GRAD_RTOL of its max |g| (expected launches 1 / 3 at that
+     width), forward and backward ms of both, peak memory of both;
+ 28. ProHMR-Scene training through `train_prohmr_scene.main` at
+     `ProHMRConfig()` with the CLI's defaults (B=8, 1024 points, 2 epochs of
+     the 64-example synthetic split, 16 G + D steps): the ActNorm start,
+     finite G and D losses, `scene_enc`, the backbone's statistics and the
+     discriminator changed, H=256 launches 1 / 3 in each G step and in the
+     ActNorm start's context and none in a D step, the smallest batch-norm
+     variance; one G and one D step on the CLI's weights card vs CPU at
+     the CLI's B=8, 1024 points with shared draws, the card's ReLU
+     decisions replayed in the CPU's steps (`relu_decisions`: a decision
+     within rounding of 0 that went the other way would move a gradient
+     by a percent or more of its max; the loss within TRAIN_LOSS_RTOL,
+     every gradient within TRAIN_GRAD_RTOL); then a G + D step at B=64,
+     20 000 points, 224 x 224 (ms, peak memory, device idle share);
+     `test_prohmr_scene --checkpoint` on the saved file (1 / 3);
+ 29. EgoHMR training through `train_egohmr.main` at `EgoHmrConfig()` the
+     same way (16 steps, 1 / 3 each; the scene encoder and the GCN's
+     statistics changed), card vs CPU with one sample's image block
+     dropped, its step at B=64, and `test_egohmr --checkpoint`.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
 path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
 at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
-the ProHMR-Scene slice), the card's name and power limit, and, last, `{"ok":
+the ProHMR-Scene slice; the PointNet rows carry phase 27's `backward`
+numbers), the card's name and power limit, and, last, `{"ok":
 true, "device": {...}}`. Any failed check exits non-zero at once. Random weights: the seeded init plus a seeded perturbation, so the
 zero-initialized output projections carry signal.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -592,6 +618,11 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="seeme_t2m_")
     try:
         t2m_phases(dev, counted, counters, record, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="seeme_hmr_train_")
+    try:
+        hmr_train_phases(dev, counted, counters, record, kernels, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1626,6 +1657,315 @@ def t2m_phases(dev, counted, counters, record, work: str) -> None:
           f"at B=2 agrees", t)
 
 
+def hmr_train_phases(dev, counted, counters, record, kernels: list, work: str) -> None:
+    """Phases 27-29: the fused PointNet's backward at both widths, then
+    ProHMR-Scene and EgoHMR trained through their CLIs at full width in
+    `work`, each step counted, timed at B = 64 with 20 000 points, held to
+    the CPU for one step, and its checkpoint evaluated by its test CLI."""
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch import test_egohmr, test_prohmr_scene, train_egohmr
+    from seeme_tpu_torch import train_prohmr_scene as train_prohmr
+    from seeme_tpu_torch.core.smpl import synthetic_smpl
+    from seeme_tpu_torch.data import egohmr_images as images
+    from seeme_tpu_torch.data.augmentation import MoCapDataset
+    from seeme_tpu_torch.data.synthetic import to_torch
+    from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
+    from seeme_tpu_torch.models.prohmr import GENERATOR, LOSS_WEIGHTS, ProHMRConfig, ProHMRScene
+    from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
+    from seeme_tpu_torch.nn.pointnet import ResnetPointnet
+    from seeme_tpu_torch.ops import pointnet_fused as pfu
+
+    none = {k: 0 for k in counters}
+    rows = {k["name"]: k for k in kernels}
+
+    def per_width(width):
+        return {**none, **({"pointnet_input_block_h256": 1, "pointnet_split_block_h256": 3}
+                           if width == 256 else
+                           {"pointnet_input_block": 1, "pointnet_split_block": 3})}
+
+    # ---- 27. the PointNet backward: the Function against the plain twin
+    for H, b, n in ((256, BATCH, HMR_POINTS), (512, 16, HMR_POINTS)):
+        t = time.perf_counter()
+        net = ResnetPointnet(512, hidden_dim=H)
+        init_parameters_(net, torch.Generator().manual_seed(SEED + 60))
+        perturb_parameters_(net, torch.Generator().manual_seed(SEED + 61))
+        net = net.to(dev).requires_grad_(True)
+        g = torch.Generator().manual_seed(SEED + 62)
+        points = torch.randn(b, n, 3, generator=g).to(dev)
+        proj = torch.randn(b, 512, generator=g).to(dev)
+        fused = pfu.FusedPointnet()
+
+        def fused_loss():
+            return (fused(net, points) * proj).sum()
+
+        def plain_loss():
+            return (net(points) * proj).sum()
+
+        grads, peaks = {}, {}
+        for label, loss_fn in (("fused", fused_loss), ("plain", plain_loss)):
+            net.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if label == "fused":
+                _, counts = counted(lambda: loss_fn().backward())
+                require(counts == per_width(H), f"PointNet backward H={H} launch counts {counts}")
+            else:
+                loss_fn().backward()
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated()
+            grads[label] = {k: p.grad.clone() for k, p in net.named_parameters()}
+        worst = 0.0
+        for k, want in grads["plain"].items():
+            scale = float(want.abs().max())
+            gap = float((grads["fused"][k] - want).abs().max())
+            require(gap <= TRAIN_GRAD_RTOL * scale,
+                    f"PointNet backward H={H} {k}: {gap:.3e} of max |g| {scale:.3e}")
+            worst = max(worst, gap / scale)
+        net.zero_grad(set_to_none=True)
+        fwd_ms, plain_fwd_ms = time_ms(fused_loss, 3), time_ms(plain_loss, 3)  # grad mode on
+        bwd_ms = time_ms(lambda: fused_loss().backward(), 3) - fwd_ms
+        plain_bwd_ms = time_ms(lambda: plain_loss().backward(), 3) - plain_fwd_ms
+        report = {"batch": b, "points": n, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                  "plain_forward_ms": plain_fwd_ms, "plain_backward_ms": plain_bwd_ms,
+                  "peak_bytes": peaks["fused"], "plain_peak_bytes": peaks["plain"],
+                  "worst_grad_gap": worst}
+        suffix = "_h256" if H == 256 else ""
+        for name in (f"pointnet_input_block{suffix}", f"pointnet_split_block{suffix}"):
+            rows[name]["backward"] = report
+        del net, points, proj, fused, grads
+        torch.cuda.empty_cache()
+        phase(f"PointNet backward H={H} (B={b}, N={n}; gradients of a seeded projection): worst "
+              f"gap {worst:.3e} of max |g| (tolerance {TRAIN_GRAD_RTOL:.0e}); forward "
+              f"{fwd_ms:.3f} ms, backward (chunked recompute) {bwd_ms:.3f} ms; the plain twin "
+              f"{plain_fwd_ms:.3f} / {plain_bwd_ms:.3f} ms; peak {peaks['fused']} B (plain "
+              f"{peaks['plain']} B)", t)
+
+    smpl = synthetic_smpl(n_verts=6890, seed=SEED)
+    big = images.EgoHmrImageDataModule(n_pts=HMR_POINTS, img_size=224, smpl=smpl)
+    big_batch = next(big.batches("train", BATCH, shuffle=False, augment=True))
+
+    def step_launches(module, name, record_to):
+        """Wrap `module.name` so each call's launches of both H = 256 blocks
+        land in `record_to`."""
+        inner = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            before = (pfu.fused_input_block.launches_by_width[256],
+                      pfu.fused_split_block.launches_by_width[256])
+            out = inner(*a, **kw)
+            record_to.append((pfu.fused_input_block.launches_by_width[256] - before[0],
+                              pfu.fused_split_block.launches_by_width[256] - before[1]))
+            return out
+
+        setattr(module, name, wrapped)
+        return lambda: setattr(module, name, inner)
+
+    def min_var(model):
+        return min(float(m.running_var.min()) for m in model.modules()
+                   if hasattr(m, "running_var"))
+
+    def changed(model, fresh, prefix):
+        now = {k: v.cpu() for k, v in model.state_dict().items() if k.startswith(prefix)}
+        old = {k: v.cpu() for k, v in fresh.state_dict().items() if k.startswith(prefix)}
+        return all(not torch.equal(now[k], old[k]) for k in old)
+
+    def timed_steps(step, n_steps):
+        """ms a step (host clock, synchronised) after one warm-up, peak
+        memory, device idle share of one more step."""
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n_steps
+        busy, wall, _ = profile_busy(step)
+        return ms, torch.cuda.max_memory_allocated(), 1 - busy / wall
+
+    def cli_check(label, cli, ckpt):
+        t = time.perf_counter()
+        result, counts = counted(lambda: cli.main(["--batch_size", "16", "--checkpoint", ckpt]))
+        require(counts == per_width(256), f"{label} --checkpoint launch counts {counts}")
+        require(all(math.isfinite(v) for v in result.values()) and "MPJPE" in result,
+                f"{label} --checkpoint metrics {result}")
+        record(f"{label}_trained_cli", counts)
+        phase(f"CLI {label} --checkpoint (the trained weights, one batch of 16, 1024 points): "
+              f"launches {counts}, {json.dumps({k: round(v, 3) for k, v in result.items()})} mm", t)
+
+    # the card-vs-CPU steps: the CLIs' own batch (8) and points (1024), where a
+    # ReLU decision of the heads rests on more rows than at B = 2
+    args = train_prohmr.parse_args(["--lr", str(TRAIN_LR)])
+    cli_b = args.batch_size
+    cli_data = images.EgoHmrImageDataModule(n_pts=args.scene_points, img_size=224, smpl=smpl)
+    cli_np = next(cli_data.batches("train", cli_b, shuffle=False, augment=True))
+
+    # ---- 28. ProHMR-Scene training through the CLI
+    t = time.perf_counter()
+    g_calls, d_calls, inits = [], [], []
+    restore = [step_launches(train_prohmr, "g_step", g_calls),
+               step_launches(train_prohmr, "d_step", d_calls),
+               step_launches(ProHMRScene, "initialize_actnorm", inits)]
+    try:
+        res, counts = counted(lambda: train_prohmr.main(["--out", os.path.join(work, "prohmr")]))
+    finally:
+        for undo in restore:
+            undo()
+    model = res["model"]
+    steps = len(g_calls)
+    actnorm = model.flow.flow._transform._transforms[0].log_scale
+    require(len(inits) == 1 and bool(actnorm.abs().max() > 0),
+            f"ProHMR ActNorm initialisation: {len(inits)} calls")
+    require(steps == 16 and len(d_calls) == steps, f"ProHMR steps {steps} / {len(d_calls)}")
+    require(all(c == (1, 3) for c in g_calls) and all(c == (0, 0) for c in d_calls),
+            f"ProHMR launches per G step {set(g_calls)}, per D step {set(d_calls)}")
+    require(counts == {**none, "pointnet_input_block_h256": steps + 1,
+                       "pointnet_split_block_h256": 3 * (steps + 1)},
+            f"ProHMR training launch counts {counts}")
+    record("prohmr_train", counts)
+    losses = res["g_losses"] + res["d_losses"]
+    require(all(math.isfinite(v) for v in losses), f"ProHMR losses {losses}")
+    fresh = ProHMRScene(ProHMRConfig(), smpl, device=dev)
+    require(changed(model, fresh, "scene_enc.") and changed(model, fresh, "discriminator.")
+            and changed(model, fresh, "backbone.bn1."), "ProHMR training left a subtree unchanged")
+    del fresh
+    phase(f"ProHMR-Scene training (CLI defaults: B=8, 1024 points, 2 epochs, {steps} G + D "
+          f"steps): launches {counts} (1 / 3 per G step and in the ActNorm start's context, 0 "
+          f"per D step), G losses {[round(v, 4) for v in res['g_losses']]}, D losses "
+          f"{[round(v, 5) for v in res['d_losses']]}, scene_enc, backbone statistics and "
+          f"discriminator changed, smallest batch-norm variance {min_var(model):.4e}", t)
+
+    t = time.perf_counter()
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    runs = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        m = ProHMRScene(ProHMRConfig(), smpl, device=device)
+        m.load_state_dict({k: v.to(device) for k, v in sd.items()})
+        gp = []
+        for key in GENERATOR:
+            getattr(m, key).requires_grad_(True)
+            gp += list(getattr(m, key).parameters())
+        m.discriminator.requires_grad_(True)
+        runs[where] = (m, gp, train_prohmr.adamw(gp, args),
+                       train_prohmr.adamw(m.discriminator.parameters(), args))
+    draws = runs["cpu"][0].train_draws(cli_b, torch.Generator().manual_seed(SEED + 64))
+    # the card's steps run first and record their ReLU decisions, which the CPU's take
+    mocap_np = next(MoCapDataset(None).batches(cli_b * model.cfg.num_train_samples,
+                                               np.random.RandomState(3)))
+    out, g_masks, d_masks, d_out = {}, [], [], {}
+    for where, (m, gp, og, od) in runs.items():
+        with relu_decisions(m, g_masks, record=where == "card"):
+            terms, fake = train_prohmr.g_step(m, og, gp, to_torch(cli_np, m.device),
+                                              {k: v.to(m.device) for k, v in draws.items()})
+        out[where] = (float(terms["loss"] + LOSS_WEIGHTS["ADVERSARIAL"]
+                            * terms["loss_gen"]), fake)
+    compare_step("ProHMR G step", runs["cpu"][0], runs["card"][0], out["cpu"][0],
+                 out["card"][0], TRAIN_LR)
+    for where, (m, gp, og, od) in runs.items():
+        with relu_decisions(m, d_masks, record=where == "card"):
+            d_out[where] = float(train_prohmr.d_step(m, od, to_torch(mocap_np, m.device),
+                                                     out[where][1]))
+    compare_step("ProHMR D step", runs["cpu"][0], runs["card"][0], d_out["cpu"],
+                 d_out["card"], TRAIN_LR)
+    del runs
+    torch.cuda.empty_cache()
+    phase(f"ProHMR-Scene card vs CPU: one G step and one D step at B={cli_b}, "
+          f"{args.scene_points} points, 224x224, shared draws and ReLU decisions", t)
+    t = time.perf_counter()
+    model.requires_grad_(False)
+    g_params = []
+    for key in GENERATOR:
+        getattr(model, key).requires_grad_(True)
+        g_params += list(getattr(model, key).parameters())
+    model.discriminator.requires_grad_(True)
+    opt_g = train_prohmr.adamw(g_params, args)
+    opt_d = train_prohmr.adamw(model.discriminator.parameters(), args)
+    batch = to_torch(big_batch, dev)
+    mocap = MoCapDataset(None).batches(2 * BATCH, np.random.RandomState(3))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+
+    def gd_step():
+        _, fake = train_prohmr.g_step(model, opt_g, g_params, batch,
+                                      model.train_draws(BATCH, gen))
+        train_prohmr.d_step(model, opt_d, to_torch(next(mocap), dev), fake)
+
+    (ms, peak, idle), counts = counted(lambda: timed_steps(gd_step, 3))
+    require(counts["pointnet_input_block_h256"] == 5, f"ProHMR timed steps' launches {counts}")
+    phase(f"ProHMR-Scene G + D step at B={BATCH}, {HMR_POINTS} points, 224x224: {ms:.3f} ms a "
+          f"step, peak {peak} B, device idle share {idle:.3f}", t)
+    del batch, opt_g, opt_d, model
+    torch.cuda.empty_cache()
+
+    cli_check("test_prohmr_scene", test_prohmr_scene, res["checkpoint"])
+
+    # ---- 29. EgoHMR training through the CLI
+    t = time.perf_counter()
+    calls = []
+    undo = step_launches(train_egohmr, "train_step", calls)
+    try:
+        res, counts = counted(lambda: train_egohmr.main(["--out", os.path.join(work, "egohmr")]))
+    finally:
+        undo()
+    model = res["model"]
+    steps = len(calls)
+    require(steps == 16 and all(c == (1, 3) for c in calls),
+            f"EgoHMR steps {steps}, launches per step {set(calls)}")
+    require(counts == {**none, "pointnet_input_block_h256": steps,
+                       "pointnet_split_block_h256": 3 * steps},
+            f"EgoHMR training launch counts {counts}")
+    record("egohmr_train", counts)
+    require(all(math.isfinite(v) for v in res["losses"] + res["mse"]),
+            f"EgoHMR losses {res['losses']}")
+    fresh = EgoHmr(EgoHmrConfig(), smpl, device=dev)
+    require(changed(model, fresh, "scene_enc.")
+            and changed(model, fresh, "diffusion_model.gconv_input.0.bn."),
+            "EgoHMR training left the scene encoder or the GCN's statistics unchanged")
+    del fresh
+    phase(f"EgoHMR training (CLI defaults: B=8, 1024 points, 2 epochs, {steps} steps): launches "
+          f"{counts} (1 / 3 a step), losses {[round(v, 4) for v in res['losses']]}, MSE "
+          f"{[round(v, 4) for v in res['mse']]}, scene_enc and GCN statistics changed, smallest "
+          f"batch-norm variance {min_var(model):.4e}", t)
+
+    t = time.perf_counter()
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    runs = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        m = EgoHmr(EgoHmrConfig(), smpl, device=device)
+        m.load_state_dict({k: v.to(device) for k, v in sd.items()})
+        m.requires_grad_(True)
+        runs[where] = (m, train_egohmr.adamw(m.parameters(), args))
+    draws = runs["cpu"][0].train_draws(cli_b, torch.Generator().manual_seed(SEED + 66))
+    draws["drop"][0] = True  # one sample's image block dropped
+    out, masks = {}, []
+    for where, (m, opt) in runs.items():
+        b = train_egohmr.add_body_rep(m, to_torch(cli_np, m.device))
+        with relu_decisions(m, masks, record=where == "card"):
+            out[where] = float(train_egohmr.train_step(
+                m, opt, b, {k: v.to(m.device) for k, v in draws.items()})["total"])
+    compare_step("EgoHMR step", runs["cpu"][0], runs["card"][0], out["cpu"], out["card"],
+                 TRAIN_LR)
+    del runs
+    torch.cuda.empty_cache()
+    phase(f"EgoHMR card vs CPU: one step at B={cli_b}, {args.scene_points} points, 224x224, "
+          f"shared draws and ReLU decisions (one sample's image block dropped)", t)
+    t = time.perf_counter()
+    model.requires_grad_(True)
+    opt = train_egohmr.adamw(model.parameters(), args)
+    batch = train_egohmr.add_body_rep(model, to_torch(big_batch, dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 65)
+    (ms, peak, idle), counts = counted(lambda: timed_steps(
+        lambda: train_egohmr.train_step(model, opt, batch, model.train_draws(BATCH, gen)), 3))
+    require(counts["pointnet_input_block_h256"] == 5, f"EgoHMR timed steps' launches {counts}")
+    phase(f"EgoHMR step at B={BATCH}, {HMR_POINTS} points, 224x224: {ms:.3f} ms a step, peak "
+          f"{peak} B, device idle share {idle:.3f}", t)
+    del batch, opt, model
+    torch.cuda.empty_cache()
+
+    cli_check("test_egohmr", test_egohmr, res["checkpoint"])
+
+
 def forward_counter(module) -> list:
     """A list that grows by one at each forward of `module`."""
     calls = []
@@ -1660,6 +2000,49 @@ def randomize_batch_stats_(module, generator) -> None:
             if hasattr(m, "running_var"):
                 m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=generator) * 0.1)
                 m.running_var.copy_(torch.rand(m.running_var.shape, generator=generator) + 0.5)
+
+
+@contextlib.contextmanager
+def relu_decisions(model, masks: list, record: bool):
+    """Within: each `torch.relu` of a forward (and so `F.relu`, `nn.ReLU`)
+    appends its decisions x > 0 to `masks` (`record`), or takes them from
+    `masks` in the same order and returns x * mask, so that a decision
+    within rounding of 0 goes the same way in a CPU step as it went in the
+    card's. Off inside the scene encoder, whose card forward (the kernels)
+    calls no relu, and in backward (the encoder's recompute)."""
+    import torch
+
+    relu, grad, backward = torch.relu, torch.autograd.grad, torch.Tensor.backward
+    encode_scene, on, taken = model.encode_scene, [True], iter(masks)
+
+    def decided(x):
+        if not on[0]:
+            return relu(x)
+        if record:
+            masks.append((x > 0).cpu())
+            return relu(x)
+        mask = next(taken)
+        require(mask.shape == x.shape, f"relu decisions out of step: {tuple(mask.shape)} "
+                                       f"recorded, {tuple(x.shape)} here")
+        return x * mask.to(x)
+
+    def off(fn):
+        def wrapped(*a, **kw):
+            on[0] = False
+            try:
+                return fn(*a, **kw)
+            finally:
+                on[0] = True
+        return wrapped
+
+    torch.relu, torch.autograd.grad, torch.Tensor.backward = decided, off(grad), off(backward)
+    model.encode_scene = off(encode_scene)
+    try:
+        yield
+    finally:
+        torch.relu, torch.autograd.grad, torch.Tensor.backward = relu, grad, backward
+        model.encode_scene = encode_scene
+    require(record or next(taken, None) is None, "relu decisions left over")
 
 
 def compare_step(stage, cpu, card, loss_cpu, loss_card, lr: float) -> None:
@@ -1704,22 +2087,32 @@ def compare_step(stage, cpu, card, loss_cpu, loss_card, lr: float) -> None:
 
 def device_busy(trainer, steps: int):
     """(device-busy ms, wall ms, device events) over `steps` more train
-    steps under `torch.profiler`: the union of the device's kernel and copy
-    intervals in the trace, against the host clock around the steps."""
+    steps of a CLI's trainer (`profile_busy`)."""
     import itertools
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from seeme_tpu_torch.train.loop import run_epoch
 
     batches = itertools.islice(trainer.train_batches(trainer.preset.train.end_epoch), steps)
+
+    def run():
+        trainer.step = run_epoch(trainer.system, trainer.stage, trainer.optimizer,
+                                 trainer.schedule, trainer.step, batches, trainer.generator)[0]
+
+    return profile_busy(run)
+
+
+def profile_busy(run):
+    """(device-busy ms, wall ms, device events) of `run()` under
+    `torch.profiler`: the union of the device's kernel and copy intervals in
+    the trace, against the host clock around the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.step = run_epoch(trainer.system, trainer.stage, trainer.optimizer,
-                                 trainer.schedule, trainer.step, batches, trainer.generator)[0]
+        run()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()

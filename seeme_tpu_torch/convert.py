@@ -16,7 +16,10 @@ ResNet's conv kernels go from HWIO to OIHW and its batch statistics to
 
 `prohmr_state_dict` and `egohmr_state_dict` do the same for the perception
 stack's `init_params` trees (`seeme_tpu/models/{prohmr,egohmr}.py`), the
-inverses of `convert_checkpoint.py`'s ProHMR branch and `convert_egohmr`.
+inverses of `convert_checkpoint.py`'s ProHMR branch and `convert_egohmr`,
+batch statistics included (the port trains them as parameters under the
+same keys); `discriminator_state_dict` maps the ProHMR discriminator, which
+the converter does not read back.
 A text-to-motion denoiser of either arch (`trans_enc`'s U-skip encoder,
 `trans_dec`'s decoder stack and `mem_pos`) and the diffusion-only
 `pose_embd` / `pose_proj` map too, so `from_jax_params` takes a whole
@@ -257,15 +260,41 @@ def _mlp(sd: Dict, prefix: str, p: Tree, names=("fc1", "fc2")) -> None:
     _linear(sd, f"{prefix}.2", p[names[1]])
 
 
+def discriminator_state_dict(tree: Tree, prefix: str = "discriminator") -> Dict:
+    """flax `Discriminator` {"params"} (`seeme_tpu/models/prohmr.py:109`) ->
+    the reference's keys (`models/prohmr.py::Discriminator`): the per-joint
+    Dense layers as 1x1 convolutions, the (23, 32, 1) head as 23 Linear(32,
+    1), and the all-joints input rows from joint-major (j * 32 + c) to the
+    reference's channel-major order (c * 23 + j)."""
+    p, sd = tree["params"], {}
+    for name in ("D_conv1", "D_conv2"):
+        _put(sd, f"{prefix}.{name}.weight", np.asarray(p[name]["kernel"]).T[:, :, None, None])
+        _put(sd, f"{prefix}.{name}.bias", p[name]["bias"])
+    w, b = np.asarray(p["pose_out_w"]), np.asarray(p["pose_out_b"])
+    for j in range(w.shape[0]):
+        _put(sd, f"{prefix}.pose_out.{j}.weight", w[j, :, 0][None])
+        _put(sd, f"{prefix}.pose_out.{j}.bias", b[j])
+    for name in ("betas_fc1", "betas_fc2", "betas_out", "D_alljoints_fc2", "D_alljoints_out"):
+        _linear(sd, f"{prefix}.{name}", p[name])
+    fc1 = p["D_alljoints_fc1"]
+    k = np.asarray(fc1["kernel"])
+    joints = w.shape[0]
+    k = k.reshape(joints, -1, k.shape[-1]).transpose(1, 0, 2).reshape(k.shape)
+    _linear(sd, f"{prefix}.D_alljoints_fc1", {"kernel": k, "bias": fc1["bias"]})
+    return sd
+
+
 def prohmr_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
     """`ProHMRScene.init_params` tree (`seeme_tpu/models/prohmr.py`) -> the
-    state dict of `models/prohmr.py::ProHMRScene`; the discriminator is
-    training's and is left out."""
+    state dict of `models/prohmr.py::ProHMRScene`, the discriminator's part
+    too when the tree has one."""
     sd: Dict = {}
     sd.update(resnet_state_dict(tree["backbone"], "backbone"))
     sd.update(pointnet_state_dict(tree["scene_enc"]["params"], "scene_enc"))
     sd.update(glow_state_dict(tree["flow"], "flow.flow"))
     _mlp(sd, "flow.fc_head.layers", tree["fc_head"]["params"])
+    if "discriminator" in tree:
+        sd.update(discriminator_state_dict(tree["discriminator"]))
     return sd
 
 

@@ -6,8 +6,10 @@ intrinsics and the scene point cloud (the reference's key list,
 `egobody_dataset.py:303-437`). The splits here are synthetic: with an SMPL
 model they are correlated (keypoints, crops and scene follow the ground-truth
 pose through FK and projection, draw for draw as the JAX package makes
-them), without one independent draws. The loader of the real release's npz
-files waits for that data.
+them), without one independent draws. With `root/processed_images/` present
+the splits are its `{train,val,test}.npz` files, made offline from the
+release with these keys. `batches(augment=True)` runs the training
+augmentation (`data/augmentation.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.smpl import smpl_forward
+from .augmentation import augment_batch
 
 # SMPL-45 -> OpenPose-25 joints (`prohmr_scene.py:67-68`)
 SMPL_TO_OPENPOSE = np.array(
@@ -56,21 +59,30 @@ def synthetic_image_example(rng: np.random.RandomState, n_pts: int = 1024,
 
 
 class EgoHmrImageDataModule:
-    """`seeme_tpu/data/egohmr_images.py:43`: the synthetic train / val /
+    """`seeme_tpu/data/egohmr_images.py:43`: the splits of
+    `root/processed_images/{train,val,test}.npz` when that directory exists
+    (a missing file is a missing split), else the synthetic train / val /
     test splits (64 / 16 / 16 examples), correlated when `smpl` (a port
     `SmplModel`) is given."""
 
     def __init__(self, root: str | None = None, n_pts: int = 1024, img_size: int = 224,
                  smpl=None):
-        if root and os.path.isdir(os.path.join(root, "processed_images")):
-            raise NotImplementedError(
-                f"{root}/processed_images: the loader of the real release is not ported yet")
         self.n_pts = n_pts
         self.img_size = img_size
         self.smpl = None if smpl is None else smpl.to("cpu")
         self._cache: Dict[str, Dict[str, np.ndarray]] = {}
+        proc = os.path.join(root, "processed_images") if root else None
+        self.is_synthetic = proc is None or not os.path.isdir(proc)
+        if not self.is_synthetic:
+            for name in SIZES:
+                path = os.path.join(proc, f"{name}.npz")
+                if os.path.exists(path):
+                    with np.load(path) as f:
+                        self._cache[name] = dict(f)
 
     def split(self, name: str) -> Dict[str, np.ndarray]:
+        if not self.is_synthetic:
+            return self._cache[name]
         if name not in self._cache:
             rng = np.random.RandomState(SPLIT_SEEDS[name])
             if self.smpl is not None:
@@ -154,9 +166,13 @@ class EgoHmrImageDataModule:
         }
 
     def batches(self, split: str, batch_size: int, shuffle=None, seed: int = 0,
-                drop_last: bool = True) -> Iterator[Dict]:
+                augment: bool = False, aug_config=None, drop_last: bool = True
+                ) -> Iterator[Dict]:
         """Batches of `to_model_batch` in the JAX package's order (shuffled by
-        `RandomState(seed)` for the train split unless `shuffle` says)."""
+        `RandomState(seed)` for the train split unless `shuffle` says);
+        `augment` runs `augment_batch` on each with one
+        `RandomState(seed + 10007)` for the pass
+        (`seeme_tpu/data/egohmr_images.py:185-213`)."""
         data = self.split(split)
         n = len(data["img"])
         idx = np.arange(n)
@@ -164,10 +180,14 @@ class EgoHmrImageDataModule:
             shuffle = split == "train"
         if shuffle:
             np.random.RandomState(seed).shuffle(idx)
+        aug_rng = np.random.RandomState(seed + 10_007)
         stop = (n // batch_size) * batch_size if drop_last else n
         for i in range(0, stop, batch_size):
             sel = idx[i: i + batch_size]
-            yield to_model_batch({k: v[sel] for k, v in data.items()})
+            raw = {k: v[sel] for k, v in data.items()}
+            if augment:
+                raw = augment_batch(raw, aug_rng, aug_config)
+            yield to_model_batch(raw)
 
 
 def to_model_batch(raw: Dict) -> Dict:

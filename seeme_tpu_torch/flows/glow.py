@@ -82,14 +82,12 @@ class LULinear(nn.Module):
         return F.softplus(self.unconstrained_upper_diag) + LU_EPS
 
     def matrices(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        D = self.features
-        li = torch.tril_indices(D, D, offset=-1, device=self.bias.device)
-        ui = torch.triu_indices(D, D, offset=1, device=self.bias.device)
-        eye = torch.eye(D, device=self.bias.device)
-        lower = torch.zeros(D, D, device=self.bias.device).index_put((li[0], li[1]),
-                                                                     self.lower_entries) + eye
-        upper = torch.zeros(D, D, device=self.bias.device).index_put((ui[0], ui[1]),
-                                                                     self.upper_entries)
+        D, dev = self.features, self.bias.device
+        li = torch.tril_indices(D, D, offset=-1, device=dev)
+        ui = torch.triu_indices(D, D, offset=1, device=dev)
+        zeros = self.bias.new_zeros(D, D)
+        lower = zeros.index_put((li[0], li[1]), self.lower_entries) + torch.eye(D, device=dev)
+        upper = zeros.index_put((ui[0], ui[1]), self.upper_entries)
         return lower, upper + torch.diag(self.upper_diag())
 
     def forward(self, x):
@@ -215,6 +213,19 @@ class ConditionalGlow(nn.Module):
         """(log_prob, noise) of data rows (`glow_log_prob`)."""
         noise, logabsdet = self.forward(inputs, context)
         return _standard_normal_logprob(noise) + logabsdet, noise
+
+    @torch.no_grad()
+    def initialize_actnorm(self, inputs: torch.Tensor, context: Optional[torch.Tensor] = None):
+        """The data-dependent ActNorm start (`seeme_tpu/flows/glow.py:304-323`),
+        in place: per layer, from the rows reaching it, log_scale = -log(std)
+        and shift = -mean(x / std), std = max(std(x, unbiased), 1e-3)."""
+        x = inputs
+        for actnorm, lu, coupling in self._layers():
+            std = torch.clamp(x.std(dim=0, unbiased=True), min=1e-3)
+            actnorm.log_scale.copy_(-torch.log(std))
+            actnorm.shift.copy_(-(x / std).mean(dim=0))
+            x = lu(actnorm(x)[0])[0]
+            x = coupling(x, context)[0]
 
     def sample_and_log_prob(self, num_samples: int, context: torch.Tensor,
                             generator: Optional[torch.Generator] = None,

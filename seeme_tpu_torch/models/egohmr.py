@@ -18,21 +18,29 @@ step run as one GCN call over the stacked [cond; scene-only] rows. Module
 names follow the reference checkpoint (`backbone.*`, `scene_enc.*`,
 `transl_enc.layers.*`, `embed_timestep.time_embed.*`,
 `input_process.poseEmbedding`, `diffusion_model.*`, `beta_layer.layers.*`).
-The losses and training are not ported yet.
+
+Training (`python -m seeme_tpu_torch.train_egohmr`): `training_loss`, the
+x0-prediction MSE in the normalized rot6d space plus `compute_loss`'s
+geometric terms, through `forward(drop=...)`, whose `mask_cond` zeroes the
+image block of the samples `drop` marks (each with probability
+`COND_MASK_PROB`). Its draws
+(timesteps, noise, drop mask; `train_draws`) can be handed in, so a test
+replays the JAX package's.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..core.rotations import rot6d_to_rotmat
+from ..core.collision import scene_collision_loss
+from ..core.rotations import aa_to_rotmat, perspective_projection, rot6d_to_rotmat
 from ..core.smpl import SmplModel, smpl_forward
 from ..diffusion.schedulers import DiffusionSchedule, respaced_schedule, space_timesteps
 from ..nn.gcn import ModulatedGCN, smpl_adjacency
@@ -40,17 +48,25 @@ from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
 from ..ops.pointnet_fused import FusedPointnet
-from .prohmr import CAM_FEATURES, SCENE_HIDDEN, cam_features
+from .prohmr import CAM_FEATURES, JOINTS_TO_IGN, SCENE_HIDDEN, SMPL_TO_OPENPOSE, cam_features
 
 # OpenPose-25 joint whose confidence gives each SMPL joint's visibility
 # (`egohmr.py:119`, pelvis_vis_loosen=False)
 OPENPOSE_TO_SMPL = np.array(
     [8, 12, 9, 8, 13, 10, 8, 14, 11, 8, 14, 11, 0, 5, 2, 0, 5, 2, 6, 3, 7, 4, 7, 4])
+COND_MASK_PROB = 0.01  # training's image-block drop (`seeme_tpu/models/egohmr.py:52`)
+# `compute_loss`'s weight of each geometric term (`seeme_tpu/models/egohmr.py:319-320`)
+LOSS_WEIGHTS = {
+    "loss_v2v": 0.5, "loss_keypoints_3d": 0.05, "loss_keypoints_3d_full": 0.02,
+    "loss_keypoints_2d_full": 0.01, "loss_betas": 0.0005, "loss_body_pose": 0.001,
+    "loss_global_orient": 0.001, "loss_pose_6d_ortho": 0.1}
 
 
 @dataclass(frozen=True)
 class EgoHmrConfig:
-    """`seeme_tpu/models/egohmr.py:44`, the fields of the evaluation path."""
+    """`seeme_tpu/models/egohmr.py:44`, the fields the shipped configs use;
+    `weight_coap_penetration` > 0 adds the capsule penetration loss
+    (`core/collision.py`; 0 as shipped)."""
 
     img_feat_dim: int = 2048
     scene_feat_dim: int = 512
@@ -62,6 +78,7 @@ class EgoHmrConfig:
     fx_norm_coeff: float = 1500.0
     num_train_timesteps: int = 1000
     timestep_respacing: str = "ddim50"
+    weight_coap_penetration: float = 0.0
 
     @property
     def context_dim(self) -> int:
@@ -178,13 +195,15 @@ class EgoHmr(nn.Module):
         rest = enc["rest"][:, None, :].expand(-1, 24, -1)
         return torch.cat([img, rest], dim=-1)
 
-    def mask_cond(self, cond: torch.Tensor) -> torch.Tensor:
-        """The scene-only condition: `mask_cond(force_mask=True)`
-        (`seeme_tpu/models/egohmr.py:233`) with only_mask_img_cond, as
-        shipped: the image block zeroed."""
-        out = cond.clone()
-        out[:, :, :self.cfg.img_feat_dim] = 0.0
-        return out
+    def mask_cond(self, cond: torch.Tensor, drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`mask_cond` (`seeme_tpu/models/egohmr.py:233-252`) with
+        only_mask_img_cond, as shipped: the image block zeroed in every
+        sample (the scene-only condition, `force_mask`), or, given the (B,)
+        bool `drop` of training, in the samples it marks."""
+        img = cond[:, :, :self.cfg.img_feat_dim]
+        keep = torch.zeros((), dtype=cond.dtype, device=cond.device) if drop is None else \
+            (~drop).to(cond.dtype)[:, None, None]
+        return torch.cat([img * keep, cond[:, :, self.cfg.img_feat_dim:]], dim=-1)
 
     # ------------------------------------------------------------- denoising
     def denoise(self, cond: torch.Tensor, x_t: torch.Tensor,
@@ -204,15 +223,18 @@ class EgoHmr(nn.Module):
         pred, pred_uncond = both.chunk(2)
         return torch.where(vis6, pred, pred_uncond)
 
-    @torch.no_grad()
     def forward(self, batch: Dict, x_t: torch.Tensor, timesteps: torch.Tensor,
-                eval_with_uncond: bool = False, enc: Optional[Dict] = None) -> Dict:
-        """One evaluation of the denoiser and SMPL (`seeme_tpu/models/egohmr.py:268`,
-        train=False); `enc` reuses `encode(batch)`."""
+                eval_with_uncond: bool = False, enc: Optional[Dict] = None,
+                drop: Optional[torch.Tensor] = None) -> Dict:
+        """One evaluation of the denoiser and SMPL (`seeme_tpu/models/egohmr.py:268`);
+        `enc` reuses `encode(batch)`; `drop` (B,) bool is training's
+        condition drop (`mask_cond`). Gradients flow unless grad mode is off."""
         B = x_t.shape[0]
         enc = self.encode(batch) if enc is None else enc
         vis_mask = self.visibility_mask(batch)
         cond = self.conditioning(enc, vis_mask)
+        if drop is not None:
+            cond = self.mask_cond(cond, drop)
         if eval_with_uncond:
             vis6 = vis_mask.repeat_interleave(6, dim=-1)
             pred_x0 = self._fused_x0(cond, self.mask_cond(cond), vis6, x_t, timesteps)
@@ -233,6 +255,83 @@ class EgoHmr(nn.Module):
             "pred_vertices": smpl_out["vertices"],
             "pred_keypoints_3d_full": smpl_out["joints"] + batch["smpl_params"]["transl"][:, None],
         }
+
+    # --------------------------------------------------------------- training
+    def compute_loss(self, batch: Dict, out: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The geometric losses on the predicted x0 (`seeme_tpu/models/egohmr.py:317-405`):
+        pelvis-aligned and full 3D keypoints, full-image 2D keypoints in the
+        OpenPose order (joints 1, 9, 12 skipped), v2v, the SMPL parameters'
+        squared error, the orthogonality of the 'diffusion' rot6d columns,
+        and the capsule penetration when `weight_coap_penetration` > 0."""
+        sp = batch["smpl_params"]
+        B = out["pred_pose_6d"].shape[0]
+        k3d = out["pred_keypoints_3d"][:, :24]
+        gt_k3d = batch["keypoints_3d"][..., :3]
+        l_kp3d = ((k3d - k3d[:, :1]) - (gt_k3d - gt_k3d[:, :1])).abs().sum(dim=(1, 2)).mean()
+        k3d_full = out["pred_keypoints_3d_full"][:, :24]
+        l_kp3d_full = (k3d_full - batch["keypoints_3d_full"][..., :3]).abs().sum(dim=(1, 2)).mean()
+
+        focal = (batch["fx"] * self.cfg.fx_norm_coeff)[:, None].expand(B, 2)
+        center = torch.stack([batch["cam_cx"], batch["cam_cy"]], dim=-1)
+        k2d = perspective_projection(out["pred_keypoints_3d"], sp["transl"], focal, center)
+        k2d = k2d / k2d.new_tensor([1920.0, 1080.0]) - 0.5
+        k2d = k2d[:, torch.as_tensor(SMPL_TO_OPENPOSE, device=k2d.device)]
+        gt_k2d = batch["orig_keypoints_2d"]
+        conf = gt_k2d[..., -1:].clone()
+        conf[:, torch.as_tensor(JOINTS_TO_IGN, device=conf.device)] = 0.0
+        l_kp2d_full = (conf * (k2d - gt_k2d[..., :2]).abs()).sum(dim=(1, 2)).mean()
+
+        gt = smpl_forward(self.smpl, sp["betas"], sp["body_pose"], sp["global_orient"])
+        l_v2v = ((out["pred_vertices"] - k3d[:, :1])
+                 - (gt["vertices"] - gt["joints"][:, :1])).abs().mean()
+
+        psp = out["pred_smpl_params"]
+        l_go = ((psp["global_orient"] - aa_to_rotmat(sp["global_orient"]).reshape(B, 1, 3, 3))
+                ** 2).sum() / B
+        l_bp = ((psp["body_pose"] - aa_to_rotmat(sp["body_pose"].reshape(B, 23, 3))) ** 2).sum() / B
+        l_bt = ((psp["betas"] - sp["betas"]) ** 2).sum() / B
+
+        p6 = out["pred_pose_6d"].reshape(-1, 3, 2)
+        gram = p6.transpose(1, 2) @ p6
+        l_ortho = ((gram - torch.eye(2, device=gram.device)) ** 2).mean()
+
+        terms = {"loss_v2v": l_v2v, "loss_keypoints_3d": l_kp3d,
+                 "loss_keypoints_3d_full": l_kp3d_full, "loss_keypoints_2d_full": l_kp2d_full,
+                 "loss_betas": l_bt, "loss_body_pose": l_bp, "loss_global_orient": l_go,
+                 "loss_pose_6d_ortho": l_ortho}
+        total = sum(LOSS_WEIGHTS[k] * v for k, v in terms.items())
+        w_coll = self.cfg.weight_coap_penetration
+        if w_coll > 0:
+            l_coll = scene_collision_loss(batch["scene_pcd"], k3d_full)
+            total = total + w_coll * l_coll
+            terms["loss_coap_penetration"] = l_coll
+        return total, terms
+
+    def train_draws(self, batch_size: int, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """One training step's draws: timesteps (B,) in [0, T), noise (B, 144)
+        and the condition drop (B,) bool with probability `COND_MASK_PROB`."""
+        dev = self.device
+        return {"t": torch.randint(0, self.schedule.num_train_timesteps, (batch_size,),
+                                   generator=generator, device=dev),
+                "noise": torch.randn(batch_size, 144, generator=generator, device=dev),
+                "drop": torch.rand(batch_size, generator=generator, device=dev)
+                < COND_MASK_PROB}
+
+    def training_loss(self, batch: Dict, draws: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """`training_loss` (`seeme_tpu/models/egohmr.py:407-430`): x_t from
+        `batch["body_rep"]` (B, 144) at `draws["t"]` with `draws["noise"]`, the
+        training forward with `draws["drop"]`, the x0 MSE, and the geometric
+        losses."""
+        x0 = batch["body_rep"]
+        t = draws["t"]
+        out = self.forward(batch, self.schedule.add_noise(x0, draws["noise"], t), t,
+                           drop=draws["drop"])
+        mse = ((out["pred_x_start"] - x0) ** 2).mean()
+        geo, terms = self.compute_loss(batch, out)
+        terms = {"diffusion_mse": mse, **terms, "total": mse + geo}
+        return terms["total"], terms
 
     @torch.no_grad()
     def sample(self, batch: Dict, generator: Optional[torch.Generator] = None,

@@ -13,20 +13,29 @@ through the fused PointNet kernels (`ops/pointnet_fused.py`) on the card,
 as the JAX package encodes it through its Pallas kernels on the
 accelerator. Module names follow the reference checkpoint (`backbone.*`,
 `scene_enc.*`, `flow.flow._transform._transforms.*`,
-`flow.fc_head.layers.{0,2}`). The discriminator and the losses are
-training's and are not ported yet.
+`flow.fc_head.layers.{0,2}`, `discriminator.*`).
+
+Training (`python -m seeme_tpu_torch.train_prohmr_scene`): `forward_step(train=True)`
+takes the mode and `num_train_samples - 1` draws with gradients,
+`compute_loss` the keypoint, v2v, NLL, orthogonality and parameter terms,
+and the HMR `Discriminator` the adversarial ones. The scene encoder trains
+through the fused kernels' backward (`ops/pointnet_fused.py`). Every random
+draw of a step (`train_draws`) can be handed in, so a test replays the JAX
+package's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
-from ..core.rotations import perspective_projection, rot6d_to_rotmat
+from ..core.rotations import aa_to_rotmat, perspective_projection, rot6d_to_rotmat, rotmat_to_rot6d
 from ..core.smpl import SmplModel, smpl_forward
 from ..flows.glow import ConditionalGlow, GlowConfig
 from ..nn.init import init_parameters_
@@ -36,11 +45,32 @@ from ..ops.pointnet_fused import FusedPointnet
 
 SCENE_HIDDEN = 256  # the scene encoder's hidden width (`seeme_tpu/models/prohmr.py:153`)
 CAM_FEATURES = 6    # cam_center / fx, bbox / fx, fx
+# SMPL-45 -> OpenPose-25 joints (`prohmr_scene.py:67-68`)
+SMPL_TO_OPENPOSE = np.array(
+    [24, 12, 17, 19, 21, 16, 18, 20, 0, 2, 5, 8, 1, 4, 7,
+     25, 26, 27, 28, 29, 30, 31, 32, 33, 34])
+JOINTS_TO_IGN = np.array([1, 9, 12])  # 2D joints the keypoint losses skip (`prohmr_scene.py:267`)
+GENERATOR = ("backbone", "scene_enc", "flow")  # what the G step trains (`train_prohmr_scene.py:91`)
+
+
+# the training losses' weights (`seeme_tpu/models/prohmr.py:66-76`)
+LOSS_WEIGHTS = {
+    "V2V_EXP": 0.0, "V2V_MODE": 0.5,
+    "KEYPOINTS_3D_EXP": 0.0, "KEYPOINTS_3D_MODE": 0.05,
+    "KEYPOINTS_3D_FULL_EXP": 0.0, "KEYPOINTS_3D_FULL_MODE": 0.02,
+    "KEYPOINTS_2D_EXP": 0.001, "KEYPOINTS_2D_MODE": 0.01,
+    "KEYPOINTS_2D_FULL_EXP": 0.001, "KEYPOINTS_2D_FULL_MODE": 0.01,
+    "GLOBAL_ORIENT_EXP": 0.0, "GLOBAL_ORIENT_MODE": 0.001,
+    "BODY_POSE_EXP": 0.0, "BODY_POSE_MODE": 0.001,
+    "ORTHOGONAL": 0.1, "BETAS_EXP": 0.0, "BETAS_MODE": 0.0005,
+    "NLL": 0.001, "ADVERSARIAL": 0.0005,
+}
+SMPL_PARAM_NOISE_RATIO = 0.005  # the NLL's pose noise (`seeme_tpu/models/prohmr.py:65`)
 
 
 @dataclass(frozen=True)
 class ProHMRConfig:
-    """`seeme_tpu/models/prohmr.py:49`, the fields of the evaluation path."""
+    """`seeme_tpu/models/prohmr.py:49`, the fields the shipped configs use."""
 
     flow_dim: int = 144
     flow_layers: int = 4
@@ -51,6 +81,7 @@ class ProHMRConfig:
     fc_head_features: int = 1024
     image_size: int = 224
     fx_norm_coeff: float = 1500.0
+    num_train_samples: int = 2
     num_test_samples: int = 4
 
     @property
@@ -84,6 +115,51 @@ class SMPLFlow(nn.Module):
         self.fc_head = FCHead(cfg.total_context, cfg.fc_head_features)
 
 
+class Discriminator(nn.Module):
+    """The HMR pose and shape discriminator -> (B, 25)
+    (`seeme_tpu/models/prohmr.py:109-135`), in the reference's layout
+    (`discriminator.py:4-97`): 1x1 convolutions over each joint's rotation
+    matrix, a scalar head per joint (`pose_out.{j}`), a betas MLP, and an MLP
+    over all joints, whose input is the reference's channel-major flattening
+    (channel c of joint j at c * 23 + j)."""
+
+    def __init__(self, num_joints: int = 23):
+        super().__init__()
+        self.num_joints = num_joints
+        self.D_conv1 = nn.Conv2d(9, 32, 1)
+        self.D_conv2 = nn.Conv2d(32, 32, 1)
+        self.pose_out = nn.ModuleList([nn.Linear(32, 1) for _ in range(num_joints)])
+        self.betas_fc1 = nn.Linear(10, 10)
+        self.betas_fc2 = nn.Linear(10, 5)
+        self.betas_out = nn.Linear(5, 1)
+        self.D_alljoints_fc1 = nn.Linear(32 * num_joints, 1024)
+        self.D_alljoints_fc2 = nn.Linear(1024, 1024)
+        self.D_alljoints_out = nn.Linear(1024, 1)
+
+    def forward(self, poses: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
+        """(B, 23, 3, 3) body-pose rotations and (B, 10) betas."""
+        B = poses.shape[0]
+        p = poses.reshape(B, self.num_joints, 9)
+        for conv in (self.D_conv1, self.D_conv2):
+            p = F.relu(F.linear(p, conv.weight.flatten(1), conv.bias))  # (B, J, 32)
+        w = torch.cat([head.weight for head in self.pose_out])
+        b = torch.cat([head.bias for head in self.pose_out])
+        poses_out = (p * w).sum(-1) + b
+        h = F.relu(self.betas_fc2(F.relu(self.betas_fc1(betas))))
+        a = p.transpose(1, 2).reshape(B, -1)
+        a = F.relu(self.D_alljoints_fc2(F.relu(self.D_alljoints_fc1(a))))
+        return torch.cat([poses_out, self.betas_out(h), self.D_alljoints_out(a)], dim=1)
+
+
+def gt_pose_6d(smpl_params: Dict) -> torch.Tensor:
+    """(B, 144) 'prohmr' rot6d of the ground-truth global orient and body
+    pose (`seeme_tpu/models/prohmr.py:421-427`)."""
+    B = smpl_params["betas"].shape[0]
+    rot = aa_to_rotmat(torch.cat([smpl_params["global_orient"].reshape(B, 1, 3),
+                                  smpl_params["body_pose"].reshape(B, 23, 3)], dim=1))
+    return rotmat_to_rot6d(rot, "prohmr").reshape(B, -1)
+
+
 def cam_features(batch: Dict, fx_norm_coeff: float) -> torch.Tensor:
     """(B, 6) camera context in the reference's prepend order: [cam_center /
     fx | bbox / fx | fx] (`prohmr_scene.py:119-138`, `egohmr.py:197-207`)."""
@@ -103,6 +179,7 @@ class ProHMRScene(nn.Module):
         self.backbone = resnet50()
         self.scene_enc = ResnetPointnet(cfg.scene_feat_dim, hidden_dim=SCENE_HIDDEN)
         self.flow = SMPLFlow(cfg)
+        self.discriminator = Discriminator()
         init_parameters_(self, torch.Generator().manual_seed(seed))
         self.requires_grad_(False)
         self.eval()
@@ -160,16 +237,31 @@ class ProHMRScene(nn.Module):
         """Log-density of (B, 144) 'prohmr' rot6d poses (`seeme_tpu/models/prohmr.py:240`)."""
         return self.flow.flow.log_prob(pose_6d, context)[0]
 
-    # ----------------------------------------------------------- forward step
     @torch.no_grad()
-    def forward_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
-                     noise: Optional[torch.Tensor] = None) -> Dict:
-        """`forward_step(train=False)` (`seeme_tpu/models/prohmr.py:255-330`):
-        the mode (z = 0), then num_test_samples - 1 draws (base noise `noise`,
-        (B, num_test_samples - 1, 144), or drawn from `generator`); SMPL on
-        every sample; the crop and full-image cameras; 2D projections."""
+    def initialize_actnorm(self, pose_6d: torch.Tensor, context: torch.Tensor) -> None:
+        """The ActNorm warm-up on one batch (`seeme_tpu/models/prohmr.py:247-253`)."""
+        self.flow.flow.initialize_actnorm(pose_6d, context)
+
+    def train_draws(self, batch_size: int, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """The random draws of one training step: the flow's base noise
+        (B, num_train_samples - 1, 144) and the NLL's pose noise (B, 144)."""
         cfg = self.cfg
-        NS = cfg.num_test_samples
+        draw = lambda *shape: torch.randn(*shape, generator=generator,  # noqa: E731
+                                          device=self.device)
+        return {"flow": draw(batch_size, cfg.num_train_samples - 1, cfg.flow_dim),
+                "nll": draw(batch_size, cfg.flow_dim)}
+
+    # ----------------------------------------------------------- forward step
+    def forward_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None, train: bool = False) -> Dict:
+        """`forward_step` (`seeme_tpu/models/prohmr.py:255-330`): the mode
+        (z = 0), then NS - 1 draws (base noise `noise`, (B, NS - 1, 144), or
+        drawn from `generator`), NS = num_train_samples when `train` else
+        num_test_samples; SMPL on every sample; the crop and full-image
+        cameras; 2D projections. Gradients flow unless grad mode is off."""
+        cfg = self.cfg
+        NS = cfg.num_train_samples if train else cfg.num_test_samples
         context = self.conditioning_features(batch)
         B = context.shape[0]
         out = self.flow_forward(context, z=context.new_zeros(B, 1, cfg.flow_dim))
@@ -212,3 +304,79 @@ class ProHMRScene(nn.Module):
                                      focal.reshape(B * NS, 2))
         out["pred_keypoints_2d"] = (k2d / cfg.image_size).reshape(B, NS, -1, 2)
         return out
+
+    # ------------------------------------------------------------------ losses
+    def compute_loss(self, batch: Dict, output: Dict, nll_noise: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """`compute_loss` (`seeme_tpu/models/prohmr.py:331-461`): the mode's
+        and the draws' (expectation) keypoint, v2v and parameter losses, the
+        NLL of the ground-truth pose plus `SMPL_PARAM_NOISE_RATIO` times
+        `nll_noise` (B, 144), and the rot6d orthogonality."""
+        W = LOSS_WEIGHTS
+        op = torch.as_tensor(SMPL_TO_OPENPOSE, device=self.device)
+        k3d = output["pred_keypoints_3d"][:, :, :24]
+        B, NS = k3d.shape[:2]
+
+        def rep(x):
+            return x[:, None].expand(B, NS, *x.shape[1:])
+
+        def kp2d_loss(pred, gt):
+            conf = gt[..., -1:].clone()
+            conf[:, :, JOINTS_TO_IGN] = 0.0
+            return (conf * (pred - gt[..., :-1]).abs()).sum(dim=(2, 3))
+
+        def kp3d_loss(pred, gt, pelvis_align):
+            gt = gt[..., :3]
+            if pelvis_align:
+                pred, gt = pred - pred[:, :, :1], gt - gt[:, :, :1]
+            return (pred - gt).abs().sum(dim=(2, 3))
+
+        def mode_exp(loss):
+            exp = loss[:, 1:].sum() / (B * (NS - 1)) if NS > 1 else 0.0
+            return loss[:, 0].sum() / B, exp
+
+        l2d = mode_exp(kp2d_loss(output["pred_keypoints_2d"][:, :, op], rep(batch["keypoints_2d"])))
+        l2df = mode_exp(kp2d_loss(output["pred_keypoints_2d_full"][:, :, op],
+                                  rep(batch["orig_keypoints_2d"])))
+        l3d = mode_exp(kp3d_loss(k3d, rep(batch["keypoints_3d"]), True))
+        l3df = mode_exp(kp3d_loss(output["pred_keypoints_3d_full"][:, :, :24],
+                                  rep(batch["keypoints_3d_full"]), False))
+
+        # v2v against the ground-truth mesh (the neutral body: no gendered models here)
+        sp = batch["smpl_params"]
+        gt = smpl_forward(self.smpl, sp["betas"], sp["body_pose"], sp["global_orient"])
+        l_v2v = ((output["pred_vertices"] - output["pred_keypoints_3d"][:, :, :1])
+                 - (gt["vertices"] - gt["joints"][:, :1])[:, None]).abs().mean(dim=(2, 3))
+        v2v = (l_v2v[:, 0].mean(), l_v2v[:, 1:].mean() if NS > 1 else 0.0)
+
+        gt_go = aa_to_rotmat(sp["global_orient"]).reshape(B, 1, -1)
+        gt_bp = aa_to_rotmat(sp["body_pose"].reshape(B, 23, 3)).reshape(B, 1, -1)
+        go = mode_exp(((output["global_orient"].reshape(B, NS, -1) - gt_go) ** 2).sum(-1))
+        bp = mode_exp(((output["body_pose"].reshape(B, NS, -1) - gt_bp) ** 2).sum(-1))
+        bt = mode_exp(((output["betas"].reshape(B, NS, -1) - sp["betas"][:, None]) ** 2).sum(-1))
+
+        pose = gt_pose_6d(sp) + SMPL_PARAM_NOISE_RATIO * nll_noise
+        nll = -self.flow_log_prob(pose, output["conditioning_feats"]).mean()
+
+        p6 = output["pose_6d"].reshape(-1, 2, 3)
+        gram = p6 @ p6.transpose(1, 2)
+        ortho = ((gram - torch.eye(2, device=gram.device)) ** 2).reshape(B, NS, -1)
+        ortho_m, ortho_e = ortho[:, 0].mean(), ortho[:, 1:].mean() if NS > 1 else 0.0
+
+        total = (W["KEYPOINTS_3D_EXP"] * l3d[1] + W["KEYPOINTS_3D_MODE"] * l3d[0]
+                 + W["KEYPOINTS_3D_FULL_EXP"] * l3df[1] + W["KEYPOINTS_3D_FULL_MODE"] * l3df[0]
+                 + W["V2V_EXP"] * v2v[1] + W["V2V_MODE"] * v2v[0]
+                 + W["KEYPOINTS_2D_EXP"] * l2d[1] + W["KEYPOINTS_2D_MODE"] * l2d[0]
+                 + W["KEYPOINTS_2D_FULL_EXP"] * l2df[1] + W["KEYPOINTS_2D_FULL_MODE"] * l2df[0]
+                 + W["NLL"] * nll + W["ORTHOGONAL"] * (ortho_e + ortho_m)
+                 + W["GLOBAL_ORIENT_EXP"] * go[1] + W["GLOBAL_ORIENT_MODE"] * go[0]
+                 + W["BODY_POSE_EXP"] * bp[1] + W["BODY_POSE_MODE"] * bp[0]
+                 + W["BETAS_EXP"] * bt[1] + W["BETAS_MODE"] * bt[0])
+        terms = {"loss": total, "loss_nll": nll, "loss_keypoints_3d_mode": l3d[0],
+                 "loss_v2v_mode": v2v[0], "loss_keypoints_2d_mode": l2d[0],
+                 "loss_pose_6d_mode": ortho_m}
+        return total, terms
+
+    def discriminator_outputs(self, body_pose: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
+        """(B, 25) discriminator scores (`seeme_tpu/models/prohmr.py:462`)."""
+        return self.discriminator(body_pose, betas)

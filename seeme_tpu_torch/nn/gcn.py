@@ -2,7 +2,9 @@
 (`seeme_tpu/nn/gcn.py`), with the reference's module names
 (`diffusion_model.gconv_input.0.*`, `gconv_layers.{i}.gconv{1,2}.*`,
 `gconv_output.*`, as `tools/convert_checkpoint.py::convert_egohmr` reads
-them). Batch norm runs with running statistics: the evaluation path.
+them). Batch norm runs with running statistics, in training too, as the
+JAX package applies the GCN with `train=False` everywhere; the statistics
+train by gradient (`nn/resnet.py::FrozenBatchNorm2d`).
 """
 
 from __future__ import annotations

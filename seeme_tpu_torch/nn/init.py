@@ -1,9 +1,10 @@
 """Seeded parameter initialization and perturbation with explicit generators.
 
 `init_parameters_` follows the reference's init rules: xavier-uniform
-weights, zero biases, unit LayerNorm and batch-norm scales, LeCun-normal
-convolution kernels (flax's `nn.Conv` default), N(0, 1) distribution tokens,
-U[0, 1) learned positional encodings, and zeros for the zero-initialized
+weights, zero biases, unit LayerNorm and batch-norm scales, batch-norm
+statistics (0, 1), LeCun-normal convolution kernels (flax's `nn.Conv`
+default), N(0, 1) distribution tokens, U[0, 1) learned positional
+encodings, and zeros for the zero-initialized
 output projections (stylization `out_layers`, the stylized FFN's `linear2`,
 the PointNet blocks' `fc_1`). `perturb_parameters_` adds seeded noise so
 those zeroed branches carry signal in a check.
@@ -31,7 +32,7 @@ def init_parameters_(module: nn.Module, generator: torch.Generator) -> nn.Module
     for name, p in module.named_parameters():
         cpu = torch.empty(p.shape, dtype=p.dtype)
         if id(p) in norm_params:
-            cpu.fill_(1.0 if name.endswith("weight") else 0.0)
+            cpu.fill_(1.0 if name.endswith(("weight", "running_var")) else 0.0)
         elif name.endswith("global_motion_token"):
             cpu.normal_(0.0, 1.0, generator=generator)
         elif name.endswith(".pe") or name == "pe":
@@ -50,6 +51,11 @@ def init_parameters_(module: nn.Module, generator: torch.Generator) -> nn.Module
 
 @torch.no_grad()
 def perturb_parameters_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded noise on every parameter but the batch-norm statistics, which
+    are parameters only so that training can update them."""
+    stats = {id(t) for m in module.modules() if isinstance(m, FrozenBatchNorm2d)
+             for t in (m.running_mean, m.running_var)}
     for p in module.parameters():
-        p.add_(PERTURB_SCALE * torch.randn(p.shape, generator=generator).to(p.device))
+        if id(p) not in stats:
+            p.add_(PERTURB_SCALE * torch.randn(p.shape, generator=generator).to(p.device))
     return module

@@ -9,8 +9,8 @@ name for name, and an ImageNet checkpoint in that layout loads as it is.
 There is no `fc`: the JAX package's backbone ends at the pool.
 
 The backbone is frozen wherever SEE-ME uses it, and the JAX package runs it
-with `train=False`: batch norm always uses its running statistics (eps
-1e-5). The convolutions are `nn.Conv2d`; the JAX package runs them outside
+with `train=False` everywhere: batch norm always uses its running statistics
+(eps 1e-5), which the perception stack's training CLIs train by gradient. The convolutions are `nn.Conv2d`; the JAX package runs them outside
 any Pallas kernel too.
 """
 
@@ -24,23 +24,37 @@ from torch.nn import functional as F
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """Batch norm with running statistics only: y = (x - mean) / sqrt(var +
-    eps) * weight + bias. Keys `weight`, `bias`, `running_mean`,
-    `running_var`; a checkpoint's `num_batches_tracked` is ignored."""
+    """Batch norm with running statistics only: y = (x - mean) * (weight /
+    sqrt(var + eps)) + bias over dimension 1. Keys `weight`, `bias`,
+    `running_mean`, `running_var`; a checkpoint's `num_batches_tracked` is
+    ignored.
+
+    The statistics are parameters, as in the JAX package, whose training
+    CLIs differentiate and update them with the rest of the tree
+    (`seeme_tpu/nn/resnet.py` and `nn/gcn.py` keep them in `batch_stats`, the
+    glow in its parameters). When a statistic requires grad under grad mode
+    the normalisation is written out, since `F.batch_norm` has no derivative
+    for them; otherwise it is `F.batch_norm`. Modules that must not train
+    are frozen (`requires_grad_(False)`) and left out of the optimizer."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
+        self.running_mean = nn.Parameter(torch.zeros(num_features))
+        self.running_var = nn.Parameter(torch.ones(num_features))
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and (self.running_mean.requires_grad
+                                        or self.running_var.requires_grad):
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            return (x - self.running_mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             training=False, eps=self.eps)
 

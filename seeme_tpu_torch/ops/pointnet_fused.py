@@ -6,7 +6,9 @@
 Each wrapper counts its kernel launches in `.launches`, and by hidden width
 in `.launches_by_width`. `FusedPointnet` runs a whole `ResnetPointnet`
 through them and keeps its kernel-layout weights while the encoder is
-unchanged. Both kernels are instantiated at hidden width
+unchanged; it is differentiable, as the JAX package's `custom_vjp` is: the
+backward recomputes the module's eager forward in chunks of 16 rows and
+takes its VJP (cuBLAS on the card), with no kernel of its own. Both kernels are instantiated at hidden width
 H = 512 (EgoBody's scene encoder, 64 points a CTA) and H = 256 (the
 ProHMR-Scene and EgoHMR scene encoders, 128 points a CTA); the wrappers
 refuse any other width on the card.
@@ -226,15 +228,51 @@ def pointnet_forward(weights: Dict[str, torch.Tensor], points: torch.Tensor) -> 
     return F.linear(F.relu(pooled), weights["fc_c_w"], weights["fc_c_b"])
 
 
+BATCH_CHUNK = 16  # rows a recompute chunk takes (`pointnet_pallas.py:208-218`)
+
+
+class _FusedPointnetFunction(torch.autograd.Function):
+    """`pointnet_forward_pallas`'s `custom_vjp` (`seeme_tpu/ops/pointnet_pallas.py:178-197`):
+    the forward through the fused blocks, the backward by recomputing the
+    module's own eager forward (`nn/pointnet.py`, the counterpart of
+    `_pointnet_forward_xla`) over chunks of `BATCH_CHUNK` rows and taking its
+    VJP. The inputs after `points` are the module's parameters, so their
+    gradients land on them."""
+
+    @staticmethod
+    def forward(ctx, pointnet, weights, points, *params):
+        ctx.pointnet = pointnet
+        ctx.save_for_backward(points, *params)
+        return pointnet_forward(weights, points)
+
+    @staticmethod
+    def backward(ctx, grad):
+        points, *params = ctx.saved_tensors
+        names = [n for n, _ in ctx.pointnet.named_parameters()]
+        want_points = ctx.needs_input_grad[2]
+        leaves = [p.detach().requires_grad_(True) for p in params]
+        grads = [torch.zeros_like(p) for p in params]
+        point_grads = []
+        with torch.enable_grad():
+            for rows in torch.split(torch.arange(points.shape[0], device=points.device),
+                                    BATCH_CHUNK):
+                chunk = points[rows].detach().requires_grad_(want_points)
+                out = torch.func.functional_call(ctx.pointnet, dict(zip(names, leaves)), (chunk,))
+                inputs = leaves + [chunk] if want_points else leaves
+                got = torch.autograd.grad(out, inputs, grad[rows])
+                for acc, g in zip(grads, got):
+                    acc += g
+                if want_points:
+                    point_grads.append(got[-1])
+        return (None, None, torch.cat(point_grads) if want_points else None, *grads)
+
+
 class FusedPointnet:
     """A `ResnetPointnet` forward through the fused blocks, with their
     kernel-layout weights made again whenever the encoder's tensors change
-    (`load_state_dict`, a move, an in-place update).
-
-    The fused blocks have no backward yet (the JAX package's `custom_vjp`,
-    `seeme_tpu/ops/pointnet_pallas.py:178-197`, is not ported), so a call
-    with grad mode on while an encoder parameter requires grad raises
-    rather than leave the encoder silently untrained."""
+    (`load_state_dict`, a move, an in-place update such as an optimizer
+    step). Differentiable: gradients reach the encoder's parameters and,
+    where they require grad, the points (`_FusedPointnetFunction`)."""
 
     def __init__(self):
         self._key, self._weights = None, None
@@ -247,7 +285,5 @@ class FusedPointnet:
         return self._weights
 
     def __call__(self, pointnet, points: torch.Tensor) -> torch.Tensor:
-        if torch.is_grad_enabled() and any(p.requires_grad for p in pointnet.parameters()):
-            raise RuntimeError("the fused PointNet blocks have no backward yet: freeze the "
-                               "scene encoder or run it under torch.no_grad()")
-        return pointnet_forward(self.weights(pointnet), points)
+        return _FusedPointnetFunction.apply(pointnet, self.weights(pointnet), points.contiguous(),
+                                            *pointnet.parameters())

@@ -10,7 +10,8 @@ plus MPJPE over the visible and the invisible joints, in mm. The noise comes
 from one generator seeded with 1, drawn batch by batch: each batch's
 initial sample, then one draw a step for every step but the last.
 `--checkpoint` is a torch state dict with the reference's key names
-(`best_model_mpjpe_vis.pt`; `smpl.*` and `criterion.*` left out); without
+(`best_model_mpjpe_vis.pt`, or `python -m seeme_tpu_torch.train_egohmr`'s
+`model.pt`; `smpl.*` and `criterion.*` left out); without
 one the seeded random init is evaluated. It runs on the card unless
 `--device cpu` is given, and raises when there is no card.
 """

@@ -66,7 +66,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         dict(flow_hidden=128, flow_depth=1) if args.tiny else {}))  # mode-only
     smpl = synthetic_smpl(n_verts=256 if args.tiny else 6890)
     model = ProHMRScene(cfg, smpl, device=dev)
-    load_checkpoint(model, args.checkpoint, ("smpl", "discriminator"))
+    load_checkpoint(model, args.checkpoint, ("smpl",))
     dm = EgoHmrImageDataModule(root=args.data_root, n_pts=args.scene_points,
                                img_size=64 if args.tiny else 224, smpl=smpl)
     metrics = HmrMetrics()

@@ -16,7 +16,7 @@ import seeme_tpu_torch
 from seeme_tpu_torch._device import resolve_device
 from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.eval.t2m_evaluator import T2MEvaluator
-from seeme_tpu_torch import test_egohmr, test_prohmr_scene
+from seeme_tpu_torch import test_egohmr, test_prohmr_scene, train_egohmr, train_prohmr_scene
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
@@ -66,7 +66,9 @@ def test_every_module_imports():
             "seeme_tpu_torch.test_prohmr_scene", "seeme_tpu_torch.test_egohmr",
             "seeme_tpu_torch.nn.gru", "seeme_tpu_torch.eval.t2m_evaluator",
             "seeme_tpu_torch.models.text_encoder", "seeme_tpu_torch.data.word_vectorizer",
-            "seeme_tpu_torch.config.humanml3d", "seeme_tpu_torch.config.presets"} <= set(names)
+            "seeme_tpu_torch.config.humanml3d", "seeme_tpu_torch.config.presets",
+            "seeme_tpu_torch.core.collision", "seeme_tpu_torch.data.augmentation",
+            "seeme_tpu_torch.train_prohmr_scene", "seeme_tpu_torch.train_egohmr"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -98,7 +100,7 @@ def test_entry_points_raise_without_cuda():
         ProHMRScene(ProHMRConfig(flow_hidden=8, flow_layers=1, flow_depth=1), small)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EgoHmr(EgoHmrConfig(gcn_hid_dim=8, gcn_layers=0), small)
-    for cli in (test_prohmr_scene, test_egohmr):
+    for cli in (test_prohmr_scene, test_egohmr, train_prohmr_scene, train_egohmr):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["--tiny"])
     assert resolve_device("cpu") == torch.device("cpu")
