@@ -2,8 +2,10 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU: EgoBody (SEE-ME, its
 image-conditioned, GIMO and interactee-only configs, both training stages,
 the test CLI), HumanML3D text-to-motion (sampling, both training stages,
-the test CLI, the diffusion-only model and the token text mode), and the
-ProHMR-Scene and EgoHMR perception stack's evaluation and training paths.
+the test CLI, the diffusion-only model and the token text mode), the
+ProHMR-Scene and EgoHMR perception stack's evaluation and training paths,
+and HumanAct12 / UESTC action-to-motion (sampling, both training stages,
+the test CLI with either evaluator).
 
     python3 chip_smoke.py
 
@@ -149,14 +151,36 @@ Phases, each printing one line with its seconds as soon as it ends:
  29. EgoHMR training through `train_egohmr.main` at `EgoHmrConfig()` the
      same way (16 steps, 1 / 3 each; the scene encoder and the GCN's
      statistics changed), card vs CPU with one sample's image block
-     dropped, its step at B=64, and `test_egohmr --checkpoint`.
+     dropped, its step at B=64, and `test_egohmr --checkpoint`;
+ 30. the action-to-motion sampling slice at full width (`mld_humanact12`'s
+     model: latent 256, ff 128, 5 layers, 60 x 150), 12 classes (HumanAct12)
+     and 40 (UESTC), each at guidance 1.0 (shipped) and 7.5, B=64: labels
+     -> `A2MSystem.sample` -> FK or the rot6d block -> the dataset's
+     evaluator (GRU or ST-GCN), counted (expected: token kernel 1, nothing
+     else); kernel 5 against its plain version on the same condition rows
+     (1e-3 of max|z|), its ms, plain ms and bound; the parts alone (embed,
+     kernel, decode, FK, evaluator; CUDA events); the card against the
+     CPU's plain path at B=2 (features and joints within 1e-3);
+ 31. both a2m training stages through the CLI (`vae_humanact12`, then
+     `mld_humanact12 --pretrained_vae`, 4 epochs of the 240-sample synthetic
+     split at B=64): no launch, stage 1's epoch loss falling, stage 2's
+     fixed-draw val loss falling, the VAE bitwise as loaded, the denoiser
+     and `embed_action` changed; ms per step, peak memory, device idle
+     share; one step of each stage card vs CPU at the CPU tests' size;
+ 32. the test CLI on trained checkpoints (`mld_humanact12` with the GRU,
+     `mld_uestc`, one epoch over the stage-1 VAE, with the ST-GCN), 2
+     replications each (expected: token kernel 2 each), finite FID /
+     accuracy / Diversity / MultiModality; both evaluators' ms at B=64.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
 path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
 at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
 the ProHMR-Scene slice; the PointNet rows carry phase 27's `backward`
-numbers), the card's name and power limit, and, last, `{"ok":
-true, "device": {...}}`. Any failed check exits non-zero at once. Random weights: the seeded init plus a seeded perturbation, so the
-zero-initialized output projections carry signal.
+numbers; kernel 5 also as `ddim_tok_t1_a2m`, at the shipped a2m shape,
+whose main path is phase 30's HumanAct12 slice at guidance 1.0), the
+card's name and power limit, and, last, `{"ok": true, "device": {...}}`.
+Any failed check exits non-zero at once. Random weights: the seeded init
+plus a seeded perturbation, so the zero-initialized output projections
+carry signal.
 """
 
 from __future__ import annotations
@@ -625,11 +649,17 @@ def main() -> int:
         hmr_train_phases(dev, counted, counters, record, kernels, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="seeme_a2m_")
+    try:
+        a2m_phases(dev, counted, counters, record, kernels, launches, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     for k in kernels:
         flops, nbytes = k.pop("flops"), k.pop("bytes")
         k["launches"] = launches[k["name"]]
-        k["launches_by_path"] = by_path[k["name"]]  # beside its main path's count
+        # beside its main path's count (a row at another shape reads its wrapper's)
+        k["launches_by_path"] = by_path[k.pop("counter", k["name"])]
         if k["name"] == "ddim_md_t1":  # at the condition-token counts of the other configs
             k["at_n_cond"] = by_cond
         k["bound_ms"] = bound_ms(flops, nbytes)
@@ -1964,6 +1994,234 @@ def hmr_train_phases(dev, counted, counters, record, kernels: list, work: str) -
     torch.cuda.empty_cache()
 
     cli_check("test_egohmr", test_egohmr, res["checkpoint"])
+
+
+def a2m_phases(dev, counted, counters, record, kernels: list, launches: dict, work: str) -> None:
+    """Phases 30-32: the HumanAct12 / UESTC action-to-motion model on the
+    card at full width (latent 256, ff 128, 5 layers, 60 x 150): the
+    sampling slice at B = 64 for both class counts at guidance 1.0 and 7.5
+    (kernel 5 once a `sample`, against its plain version, parts timed, card
+    vs CPU), both training stages through the CLI, and the test CLI with
+    both evaluators, each counted; adds kernel 5's row at the a2m shape."""
+    import torch
+
+    from seeme_tpu_torch.config.a2m import mld_humanact12
+    from seeme_tpu_torch.data.registry import SyntheticA2MDataModule
+    from seeme_tpu_torch.data.synthetic import to_torch
+    from seeme_tpu_torch.models.a2m import A2MConfig, A2MSystem
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.test.__main__ import action_evaluator, evaluator_inputs
+    from seeme_tpu_torch.test.__main__ import main as test_main
+    from seeme_tpu_torch.train.__main__ import Trainer, main, parse_args
+    from seeme_tpu_torch.train.loop import train_step, validate
+    from seeme_tpu_torch.train.state import make_optimizer, set_stage
+
+    none = {k: 0 for k in counters}
+    tok = {**none, "ddim_tok_t1": 1}
+    B, F = BATCH, 150
+
+    def evaluator(dataset, classes):
+        return action_evaluator(dataset, classes, SEED + 30, dev)
+
+    # ---- 30. the sampling slice: both datasets, guidance 1.0 and 7.5
+    for dataset, classes in (("humanact12", 12), ("uestc", 40)):
+        t = time.perf_counter()
+        base = dataclasses.replace(mld_humanact12().model, num_classes=classes)
+        data = SyntheticA2MDataModule(classes, name=dataset)
+        batch = to_torch(next(data.batches("train", B, shuffle=False)), dev)
+        labels, lengths = batch["action"], batch["length"]
+        clf = evaluator(dataset, classes)
+        system = None
+        for g in (1.0, 7.5):
+            sys_ = A2MSystem(dataclasses.replace(base, guidance_scale=g), device=dev, seed=SEED)
+            if system is None:
+                perturb_parameters_(sys_, torch.Generator().manual_seed(SEED + 31))
+                system = sys_
+            else:
+                sys_.load_state_dict(system.state_dict())
+            gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+
+            def slice_():
+                feats = sys_.sample(labels, lengths, generator=gen)
+                logits, emb = clf(evaluator_inputs(sys_, clf, feats), lengths)
+                return feats, logits, emb
+
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            (feats, logits, emb), counts = counted(slice_)
+            slice_s = time.perf_counter() - t_s
+            require(counts == tok, f"a2m {dataset} sampling at guidance {g}: launches {counts}")
+            record(f"a2m_{dataset}_sampling_g{g}", counts)
+            require(tuple(feats.shape) == (B, 60, F) and all(bool(torch.isfinite(x).all())
+                                                             for x in (feats, logits, emb)),
+                    f"a2m {dataset} outputs {tuple(feats.shape)}")
+            # kernel 5 against its plain version on the same condition rows
+            sd, weights = sys_.kernel_operands()
+            z0 = torch.randn(B, 1, 256, generator=torch.Generator().manual_seed(SEED + 33)).to(dev)
+            with torch.no_grad():
+                cond = sys_.embed_action(labels)
+                if g > 1:
+                    cond = torch.cat([torch.zeros_like(cond), cond])
+            args = (sd, cond.contiguous(), z0, sys_.schedule, 50, base.num_layers, g)
+            z_k = dfu.ddim_fused_tok(*args, weights=weights)
+            z_p = dfu.ddim_fused_plain(*args, md_trans=False)
+            err = compare(f"a2m {dataset} ddim_tok guidance {g} ({cond.shape[0]} condition rows)",
+                          z_k, z_p, float(z_p.abs().max()), DDIM_RTOL)
+            print_launch(dfu.cluster_launch(False, B, 1, weights, g))
+            ms = time_ms(lambda: dfu.ddim_fused_tok(*args, weights=weights), 5)
+            plain_ms = time_ms(lambda: dfu.ddim_fused_plain(*args, md_trans=False), 2)
+            flops = tok_flops(sd, base.num_layers, cond.shape[0], 1, 50)
+            nbytes = 4 * (sum(v.numel() for v in sd.values()) + cond.numel() + 2 * z0.numel()
+                          + 2 * 50)
+            parts = {"embed": time_ms(lambda: sys_.embed_action(labels), 10),
+                     "kernel": ms,
+                     "decode": time_ms(lambda: sys_.vae.decode(z_k, 60, lengths), 5),
+                     "fk": time_ms(lambda: sys_.feats_to_joints(feats), 5),
+                     "evaluator": time_ms(lambda: clf(evaluator_inputs(sys_, clf, feats),
+                                                      lengths), 5)}
+            if dataset == "humanact12" and g == 1.0:  # the shipped config's shape
+                launches["ddim_tok_t1_a2m"] = counts["ddim_tok_t1"]
+                kernels.append(dict(name="ddim_tok_t1_a2m", counter="ddim_tok_t1", route="cuda",
+                                    source="seeme_tpu_torch/csrc/ddim_tok.cu",
+                                    replaces="seeme_tpu/ops/denoiser_fused.py:597",
+                                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                                    flops=flops))
+            # card vs CPU at B = 2 on the plain path, same weights and noise
+            cpu = A2MSystem(sys_.cfg, device="cpu", seed=SEED)
+            cpu.load_state_dict({k: v.cpu() for k, v in sys_.state_dict().items()})
+            z2 = torch.randn(2, 1, 256, generator=torch.Generator().manual_seed(SEED + 34))
+            ref = cpu.sample(labels[:2].cpu(), lengths[:2].cpu(), z_init=z2)
+            got = sys_.sample(labels[:2], lengths[:2], z_init=z2.to(dev))
+            compare(f"a2m {dataset} features, guidance {g}, card vs CPU", got.cpu(), ref,
+                    float(ref.abs().max()), SLICE_RTOL)
+            ref_j = cpu.feats_to_joints(ref)
+            compare(f"a2m {dataset} joints, guidance {g}, card vs CPU",
+                    sys_.feats_to_joints(got).cpu(), ref_j, float(ref_j.abs().max()), SLICE_RTOL)
+            phase(f"a2m slice {dataset} ({classes} classes, {type(clf).__name__}) B={B}, guidance "
+                  f"{g}: sample -> FK -> evaluator {slice_s:.3f} s, launches {counts}; kernel 5 "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms(flops, nbytes):.4f} ms "
+                  f"({bound_by(flops, nbytes)}), f32 bound {bound_f32_ms(flops, nbytes):.4f} ms; "
+                  f"parts alone (ms, CUDA events) "
+                  f"{json.dumps({k: round(v, 3) for k, v in parts.items()})}; card vs CPU at "
+                  f"B=2 agrees", t)
+            t = time.perf_counter()
+        del system, sys_, cpu, clf
+    torch.cuda.empty_cache()
+
+    # ---- 31. both training stages through the CLI
+    def report(trainer):
+        losses = [x["total"] for r in trainer.history for x in r["steps"]]
+        ms = sorted(m for r in trainer.history for m in r["step_ms"][int(r is trainer.history[0]):])
+        require(all(math.isfinite(v) for v in losses), f"a2m losses not finite: {losses}")
+        first, last = trainer.history[0]["means"]["total"], trainer.history[-1]["means"]["total"]
+        busy, wall, _ = device_busy(trainer, 3)
+        return (f"{len(losses)} steps, epoch means {first:.5f} -> {last:.5f}, "
+                f"{ms[len(ms) // 2]:.3f} ms a step (median of {len(ms)}, min {ms[0]:.3f}, max "
+                f"{ms[-1]:.3f}), device idle share {1 - busy / wall:.3f} over 3 more steps"), \
+            first, last
+
+    def card_vs_cpu_step(stage):
+        """One step at the CPU tests' size (latent 32, 3 layers, 16 frames,
+        B 4, dropout 0) on both devices with the same draws."""
+        data = SyntheticA2MDataModule(12, num_frames=16)
+        cfg = A2MConfig(num_frames=16, latent_dim=(1, 32), ff_size=16, num_layers=3,
+                        dropout=0.0, guidance_uncondp=0.25)
+        runs = {}
+        for device in ("cpu", dev):
+            sys_ = A2MSystem(cfg, device=device, seed=SEED)
+            perturb_parameters_(sys_, torch.Generator().manual_seed(SEED + 35))
+            runs[str(device)] = (sys_, *make_optimizer(stage, sys_, lr=TRAIN_LR))
+        cpu_batch = to_torch(next(data.batches("train", 4, shuffle=False)), "cpu")
+        cpu_batch["length"] = torch.tensor([16, 12, 16, 8], dtype=torch.int32)
+        draws = runs["cpu"][0].loss_draws(stage, cpu_batch,
+                                          torch.Generator().manual_seed(SEED + 36))
+        out = {}
+        for device, (sys_, opt, sched) in runs.items():
+            on = {k: v.to(device) for k, v in cpu_batch.items()}
+            out[device] = train_step(sys_, stage, opt, sched, 0, on,
+                                     draws={k: v.to(device) for k, v in draws.items()})["total"]
+        compare_step(f"a2m {stage}", runs["cpu"][0], runs[str(dev)][0], out["cpu"],
+                     out[str(dev)], TRAIN_LR)
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    s1, counts = counted(lambda: main(["--preset", "vae_humanact12", "--epochs", "4",
+                                       "--out", os.path.join(work, "s1")]))
+    peak = torch.cuda.max_memory_allocated()
+    require(counts == none, f"a2m stage 1 launch counts {counts}")
+    record("a2m_train_stage1", counts)
+    text, first, last = report(s1)
+    require(last < first, f"a2m stage 1 epoch means {first} -> {last}")
+    card_vs_cpu_step("vae")
+    phase(f"a2m train stage 1 (vae_humanact12, B={s1.batch_size}, 60 x 150): {text}, peak "
+          f"memory {peak} B, launches {counts}; one step card vs CPU agrees", t)
+
+    def fixed_eval_loss(trainer):
+        set_stage(trainer.system, None)
+        out = validate(trainer.system, trainer.stage, trainer.val_batches())["total"]
+        set_stage(trainer.system, trainer.stage)
+        return out
+
+    t = time.perf_counter()
+    s2 = Trainer(parse_args(["--preset", "mld_humanact12", "--epochs", "4", "--out",
+                             os.path.join(work, "s2"), "--pretrained_vae", s1.checkpoints[-1]]))
+    saved = torch.load(s1.checkpoints[-1], map_location=dev, weights_only=False)["state_dict"]
+    vae = {k[len("vae."):]: v for k, v in saved.items() if k.startswith("vae.")}
+    require(all(torch.equal(v, vae[k]) for k, v in s2.system.vae.state_dict().items()),
+            "a2m stage 2 did not load the stage-1 VAE")
+    trained = {name: {k: v.clone() for k, v in getattr(s2.system, name).state_dict().items()}
+               for name in ("denoiser", "embed_action")}
+    val_before = fixed_eval_loss(s2)
+    torch.cuda.reset_peak_memory_stats()
+    _, counts = counted(s2.fit)
+    peak = torch.cuda.max_memory_allocated()
+    val_after = fixed_eval_loss(s2)
+    require(counts == none, f"a2m stage 2 launch counts {counts}")
+    record("a2m_train_stage2", counts)
+    require(all(torch.equal(v, vae[k]) for k, v in s2.system.vae.state_dict().items()),
+            "a2m stage 2 changed the VAE")
+    for name, before in trained.items():
+        require(any(not torch.equal(v, before[k])
+                    for k, v in getattr(s2.system, name).state_dict().items()),
+                f"a2m stage 2 did not change {name}")
+    require(val_after < val_before, f"a2m fixed-draw val loss {val_before} -> {val_after}")
+    text, _, _ = report(s2)
+    card_vs_cpu_step("diffusion")
+    phase(f"a2m train stage 2 (mld_humanact12, B={s2.batch_size}): {text}, fixed-draw val "
+          f"{val_before:.5f} -> {val_after:.5f}, peak memory {peak} "
+          f"B, launches {counts}, VAE bitwise unchanged, denoiser and embed_action changed; one "
+          f"step card vs CPU agrees", t)
+
+    # ---- 32. the test CLI with each evaluator, on trained weights
+    t = time.perf_counter()
+    u2 = main(["--preset", "mld_uestc", "--epochs", "1", "--out", os.path.join(work, "u2"),
+               "--pretrained_vae", s1.checkpoints[-1]])
+    results = {}
+    for preset, ckpt in (("mld_humanact12", s2.checkpoints[-1]), ("mld_uestc", u2.checkpoints[-1])):
+        result, counts = counted(lambda: test_main([
+            "--preset", preset, "--checkpoint", ckpt, "--replication_times", "2",
+            "--count_time", "--out", os.path.join(work, f"test_{preset}")]))
+        batches = -(-60 // BATCH)  # the 60-sample synthetic test split, padded tail counted
+        require(counts == {**none, "ddim_tok_t1": 2 * batches}, f"a2m test CLI {preset} {counts}")
+        record(f"a2m_test_cli_{preset}", counts)
+        stats = result["stats"]
+        require(set(stats) == {"accuracy", "FID", "Diversity", "MultiModality"}
+                and all(math.isfinite(x) for v in stats.values() for x in v.values()),
+                f"a2m test CLI {preset} statistics {stats}")
+        results[preset] = {k: round(v["mean"], 4) for k, v in sorted(stats.items())}
+    set_stage(s2.system, None)
+    feats = s2.system.sample(torch.arange(BATCH, device=dev) % 12)
+    lengths = torch.full((BATCH,), 60, device=dev)
+    clf_ms = {}
+    for dataset, classes in (("humanact12", 12), ("uestc", 40)):
+        clf = evaluator(dataset, classes)
+        x = evaluator_inputs(s2.system, clf, feats)
+        clf_ms[type(clf).__name__] = time_ms(lambda: clf(x, lengths), 10)
+    phase(f"a2m test CLI (2 replications of {batches} batch over the 60-sample test split, "
+          f"trained checkpoints): launches {2 * batches} each, metric means "
+          f"{json.dumps(results)}; evaluators at B={BATCH} (ms, CUDA events) "
+          f"{json.dumps({k: round(v, 3) for k, v in clf_ms.items()})}", t)
 
 
 def forward_counter(module) -> list:

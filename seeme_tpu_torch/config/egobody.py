@@ -68,12 +68,16 @@ class TestConfig:
     mm_num_times: int = 10
     evaluator_dir: str = ""
     word_vectorizer_path: str = ""
+    # the action-to-motion evaluation's (`test.py:365-450`): the recognition
+    # model's weights under the reference's keys (TEST.EVALUATOR_CHECKPOINT),
+    # empty = its seeded random init
+    evaluator_checkpoint: str = ""
 
 
 @dataclass(frozen=True)
 class Preset:
     name: str                   # NAME (:3), the experiment folder's name
-    model: SeeMeConfig          # or a T2MConfig (`config/humanml3d.py`)
+    model: SeeMeConfig          # or a T2MConfig or A2MConfig (`config/humanml3d.py`, `a2m.py`)
     train: TrainConfig
     dataset: str = "egobody"    # DATASET_NAME (:8)
     test: TestConfig = field(default_factory=TestConfig)

@@ -1,6 +1,7 @@
-"""Every preset the CLIs offer, the ego configs (`config/egobody.py`) and
-the text-to-motion ones (`config/humanml3d.py`), and `build`, which makes a
-preset's datamodule and system."""
+"""Every preset the CLIs offer, the ego configs (`config/egobody.py`), the
+text-to-motion ones (`config/humanml3d.py`) and the action-to-motion ones
+(`config/a2m.py`), and `build`, which makes a preset's datamodule and
+system."""
 
 from __future__ import annotations
 
@@ -10,21 +11,24 @@ import torch
 
 from ..core.smpl import synthetic_smpl
 from ..data.registry import get_datamodule
+from ..models.a2m import A2MConfig, A2MSystem
 from ..models.seeme import SeeMeSystem
 from ..models.t2m import T2MConfig, T2MSystem
+from .a2m import A2M_PRESETS
 from .egobody import PRESETS as EGO_PRESETS
 from .egobody import Preset
 from .humanml3d import T2M_PRESETS
 
-PRESETS = {**EGO_PRESETS, **T2M_PRESETS}
+PRESETS = {**EGO_PRESETS, **T2M_PRESETS, **A2M_PRESETS}
 
 
 def build(preset: Preset, device: torch.device):
     """(datamodule, system) of a preset, the system seeded with the preset's
     seed, and torch's default generators too (dropout draws from them). A
     text-to-motion system takes its width in features from the data (263
-    for HumanML3D, 251 for KIT), as `build_t2m_system` does; an ego system
-    gets the synthetic SMPL body."""
+    for HumanML3D, 251 for KIT), as `build_t2m_system` does; an
+    action-to-motion system its classes and width (`build_a2m_system`); an
+    ego or action-to-motion system gets the synthetic SMPL body."""
     cfg, seed = preset.model, preset.train.seed
     torch.manual_seed(seed)
     if isinstance(cfg, T2MConfig):
@@ -32,6 +36,10 @@ def build(preset: Preset, device: torch.device):
                             text_dim=cfg.text_encoded_dim)
         cfg = dataclasses.replace(cfg, nfeats=dm.nfeats)
         return dm, T2MSystem(cfg, dm.mean, dm.std, device=device, seed=seed)
+    if isinstance(cfg, A2MConfig):
+        dm = get_datamodule(preset.dataset, motion_length=cfg.num_frames)
+        cfg = dataclasses.replace(cfg, nfeats=dm.nfeats, num_classes=dm.num_classes)
+        return dm, A2MSystem(cfg, synthetic_smpl(n_verts=6890), device=device, seed=seed)
     dm = get_datamodule(preset.dataset, cfg.condition, cfg.motion_length, cfg.scene_points,
                         image_size=cfg.image_size)
     return dm, SeeMeSystem(cfg, synthetic_smpl(n_verts=6890), dm.mean, dm.std, device=device,

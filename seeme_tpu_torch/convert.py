@@ -25,7 +25,12 @@ A text-to-motion denoiser of either arch (`trans_enc`'s U-skip encoder,
 `pose_embd` / `pose_proj` map too, so `from_jax_params` takes a whole
 `T2MSystem.init_params` tree; `t2m_{text,movement,motion}_state_dict` map
 the TM2T evaluator's three flax trees (`seeme_tpu/nn/gru.py`) onto
-`nn/gru.py`'s reference keys.
+`nn/gru.py`'s reference keys. An action-to-motion tree's `embed_action`
+maps to `embed_action.action_embedding`, so `from_jax_params` takes a whole
+`A2MSystem.init_params` tree; `action_gru_state_dict` and
+`stgcn_state_dict` map the two action-recognition evaluators
+(`seeme_tpu/eval/{action_classifier,stgcn}.py`), the inverses of
+`convert_a2m_gru` and `convert_uestc_stgcn`.
 """
 
 from __future__ import annotations
@@ -328,6 +333,58 @@ def from_jax_params(tree: Tree) -> Dict[str, torch.Tensor]:
     for name in ("output_scene", "output_images"):
         if name in tree:
             _linear(sd, f"{name}.1", tree[name]["params"]["linear"])
+    if "embed_action" in tree:
+        _put(sd, "embed_action.action_embedding",
+             tree["embed_action"]["params"]["action_embedding"])
+    return sd
+
+
+def action_gru_state_dict(tree: Tree) -> Dict:
+    """flax `MotionDiscriminator` -> `eval/action_classifier.py` keys: cell k
+    of the scanned stack is layer k of `recurrent` (`nn.GRU`)."""
+    p, sd = tree["params"], {}
+    for name, cell in p["recurrent"].items():
+        k = name.rsplit("_", 1)[1]
+        for gate in ("ih", "hh"):
+            dense = cell[f"weight_{gate}"]
+            _put(sd, f"recurrent.weight_{gate}_l{k}", np.asarray(dense["kernel"]).T)
+            _put(sd, f"recurrent.bias_{gate}_l{k}", dense["bias"])
+    for name in ("linear1", "linear2"):
+        _linear(sd, name, p[name])
+    return sd
+
+
+def _bn(sd: Dict, prefix: str, p: Tree) -> None:
+    for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                         ("running_var", "var")):
+        _put(sd, f"{prefix}.{ours}", p[theirs])
+
+
+def _conv2d(sd: Dict, prefix: str, p: Tree) -> None:
+    """flax (kH, kW, in, out) -> torch (out, in, kH, kW)."""
+    _put(sd, f"{prefix}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    _put(sd, f"{prefix}.bias", p["bias"])
+
+
+def stgcn_state_dict(tree: Tree) -> Dict:
+    """flax `STGCN` -> `eval/stgcn.py` keys; the dense classifier as the
+    reference's 1x1 convolution `fcn`."""
+    p, sd = tree["params"], {}
+    _bn(sd, "data_bn", p["data_bn"])
+    i = 0
+    while f"block_{i}" in p:
+        b, prefix = p[f"block_{i}"], f"st_gcn_networks.{i}"
+        _conv2d(sd, f"{prefix}.gcn.conv", b["gcn"]["conv"])
+        _bn(sd, f"{prefix}.tcn.0", b["bn1"])
+        _conv2d(sd, f"{prefix}.tcn.2", b["tcn"])
+        _bn(sd, f"{prefix}.tcn.3", b["bn2"])
+        if "res_conv" in b:
+            _conv2d(sd, f"{prefix}.residual.0", b["res_conv"])
+            _bn(sd, f"{prefix}.residual.1", b["res_bn"])
+        _put(sd, f"edge_importance.{i}", p[f"edge_importance_{i}"])
+        i += 1
+    _put(sd, "fcn.weight", np.asarray(p["fcn"]["kernel"]).T[:, :, None, None])
+    _put(sd, "fcn.bias", p["fcn"]["bias"])
     return sd
 
 

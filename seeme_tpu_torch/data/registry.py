@@ -7,7 +7,11 @@ test samples from seeds 0, 1 and 2; GIMO's 66 pose features, and its val
 split the test split, as `dataset.py:1840-1842` aliases them). HumanML3D
 and KIT read `<root>/HumanML3D` or `<root>/KIT-ML` through
 `data/humanml.py::HumanML3DDataModule`, which falls back to its synthetic
-splits when the folder is not there.
+splits when the folder is not there. HumanAct12 reads
+`<root>/HumanAct12Poses/humanact12poses.pkl` and UESTC
+`<root>/uestc/vibe_cache_refined.pkl` through `data/a2m.py` when they are
+there; otherwise `SyntheticA2MDataModule` (12 or 40 classes, 150
+features), draw for draw the JAX package's (`seeme_tpu/data/registry.py:141-222`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,13 @@ from typing import Sequence
 
 import numpy as np
 
+from .a2m import (
+    HUMANACT12_CLASSES,
+    UESTC_CLASSES,
+    A2MSplits,
+    HumanAct12DataModule,
+    UestcDataModule,
+)
 from .egobody import EgoBodyDataModule
 from .humanml import HUMANML_NFEATS, KIT_NFEATS, MIN_LEN, HumanML3DDataModule
 from .synthetic import SyntheticEgoDataset
@@ -79,8 +90,36 @@ class SyntheticDataModule:
         ds.extras[key] = np.asarray(values)
 
 
+class SyntheticA2MDataModule(A2MSplits):
+    """HumanAct12- / UESTC-shaped action-to-motion data: 240 train, 60 val
+    and 60 test samples (the JAX package's DEBUG size, 48, is not ported),
+    class-signature offsets shared by every split over a cumulative random
+    walk, each clip `num_frames` long."""
+
+    is_synthetic = True
+
+    def __init__(self, num_classes: int = 12, nfeats: int = 150, num_frames: int = 60,
+                 name: str = "humanact12"):
+        rng = np.random.RandomState(0)
+        n = 240
+        base = rng.randn(num_classes, 1, nfeats).astype(np.float32)
+
+        def make(n_samples, seed):
+            r = np.random.RandomState(seed)
+            labels = r.randint(0, num_classes, n_samples)
+            motion = np.cumsum(
+                r.randn(n_samples, num_frames, nfeats).astype(np.float32) * 0.02,
+                axis=1) + base[labels]
+            return {"motion": motion, "action": labels.astype(np.int32),
+                    "length": np.full(n_samples, num_frames, np.int32)}
+
+        self._splits = {"train": make(n, 0), "val": make(n // 4, 1), "test": make(n // 4, 2)}
+        self._finish(name, num_classes, nfeats)
+
+
 RELEASES = {"egobody": ("EgoBody", 72), "gimo": ("GIMO", 66)}  # name -> (folder, pose feats)
 T2M_RELEASES = {"humanml3d": ("HumanML3D", HUMANML_NFEATS), "kit": ("KIT-ML", KIT_NFEATS)}
+A2M_CLASSES = {"humanact12": HUMANACT12_CLASSES, "uestc": UESTC_CLASSES}
 
 
 def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int = 60,
@@ -89,7 +128,18 @@ def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int 
     """The datamodule of DATASET_NAME `name`: its release under `root` when
     it is there, else the synthetic data (`image_size` sizes its crops; a
     text-to-motion set takes clips of `min_len` to `motion_length` frames
-    and makes its synthetic text embeddings `text_dim` wide)."""
+    and makes its synthetic text embeddings `text_dim` wide; an
+    action-to-motion set's clips are `motion_length` frames)."""
+    if name == "humanact12":
+        path = os.path.join(root, "HumanAct12Poses", "humanact12poses.pkl")
+        if os.path.exists(path):
+            return HumanAct12DataModule(path, num_frames=motion_length)
+    if name == "uestc":
+        path = os.path.join(root, "uestc")
+        if os.path.exists(os.path.join(path, "vibe_cache_refined.pkl")):
+            return UestcDataModule(path, num_frames=motion_length)
+    if name in A2M_CLASSES:
+        return SyntheticA2MDataModule(A2M_CLASSES[name], num_frames=motion_length, name=name)
     if name in T2M_RELEASES:
         folder, nfeats = T2M_RELEASES[name]
         path = os.path.join(root, folder)
@@ -97,7 +147,7 @@ def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int 
                                    max_len=motion_length, min_len=min_len, text_dim=text_dim)
     if name not in RELEASES:
         raise KeyError(f"unknown dataset {name!r}; registered: "
-                       f"{sorted({**RELEASES, **T2M_RELEASES})}")
+                       f"{sorted({**RELEASES, **T2M_RELEASES, **A2M_CLASSES})}")
     folder, pose_feats = RELEASES[name]
     path = os.path.join(root, folder)
     if os.path.isdir(path):

@@ -1,13 +1,14 @@
-"""Evaluation CLI: the EgoBody/GIMO branch of `test.py` (`test.py:80-205`)
-and its text-to-motion branch (`_t2m_eval`, `test.py:222-364`).
+"""Evaluation CLI: the EgoBody/GIMO branch of `test.py` (`test.py:80-205`),
+its text-to-motion branch (`_t2m_eval`, `test.py:222-364`) and its
+action-to-motion branch (`_a2m_eval`, `test.py:365-450`).
 
     python -m seeme_tpu_torch.test --preset NAME [--batch_size N]
         [--replication_times N] [--checkpoint PATH] [--count_time]
         [--save_predictions] [--device cpu] [--out DIR]
         [model.FIELD=VALUE ...] [test.FIELD=VALUE ...]
 
-NAME is a preset of `config/egobody.py` or `config/humanml3d.py`. The
-system is built from it and,
+NAME is a preset of `config/egobody.py`, `config/humanml3d.py` or
+`config/a2m.py`. The system is built from it and,
 with a checkpoint (`--checkpoint`, else the preset's `test.checkpoint`: a
 trainer's `<step>.pt`, its experiment dir or `.../checkpoints/latest`),
 loaded; without one it evaluates the seeded random init, as `test.py`
@@ -42,6 +43,17 @@ weights. With `test.mm=True` it then samples the first
 a generator seeded with 7) and adds `MMMetrics`' MultiModality over the
 flattened features to every replication.
 
+An action-to-motion preset samples each test batch's labels (one
+kernel-5 launch a batch and replication on the card), classifies the
+sampled and the real motions with the recognition model of its dataset
+(HumanAct12: the GRU `MotionDiscriminator` on FK joints; UESTC: the
+`STGCN` on the rot6d block) and scores `ActionMetrics` (FID, accuracy,
+Diversity, MultiModality) over the `n_valid` rows. The evaluator runs its
+seeded random init unless `test.evaluator_checkpoint` names weights under
+the reference's keys. The JAX CLI samples through its scan unless
+TEST.USE_FUSED (`test.py:75-80`); the port routes by shape to kernel 5, as
+in its text-to-motion branch.
+
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
 float32 (TF32 off).
@@ -64,20 +76,28 @@ from .._device import full_float32, resolve_device
 from ..config.egobody import OUT_ROOT, apply_overrides
 from ..config.presets import PRESETS, build
 from ..core.masks import lengths_to_mask
+from ..core.rotation2xyz import POSE_FEATS
+from ..core.smpl import NUM_JOINTS
 from ..data.batch import eval_batches
 from ..data.synthetic import to_torch
+from ..convert import load_reference_checkpoint
+from ..eval.action_classifier import MotionDiscriminator
+from ..eval.action_metrics import ActionMetrics
 from ..eval.metrics import EgoMetric
+from ..eval.stgcn import STGCN
 from ..eval.stats import get_metric_statistics
 from ..eval.t2m_evaluator import T2MEvaluator
 from ..eval.t2m_metrics import MMMetrics, MRMetrics, TM2TMetrics
+from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
+from ..nn.init import init_parameters_
 from ..train.checkpoint import load_weights
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seeme_tpu_torch.test")
     p.add_argument("--preset", required=True, choices=sorted(PRESETS),
-                   help="a preset of config/egobody.py or config/humanml3d.py")
+                   help="a preset of config/egobody.py, config/humanml3d.py or config/a2m.py")
     p.add_argument("--batch_size", type=int, default=None, help="TEST.BATCH_SIZE")
     p.add_argument("--replication_times", type=int, default=None, help="TEST.REPLICATION_TIMES")
     p.add_argument("--checkpoint", default=None, help="TEST.CHECKPOINTS")
@@ -88,6 +108,32 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("overrides", nargs="*", default=[],
                    help="model.FIELD=VALUE, train.FIELD=VALUE or test.FIELD=VALUE")
     return p.parse_args(argv)
+
+
+def action_evaluator(dataset: str, num_classes: int, seed: int, device: torch.device,
+                     checkpoint: str = "") -> torch.nn.Module:
+    """The dataset's action-recognition model (`test.py:391-412`): UESTC's
+    ST-GCN, else the GRU; its weights from `checkpoint` (the reference's
+    keys), else its seeded random init with the graph's edge importances 1,
+    as the JAX init has them. Frozen, in eval mode."""
+    clf = (STGCN(num_class=num_classes) if dataset == "uestc"
+           else MotionDiscriminator(output_size=num_classes))
+    init_parameters_(clf, torch.Generator().manual_seed(seed))
+    if isinstance(clf, STGCN):
+        for p in clf.edge_importance:
+            torch.nn.init.ones_(p)
+    if checkpoint:
+        load_reference_checkpoint(clf, checkpoint)
+    return clf.requires_grad_(False).eval().to(device)
+
+
+def evaluator_inputs(system: A2MSystem, clf: torch.nn.Module,
+                     feats: torch.Tensor) -> torch.Tensor:
+    """What the recognition model reads of (B, T, 150) features: the rot6d
+    block (B, T, 24, 6) for the ST-GCN, FK joints (B, T, 72) for the GRU."""
+    if isinstance(clf, STGCN):
+        return feats[..., :POSE_FEATS].reshape(*feats.shape[:2], NUM_JOINTS, 6)
+    return system.feats_to_joints(feats).flatten(2)
 
 
 class Evaluator:
@@ -133,6 +179,8 @@ class Evaluator:
         "metrics_path", "times"}."""
         if isinstance(self.system, T2MSystem):
             return self._finish(*self._run_t2m())
+        if isinstance(self.system, A2MSystem):
+            return self._finish(*self._run_a2m())
         system, tc = self.system, self.preset.test
         T = self.preset.model.motion_length
         fact = None if tc.fact == 1 else float(tc.fact)
@@ -228,6 +276,39 @@ class Evaluator:
             value = mm.compute()
             replications = [dict(m, **value) for m in replications]
             self.log(f"MultiModality: {value['MultiModality']:.4f}")
+        return replications, times
+
+    def _run_a2m(self):
+        """The action-to-motion replications: (metrics of each, batch seconds)."""
+        system, tc = self.system, self.preset.test
+        clf = action_evaluator(self.preset.dataset, system.cfg.num_classes, self.seed,
+                               self.device, tc.evaluator_checkpoint)
+        self.log(f"loaded evaluator {tc.evaluator_checkpoint}" if tc.evaluator_checkpoint else
+                 "action evaluator running with its seeded random init "
+                 "(test.evaluator_checkpoint names weights)")
+        replications: List[Dict[str, float]] = []
+        times: List[float] = []
+        for rep in range(tc.replication_times):
+            metric = ActionMetrics(num_classes=system.cfg.num_classes)
+            gen = torch.Generator(device=self.device).manual_seed(self.seed + rep)
+            for batch_np, n_valid in eval_batches(self.datamodule, "test", tc.batch_size):
+                batch = to_torch(batch_np, self.device)
+                t0 = time.perf_counter()
+                feats = system.sample(batch["action"], generator=gen)
+                if tc.count_time:
+                    self._sync()
+                    times.append(time.perf_counter() - t0)
+                with torch.no_grad():
+                    logits_gen, feats_gen = clf(evaluator_inputs(system, clf, feats),
+                                                batch["length"])
+                    _, feats_real = clf(evaluator_inputs(system, clf, batch["motion"]),
+                                        batch["length"])
+                metric.update(feats_gen[:n_valid].cpu().numpy(),
+                              feats_real[:n_valid].cpu().numpy(),
+                              logits_gen[:n_valid].cpu().numpy(), batch_np["action"][:n_valid])
+            replications.append(metric.compute())
+            self.log(f"replication {rep}: " + " ".join(
+                f"{k}={v:.3f}" for k, v in sorted(replications[-1].items())))
         return replications, times
 
     def _finish(self, replications: List[Dict[str, float]], times: List[float]) -> Dict:

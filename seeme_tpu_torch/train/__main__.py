@@ -1,4 +1,5 @@
-"""Training CLI (`train.py`) for the ego and text-to-motion configs.
+"""Training CLI (`train.py`) for the ego, text-to-motion and
+action-to-motion configs.
 
     python -m seeme_tpu_torch.train --preset NAME
         [--batch_size N] [--epochs N] [--out DIR] [--resume DIR]
@@ -7,10 +8,13 @@
 NAME is a preset of `config/egobody.py` (vae_egobody, mld_egobody,
 mld_egobody_image, vae_gimo, mld_gimo, vae_interactee, mld_interactee) or
 of `config/humanml3d.py` (vae_humanml3d, mld_humanml3d, novae_humanml3d;
-`dataset=kit` trains them on KIT). The flow is `train.py`'s: the datamodule
-(the EgoBody, GIMO, HumanML3D or KIT release under `./datasets` when it is
-there, else the synthetic one), the system (`SeeMeSystem`, or `T2MSystem`
-for a text-to-motion preset, whose width in features follows the data),
+`dataset=kit` trains them on KIT) or of `config/a2m.py` (vae_humanact12,
+mld_humanact12, vae_uestc, mld_uestc). The flow is `train.py`'s: the
+datamodule (the EgoBody, GIMO, HumanML3D, KIT, HumanAct12 or UESTC release
+under `./datasets` when it is there, else the synthetic one), the system
+(`SeeMeSystem`; `T2MSystem` for a text-to-motion preset, whose width in
+features follows the data; `A2MSystem` for an action-to-motion one, whose
+classes follow the data too),
 stage 2's pretrained VAE, the optimizer, the resume; then stage 2's cache of the
 frozen encoders' features (`train.py:185-236`: the PointNet's `scene_feats`
 and the ResNet50's `image_feats`, in chunks of max(batch, 8), the tail
@@ -22,7 +26,9 @@ Python literal), as `train.py`'s dotted overrides do. A text-to-motion
 batch without `text_emb` (the releases) has its captions encoded on the
 host by the system's text encoder before the step (`train.py:337-367`);
 the text-to-motion presets have no feature cache, and `vae_type="no"`
-(novae_humanml3d) has no VAE stage.
+(novae_humanml3d) has no VAE stage. An action-to-motion batch is
+(`motion`, `action`, `length`) as the datamodule gives it; its stage 2
+trains `denoiser` and `embed_action` over the frozen VAE, with no cache.
 
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
@@ -50,6 +56,7 @@ from .._device import full_float32, resolve_device
 from ..config.egobody import OUT_ROOT, apply_overrides
 from ..config.presets import PRESETS, build
 from ..data.batch import eval_batches
+from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
 from .checkpoint import (
     clear_stale_steps,
@@ -67,7 +74,7 @@ from .state import make_optimizer
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seeme_tpu_torch.train")
     p.add_argument("--preset", required=True, choices=sorted(PRESETS),
-                   help="a preset of config/egobody.py or config/humanml3d.py")
+                   help="a preset of config/egobody.py, config/humanml3d.py or config/a2m.py")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None, help="END_EPOCH")
     p.add_argument("--out", default=None, help="experiment dir")
@@ -101,6 +108,7 @@ class Trainer:
         self.datamodule, self.system = build(preset, self.device)
         self.preset = preset = dataclasses.replace(preset, model=self.system.cfg)
         self.is_t2m = isinstance(self.system, T2MSystem)
+        self.is_a2m = isinstance(self.system, A2MSystem)
         if self.is_t2m and self.system.diffusion_only and self.stage == "vae":
             raise ValueError("the vae stage is undefined for vae_type 'no' "
                              "(config_novae_*: train the diffusion stage only)")
@@ -199,6 +207,9 @@ class Trainer:
         if self.is_t2m:
             for b in self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch):
                 yield self.system.encode_captions(b)
+            return
+        if self.is_a2m:
+            yield from self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch)
             return
         drop = {"scene", "image"} if self.stage == "vae" else set()
         if not self.system.use_image:

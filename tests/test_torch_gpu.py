@@ -17,7 +17,8 @@ hidden width 256 (128 points a CTA), at batch 1, 3 and 64 and tiles filled
 partly or not at all, and the ProHMR-Scene and EgoHMR evaluation paths on
 the card against the CPU at their CLIs' tiny sizes. The text-to-motion
 model's sampling at the shipped guidance 1.0 is one token-kernel launch
-over 64 condition rows. The fused PointNet's backward at both widths
+over 64 condition rows; so is the action-to-motion model's, with 12 and 40
+classes, at guidance 1.0 and 7.5. The fused PointNet's backward at both widths
 agrees with the eager module's autograd.
 """
 
@@ -26,6 +27,7 @@ import dataclasses
 import pytest
 import torch
 
+from seeme_tpu_torch.config.a2m import mld_humanact12
 from seeme_tpu_torch.config.humanml3d import mld_humanml3d
 
 from seeme_tpu_torch.core.smpl import synthetic_smpl
@@ -36,6 +38,7 @@ from seeme_tpu_torch.models.denoiser import Denoiser
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
+from seeme_tpu_torch.models.a2m import A2MSystem
 from seeme_tpu_torch.models.t2m import T2MSystem
 from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
 from seeme_tpu_torch.nn.pointnet import ResnetPointnet
@@ -332,6 +335,34 @@ def test_t2m_guidance_one_sample_is_one_launch(cuda, text_dim):
                                   weights=system.kernel_operands()[1])
     assert rel_err(z_kernel, z_plain) < 1e-3
     assert rel_err(feats, system.vae.decode(z_plain, cfg.max_len)) < 1e-3
+
+
+@pytest.mark.parametrize("classes,guidance", [(12, 1.0), (12, 7.5), (40, 1.0), (40, 7.5)])
+def test_a2m_sample_is_one_kernel_launch(cuda, classes, guidance):
+    """`A2MSystem.sample` at the shipped width (latent 256, ff 128, one
+    action token, no emb_proj) on 64 labels: one token-kernel launch over
+    64 or 128 condition rows, the latent within 1e-3 of max |z| of the
+    plain version, the features within 1e-3 of the decoded plain latent."""
+    cfg = dataclasses.replace(mld_humanact12().model, num_classes=classes,
+                              guidance_scale=guidance)
+    system = A2MSystem(cfg, device=cuda, seed=3)
+    perturb_parameters_(system, torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    labels = torch.randint(0, classes, (64,), generator=g).to(cuda)
+    z0 = torch.randn(64, 1, 256, generator=g).to(cuda)
+    before = dfu.ddim_fused_tok.launches
+    feats = system.sample(labels, z_init=z0)
+    assert dfu.ddim_fused_tok.launches == before + 1 and feats.shape == (64, 60, 150)
+    cond = system.embed_action(labels)
+    if guidance > 1:
+        cond = torch.cat([torch.zeros_like(cond), cond])
+    sd, weights = system.kernel_operands()
+    z_plain = dfu.ddim_fused_plain(sd, cond, z0, system.schedule, 50, 5, guidance,
+                                   md_trans=False)
+    z_kernel = dfu.ddim_fused_tok(sd, cond, z0, system.schedule, 50, 5, guidance,
+                                  weights=weights)
+    assert rel_err(z_kernel, z_plain) < 1e-3
+    assert rel_err(feats, system.vae.decode(z_plain, cfg.num_frames)) < 1e-3
 
 
 def test_ddim_tok_refuses_bad_input(cuda):

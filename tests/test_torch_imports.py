@@ -16,6 +16,7 @@ import seeme_tpu_torch
 from seeme_tpu_torch._device import resolve_device
 from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.eval.t2m_evaluator import T2MEvaluator
+from seeme_tpu_torch.models.a2m import A2MConfig, A2MSystem
 from seeme_tpu_torch import test_egohmr, test_prohmr_scene, train_egohmr, train_prohmr_scene
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
@@ -68,7 +69,11 @@ def test_every_module_imports():
             "seeme_tpu_torch.models.text_encoder", "seeme_tpu_torch.data.word_vectorizer",
             "seeme_tpu_torch.config.humanml3d", "seeme_tpu_torch.config.presets",
             "seeme_tpu_torch.core.collision", "seeme_tpu_torch.data.augmentation",
-            "seeme_tpu_torch.train_prohmr_scene", "seeme_tpu_torch.train_egohmr"} <= set(names)
+            "seeme_tpu_torch.train_prohmr_scene", "seeme_tpu_torch.train_egohmr",
+            "seeme_tpu_torch.models.a2m", "seeme_tpu_torch.nn.action",
+            "seeme_tpu_torch.core.rotation2xyz", "seeme_tpu_torch.data.a2m",
+            "seeme_tpu_torch.config.a2m", "seeme_tpu_torch.eval.action_classifier",
+            "seeme_tpu_torch.eval.stgcn", "seeme_tpu_torch.eval.action_metrics"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -93,6 +98,8 @@ def test_entry_points_raise_without_cuda():
         SeeMeSystem(SeeMeConfig(), synthetic_smpl(32), np.zeros(75), np.ones(75))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T2MSystem(T2MConfig(), np.zeros(263), np.ones(263))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        A2MSystem(A2MConfig(), synthetic_smpl(32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T2MEvaluator(text_hidden=8, move_hidden=8, move_out=8, motion_hidden=8, output_size=8)
     small = synthetic_smpl(32)

@@ -440,7 +440,7 @@ def test_egobody_datamodule_matches_jax(tmp_path):
     assert isinstance(get_datamodule("egobody", root=str(tmp_path)), EgoBodyDataModule)
     assert isinstance(get_datamodule("egobody", root=str(tmp_path / "absent")), SyntheticDataModule)
     with pytest.raises(KeyError, match="gimo"):  # the error lists the registered datasets
-        get_datamodule("humanact12")
+        get_datamodule("babel")
 
 
 # --------------------------------------------------------- presets, CLI
