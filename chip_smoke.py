@@ -4,8 +4,10 @@ image-conditioned, GIMO and interactee-only configs, both training stages,
 the test CLI), HumanML3D text-to-motion (sampling, both training stages,
 the test CLI, the diffusion-only model and the token text mode), the
 ProHMR-Scene and EgoHMR perception stack's evaluation and training paths,
-and HumanAct12 / UESTC action-to-motion (sampling, both training stages,
-the test CLI with either evaluator).
+HumanAct12 / UESTC action-to-motion (sampling, both training stages, the
+test CLI with either evaluator), multi-token latents through both DDIM
+kernels with a multi-token EgoBody config from the shipped YAML, and the
+root entry points `demo`, `scene_encoder` and `fit` through `--cfg`.
 
     python3 chip_smoke.py
 
@@ -61,7 +63,9 @@ Phases, each printing one line with its seconds as soon as it ends:
   9. `sample_from_cond` on the trained stage-2 weights (expected: DDIM 1),
      the kernel within 1e-3 of max|z| of its plain version on the same
      updated weights, which shows the kernel-layout copies followed AdamW's
-     in-place update;
+     in-place update; the stage-1 model (`vae_egobody`, MD_TRANS false: the
+     token-concat stack) samples once through kernel 5 (token kernel 1),
+     within 1e-3 of max|z| of its plain version;
  10. one step of each stage at the CPU tests' small size (d=32, 3 layers, 64
      points, B=3, dropout 0) on the card and on the CPU with the same draws:
      loss within 1e-4 relative, every gradient within 1e-3 of its tensor's
@@ -170,13 +174,47 @@ Phases, each printing one line with its seconds as soon as it ends:
  32. the test CLI on trained checkpoints (`mld_humanact12` with the GRU,
      `mld_uestc`, one epoch over the stage-1 VAE, with the ST-GCN), 2
      replications each (expected: token kernel 2 each), finite FID /
-     accuracy / Diversity / MultiModality; both evaluators' ms at B=64.
+     accuracy / Diversity / MultiModality; both evaluators' ms at B=64;
+ 33. kernel 3 at latent [T, 256], T = 1, 2 and 10 (NC=2, B=64, 50 steps,
+     guidance 1.0 and 2.5, T = 1 timed again on the same weights): error
+     against the plain version (1e-3 of max|z|), ms, plain ms, bound and f32
+     bound from the operation count at that T, launch plan with the
+     samples a cluster carries;
+ 34. kernel 5 the same way at the T2M shape (text 768, guidance 7.5) and
+     the shipped preset's (text 256, guidance 1.0); `T2MSystem.sample` at
+     latent [2, 256] and [10, 256], B=64 (expected: token kernel 1 at that
+     T, counted by token count);
+ 35. `configs/config_mld_egobody.yaml` with `model.latent_dim=[2,256]`
+     through the port's loader: stage 1 and stage 2 through the train CLI's
+     `--cfg` (falling epoch loss; cache fill 5 / 15; fixed-draw val loss
+     falling), the stage-1 model (MD_TRANS false in its YAML: the
+     token-concat stack) sampling at T = 2 (expected: token kernel at T=2
+     once; the kernel within 1e-3 of max|z| of its plain version), the
+     sampling slice on the trained weights (encode -> kernel
+     3 -> decode -> FK -> `EgoMetric`; expected: input block 1, split block
+     3, kernel 3 at T=2 once), card vs CPU at B=2, and `sample_from_cond`
+     at latent [10, 256] (kernel 3 at T=10 once);
+ 36. the same config with `model.fused_variant=grid`: `ddim_fused` at T=2
+     once, not the grid entry, features equal to the loop variant's;
+ 37. `python -m seeme_tpu_torch.demo --cfg config_mld_egobody.yaml --mesh`
+     (expected: 1 / 3 / kernel 3 once): samples, ground truth, meshes,
+     faces, finite;
+ 38. the demo with `config_mld_humanml3d.yaml` and an `--example` file
+     (kernel 5 once), `--task random_sampling` (nothing) and
+     `config_mld_humanact12.yaml --actions 0,3,7` (kernel 5 once);
+ 39. `python -m seeme_tpu_torch.scene_encoder` (20 000 points; kernels 1 / 2
+     at H=256 once / three times) against the plain twin (1e-4 of max|out|);
+ 40. `python -m seeme_tpu_torch.fit` over the ego demo's first sample, 100
+     Adam steps on the card: falling loss, finite parameters, host time.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
 path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
 at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
 the ProHMR-Scene slice; the PointNet rows carry phase 27's `backward`
 numbers; kernel 5 also as `ddim_tok_t1_a2m`, at the shipped a2m shape,
-whose main path is phase 30's HumanAct12 slice at guidance 1.0), the
+whose main path is phase 30's HumanAct12 slice at guidance 1.0; kernels 3
+and 5 at T = 2 and 10 as `ddim_md_t2`, `ddim_md_t10`, `ddim_tok_t2`,
+`ddim_tok_t10`, with guidance 2.5 / the preset's shape beside them and the
+T = 1 time of the same phase; their main paths are phases 34-35), the
 card's name and power limit, and, last, `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero at once. Random weights: the seeded init
 plus a seeded perturbation, so the zero-initialized output projections
@@ -237,6 +275,20 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn):
+    """(fn(), its ms by CUDA events): one run, for a plain version whose
+    output is compared too."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def compare(name: str, got, want, scale: float, rtol: float) -> float:
@@ -410,7 +462,8 @@ def main() -> int:
               f"{bound_f32_ms(flops, nbytes):.4f} ms)", t)
         t = time.perf_counter()
         if name:
-            kernels.append(dict(name=name, route="cuda", source="seeme_tpu_torch/csrc/ddim_md.cu",
+            kernels.append(dict(name=name, route="cuda",
+                                source="seeme_tpu_torch/csrc/ddim_md_t1.cu",
                                 replaces="seeme_tpu/ops/denoiser_fused.py:"
                                 + ("597" if name == "ddim_md_t1" else "757"),
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
@@ -470,7 +523,7 @@ def main() -> int:
         t = time.perf_counter()
         if g == t2m_cfg.guidance_scale:  # the T2M path's guidance
             kernels.append(dict(name="ddim_tok_t1", route="cuda",
-                                source="seeme_tpu_torch/csrc/ddim_tok.cu",
+                                source="seeme_tpu_torch/csrc/ddim_tok_t1.cu",
                                 replaces="seeme_tpu/ops/denoiser_fused.py:597",
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
                                 flops=flops))
@@ -490,29 +543,47 @@ def main() -> int:
           f"{bound_ms(flops, nbytes):.4f} ms", t)
     del z_k, z_p
 
-    # each kernel of the JSON line: its wrapper, and the hidden width of a
-    # PointNet instantiation (the wrappers count launches by width too)
+    # each kernel of the JSON line: its wrapper, and what it counts by: the
+    # hidden width of a PointNet instantiation (the wrappers count launches
+    # by width too), or a DDIM kernel's latent token count ("tokens", T);
+    # None counts every launch of the wrapper
     counters = {"pointnet_input_block": (pfu.fused_input_block, 512),
                 "pointnet_split_block": (pfu.fused_split_block, 512),
-                "ddim_md_t1": (dfu.ddim_fused, None), "ddim_fused_grid": (dfu.ddim_fused_grid, None),
-                "ddim_tok_t1": (dfu.ddim_fused_tok, None),
+                "ddim_md_t1": (dfu.ddim_fused, ("tokens", 1)),
+                "ddim_fused_grid": (dfu.ddim_fused_grid, None),
+                "ddim_tok_t1": (dfu.ddim_fused_tok, ("tokens", 1)),
                 "pointnet_input_block_h256": (pfu.fused_input_block, 256),
-                "pointnet_split_block_h256": (pfu.fused_split_block, 256)}
+                "pointnet_split_block_h256": (pfu.fused_split_block, 256),
+                "ddim_md_t2": (dfu.ddim_fused, ("tokens", 2)),
+                "ddim_md_t10": (dfu.ddim_fused, ("tokens", 10)),
+                "ddim_tok_t2": (dfu.ddim_fused_tok, ("tokens", 2)),
+                "ddim_tok_t10": (dfu.ddim_fused_tok, ("tokens", 10))}
+
+    def read(fn, key):
+        if key is None:
+            return fn.launches
+        if isinstance(key, tuple):
+            return fn.launches_by_tokens.get(key[1], 0)
+        return fn.launches_by_width[key]
 
     def counted(run):
         """Run with every launch count set to 0 just before; return the
         result and the counts read just after."""
-        for fn, width in counters.values():
+        for fn, key in counters.values():
             fn.launches = 0
-            if width is not None:
+            if hasattr(fn, "launches_by_tokens"):
+                fn.launches_by_tokens = {}
+            if isinstance(key, int):
                 fn.launches_by_width = dict.fromkeys(pfu.WIDTHS, 0)
         out = run()
         torch.cuda.synchronize()
         for fn in (pfu.fused_input_block, pfu.fused_split_block):
             require(fn.launches == sum(fn.launches_by_width.values()),
                     f"{fn.__name__}: {fn.launches} launches, by width {fn.launches_by_width}")
-        return out, {name: fn.launches if width is None else fn.launches_by_width[width]
-                     for name, (fn, width) in counters.items()}
+        for fn in (dfu.ddim_fused, dfu.ddim_fused_tok):
+            require(fn.launches == sum(fn.launches_by_tokens.values()),
+                    f"{fn.__name__}: {fn.launches} launches, by tokens {fn.launches_by_tokens}")
+        return out, {name: read(fn, key) for name, (fn, key) in counters.items()}
 
     launches = {}
     by_path = {name: {} for name in counters}  # every kernel's launches on every path
@@ -652,6 +723,12 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="seeme_a2m_")
     try:
         a2m_phases(dev, counted, counters, record, kernels, launches, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="seeme_multitoken_")
+    try:
+        multitoken_phases(dev, counted, counters, record, kernels, launches, work)
+        entry_phases(dev, counted, counters, record, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -823,7 +900,10 @@ def train_phases(dev, counted, counters, record, work: str) -> str:
     plain_feats = system.vae.decode(z_p, system.cfg.motion_length)
     compare("sampled features on the trained weights", feats, plain_feats,
             float(plain_feats.abs().max()), SLICE_RTOL)
-    phase(f"sampling after training (B={cond.shape[0]}): launches {counts}", t)
+    stage1_through_kernel5(s1.system, vb, counted, none, record, "egobody_stage1_sampling_t1")
+    phase(f"sampling after training (B={cond.shape[0]}): launches {counts}; the stage-1 model "
+          f"(md_trans False) through kernel 5 once, within {DDIM_RTOL:.0e} of the plain version",
+          t)
     s1_checkpoint = s1.checkpoints[-1]
     del s1, s2, system
     torch.cuda.empty_cache()
@@ -2083,7 +2163,7 @@ def a2m_phases(dev, counted, counters, record, kernels: list, launches: dict, wo
             if dataset == "humanact12" and g == 1.0:  # the shipped config's shape
                 launches["ddim_tok_t1_a2m"] = counts["ddim_tok_t1"]
                 kernels.append(dict(name="ddim_tok_t1_a2m", counter="ddim_tok_t1", route="cuda",
-                                    source="seeme_tpu_torch/csrc/ddim_tok.cu",
+                                    source="seeme_tpu_torch/csrc/ddim_tok_t1.cu",
                                     replaces="seeme_tpu/ops/denoiser_fused.py:597",
                                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
                                     flops=flops))
@@ -2222,6 +2302,436 @@ def a2m_phases(dev, counted, counters, record, kernels: list, launches: dict, wo
           f"trained checkpoints): launches {2 * batches} each, metric means "
           f"{json.dumps(results)}; evaluators at B={BATCH} (ms, CUDA events) "
           f"{json.dumps({k: round(v, 3) for k, v in clf_ms.items()})}", t)
+
+
+MULTI_TOKENS = (2, 10)  # latent token counts past one (MLD-2 ... MLD-10)
+
+
+def stage1_through_kernel5(system, batch, counted, none, record, path: str) -> None:
+    """A stage-1 EgoBody model (MD_TRANS false in its YAML: the token-concat
+    stack) samples from `batch` through kernel 5, once, and the kernel
+    agrees with its plain version on the same inputs."""
+    import torch
+
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.train.state import set_stage
+
+    set_stage(system, None)  # eval mode, dropout off: the sampling default
+    c, T = system.cfg, system.cfg.latent_dim[0]
+    cond = system.encode_conditioning(batch)
+    z0 = torch.randn(len(cond), T, 256, generator=torch.Generator().manual_seed(SEED + 57 + T))
+    z0 = z0.to(cond.device)
+    feats, counts = counted(lambda: system.sample_from_cond(cond, z_init=z0))
+    require(not c.md_trans and counts == {**none, f"ddim_tok_t{T}": 1},
+            f"{path} launch counts {counts}")
+    require(tuple(feats.shape) == (len(cond), c.motion_length, c.nfeats)
+            and bool(torch.isfinite(feats).all()), f"{path} features")
+    record(path, counts)
+    sd, weights, _ = system.kernel_operands()
+    args = (sd, cond, z0, system.schedule, c.num_inference_timesteps, c.num_layers,
+            c.guidance_scale)
+    z_p = dfu.ddim_fused_plain(*args, md_trans=False)
+    compare(f"{path}: ddim_fused_tok (NC={cond.shape[1]}) vs plain",
+            dfu.ddim_fused_tok(*args, weights=weights), z_p, float(z_p.abs().max()), DDIM_RTOL)
+
+
+def kernel_row(name, source, err, ms, plain_ms, flops, nbytes, **extra) -> dict:
+    return dict(name=name, route="cuda", source=source,
+                replaces="seeme_tpu/ops/denoiser_fused.py:597", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, flops=flops, **extra)
+
+
+def multitoken_phases(dev, counted, counters, record, kernels: list, launches: dict,
+                      work: str) -> None:
+    """Phases 33-36: multi-token latents. 33: kernel 3's general instance at
+    T = 2 and 10 against its plain version at B = 64, guidance 1.0 and 2.5,
+    T = 1 timed again beside it on the same weights; 34: kernel 5 the same
+    way at the T2M shape (text 768, guidance 7.5) and the shipped preset's
+    (text 256, guidance 1.0), then `T2MSystem.sample` at T = 2 and 10,
+    counted; 35: `config_mld_egobody.yaml` with `model.latent_dim=[2,256]`
+    through the port's loader: both training stages through the train CLI's
+    `--cfg`, the stage-1 model (`md_trans=False`) through kernel 5 at T = 2,
+    the sampling slice on the trained weights (one kernel-3 launch),
+    card against CPU at B = 2, and T = 10 sampling counted; 36: the same
+    config with `fused_variant: grid` still launches `ddim_fused`."""
+    import torch
+
+    from seeme_tpu_torch.config.build import preset_from_yaml
+    from seeme_tpu_torch.config.loader import load_config, parse_dotted_overrides
+    from seeme_tpu_torch.config.presets import build
+    from seeme_tpu_torch.core.masks import lengths_to_mask
+    from seeme_tpu_torch.core.smpl import synthetic_smpl
+    from seeme_tpu_torch.data.batch import eval_batches
+    from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
+    from seeme_tpu_torch.eval.metrics import EgoMetric
+    from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
+    from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.train.__main__ import Trainer, parse_args
+    from seeme_tpu_torch.train.__main__ import main as train_main
+    from seeme_tpu_torch.train.loop import validate
+    from seeme_tpu_torch.train.state import set_stage
+
+    none = {k: 0 for k in counters}
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    B = BATCH
+
+    # ---- 33. kernel 3 at T = 1, 2, 10
+    t = time.perf_counter()
+    cfg = SeeMeConfig()
+    data = SyntheticEgoDataset(B, cfg.motion_length, scene_points=cfg.scene_points, seed=SEED)
+    system = SeeMeSystem(cfg, synthetic_smpl(n_verts=6890, seed=SEED), data.mean, data.std,
+                         device=dev, seed=SEED)
+    perturb_parameters_(system, torch.Generator().manual_seed(SEED + 1))
+    batch = to_torch(data.batch(0, B), dev)
+    cond = system.encode_conditioning(batch)
+    zeroed = dict(batch, feats=torch.zeros_like(batch["feats"]),
+                  transl=torch.zeros_like(batch["transl"]), scene=torch.zeros_like(batch["scene"]))
+    cond_cfg = torch.cat([system.encode_conditioning(zeroed), cond]).contiguous()
+    sd, weights, _ = system.kernel_operands()
+    steps, L = cfg.num_inference_timesteps, cfg.num_layers
+    src = "seeme_tpu_torch/csrc/ddim_md.cu"
+    t1 = {}
+    for T in (1, *MULTI_TOKENS):
+        for g, c in ((1.0, cond), (2.5, cond_cfg)):
+            z0 = torch.randn(B, T, 256, generator=torch.Generator().manual_seed(SEED + 40 + T))
+            args = (sd, c, z0.to(dev), system.schedule, steps, L, g)
+            if T == 1:  # held to its plain version in phase 3, on the same weights
+                t1[g] = time_ms(lambda: dfu.ddim_fused(*args, weights=weights), 3)
+                continue
+            z_k = dfu.ddim_fused(*args, weights=weights)
+            z_p, plain_ms = timed(lambda: dfu.ddim_fused_plain(*args))
+            err = compare(f"ddim_fused T={T} guidance {g}", z_k, z_p, float(z_p.abs().max()),
+                          DDIM_RTOL)
+            info = dfu.cluster_launch(True, B, c.shape[1], weights, g, tokens=T)
+            print_launch(info)
+            ms = time_ms(lambda: dfu.ddim_fused(*args, weights=weights), 3)
+            flops = ddim_flops(sd, L, c.shape[0], c.shape[1], steps, T)
+            nbytes = 4 * (sum(v.numel() for v in sd.values()) + c.numel() + 2 * z0.numel()
+                          + 2 * steps)
+            phase(f"kernel ddim_md T={T} (B={B}, NC={c.shape[1]}, guidance {g}, {steps} "
+                  f"steps, {info.get('samples', '-')} samples a cluster): {ms:.3f} ms (T=1 "
+                  f"{t1[g]:.3f} ms), plain {plain_ms:.3f} ms, bound {bound_ms(flops, nbytes):.4f} "
+                  f"ms ({bound_by(flops, nbytes)}), f32 bound {bound_f32_ms(flops, nbytes):.4f} ms",
+                  t)
+            t = time.perf_counter()
+            if g == 1.0:
+                kernels.append(kernel_row(f"ddim_md_t{T}", src, err, ms, plain_ms, flops, nbytes,
+                                          samples_a_cluster=info["samples"],
+                                          t1_ms_same_phase=t1[g]))
+            else:
+                kernels[-1]["guidance_2_5"] = dict(
+                    ms=ms, plain_ms=plain_ms, max_abs_err=err, t1_ms_same_phase=t1[g],
+                    bound_ms=bound_ms(flops, nbytes), samples_a_cluster=info["samples"])
+    del system, cond, cond_cfg, batch, z_k, z_p
+    torch.cuda.empty_cache()
+
+    # ---- 34. kernel 5 at T = 1, 2, 10, both shapes; T2MSystem.sample at T = 2, 10
+    src = "seeme_tpu_torch/csrc/ddim_tok.cu"
+    rows = {}
+    for text_dim, g in ((768, 7.5), (256, 1.0)):
+        t = time.perf_counter()
+        t2m_cfg = dataclasses.replace(T2MConfig(), text_encoded_dim=text_dim, guidance_scale=g)
+        t2m = T2MSystem(t2m_cfg, torch.zeros(263), torch.ones(263), device=dev, seed=SEED)
+        perturb_parameters_(t2m, torch.Generator().manual_seed(SEED + 5))
+        tsd, tw = t2m.kernel_operands()
+        text = torch.randn(B, 1, text_dim, generator=torch.Generator().manual_seed(SEED + 50))
+        text = text.to(dev)
+        c = (torch.cat([torch.zeros_like(text), text]) if g > 1 else text).contiguous()
+        for T in (1, *MULTI_TOKENS):
+            z0 = torch.randn(B, T, 256, generator=torch.Generator().manual_seed(SEED + 60 + T))
+            args = (tsd, c, z0.to(dev), t2m.schedule, steps, t2m_cfg.num_layers, g)
+            if T == 1:  # held to its plain version in phases 5 and 23
+                t1[(text_dim, g)] = time_ms(lambda: dfu.ddim_fused_tok(*args, weights=tw), 3)
+                continue
+            z_k = dfu.ddim_fused_tok(*args, weights=tw)
+            z_p, plain_ms = timed(lambda: dfu.ddim_fused_plain(*args, md_trans=False))
+            err = compare(f"ddim_fused_tok T={T} text {text_dim} guidance {g}", z_k, z_p,
+                          float(z_p.abs().max()), DDIM_RTOL)
+            info = dfu.cluster_launch(False, B, 1, tw, g, tokens=T)
+            print_launch(info)
+            ms = time_ms(lambda: dfu.ddim_fused_tok(*args, weights=tw), 3)
+            flops = tok_flops(tsd, t2m_cfg.num_layers, c.shape[0], 1, steps, T)
+            nbytes = 4 * (sum(v.numel() for v in tsd.values()) + c.numel() + 2 * z0.numel()
+                          + 2 * steps)
+            phase(f"kernel ddim_tok T={T} (B={B}, text {text_dim}, guidance {g}, "
+                  f"{info.get('samples', '-')} samples a cluster): {ms:.3f} ms (T=1 "
+                  f"{t1[(text_dim, g)]:.3f} ms), plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms(flops, nbytes):.4f} ms ({bound_by(flops, nbytes)}), f32 bound "
+                  f"{bound_f32_ms(flops, nbytes):.4f} ms", t)
+            t = time.perf_counter()
+            if text_dim == 768:
+                rows[T] = kernel_row(f"ddim_tok_t{T}", src, err, ms, plain_ms, flops, nbytes,
+                                     samples_a_cluster=info["samples"],
+                                     t1_ms_same_phase=t1[(text_dim, g)])
+                kernels.append(rows[T])
+            else:
+                rows[T]["preset_shape"] = dict(
+                    ms=ms, plain_ms=plain_ms, max_abs_err=err, t1_ms_same_phase=t1[(text_dim, g)],
+                    bound_ms=bound_ms(flops, nbytes), samples_a_cluster=info["samples"])
+        del t2m, z_k, z_p
+    for T in MULTI_TOKENS:
+        t = time.perf_counter()
+        t2m = T2MSystem(dataclasses.replace(T2MConfig(), latent_dim=(T, 256)), torch.zeros(263),
+                        torch.ones(263), device=dev, seed=SEED)
+        perturb_parameters_(t2m, torch.Generator().manual_seed(SEED + 5))
+        text = torch.randn(B, 768, generator=torch.Generator().manual_seed(SEED + 51)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+        t0 = time.perf_counter()
+        feats, counts = counted(lambda: t2m.sample(text, generator=gen))
+        wall = time.perf_counter() - t0
+        require(tuple(feats.shape) == (B, 196, 263) and bool(torch.isfinite(feats).all()),
+                f"t2m T={T} features {tuple(feats.shape)}")
+        require(counts == {**none, f"ddim_tok_t{T}": 1}, f"t2m T={T} launch counts {counts}")
+        launches[f"ddim_tok_t{T}"] = counts[f"ddim_tok_t{T}"]
+        record(f"t2m_sampling_t{T}", counts)
+        phase(f"T2MSystem.sample at latent [{T}, 256] (B={B}, guidance 7.5): launches {counts}, "
+              f"{wall:.3f} s on the host clock", t)
+        del t2m
+    torch.cuda.empty_cache()
+
+    # ---- 35. the multi-token EgoBody config from the shipped YAML
+    t = time.perf_counter()
+    two = ["model.latent_dim=[2,256]"]
+    vae_yaml = os.path.join(configs, "config_vae_egobody.yaml")
+    mld_yaml = os.path.join(configs, "config_mld_egobody.yaml")
+    s1, counts = counted(lambda: train_main(["--cfg", vae_yaml, "--epochs", "2", "--out",
+                                             os.path.join(work, "s1"), *two]))
+    require(counts == none, f"T=2 stage 1 launch counts {counts}")
+    record("train_stage1_t2", counts)
+    first, last = s1.history[0]["means"]["total"], s1.history[-1]["means"]["total"]
+    require(s1.system.cfg.latent_dim == (2, 256) and math.isfinite(last) and last < first,
+            f"T=2 stage 1 epoch losses {first} -> {last}")
+    phase(f"train stage 1 from --cfg config_vae_egobody.yaml {two[0]} (B={s1.batch_size}): "
+          f"epoch means {first:.5f} -> {last:.5f}, launches {counts}", t)
+
+    t = time.perf_counter()
+    batch1 = to_torch(next(eval_batches(s1.datamodule, "test", B))[0], dev)
+    stage1_through_kernel5(s1.system, batch1, counted, none, record, "egobody_stage1_sampling_t2")
+    phase(f"the stage-1 model at latent [2, 256] (md_trans False) samples through kernel 5 "
+          f"(B={B}): one launch, within {DDIM_RTOL:.0e} of the plain version", t)
+
+    t = time.perf_counter()
+    s2 = Trainer(parse_args(["--cfg", mld_yaml, "--epochs", "2", "--out",
+                             os.path.join(work, "s2"), "--pretrained_vae", s1.checkpoints[-1],
+                             *two]))
+    _, counts = counted(s2.fill_feature_cache)
+    require(counts == {**none, "pointnet_input_block": 5, "pointnet_split_block": 15},
+            f"T=2 cache fill launch counts {counts}")
+
+    def fixed_eval_loss():
+        set_stage(s2.system, None)
+        out = validate(s2.system, "diffusion", eval_batches(s2.datamodule, "val", 64))["total"]
+        set_stage(s2.system, "diffusion")
+        return out
+
+    before = fixed_eval_loss()
+    _, counts = counted(s2.fit)
+    require(counts == none, f"T=2 stage 2 launch counts {counts}")
+    record("train_stage2_t2", counts)
+    after = fixed_eval_loss()
+    first, last = s2.history[0]["means"]["total"], s2.history[-1]["means"]["total"]
+    require(math.isfinite(last) and after < before,
+            f"T=2 stage 2 fixed-draw val loss {before} -> {after}")
+    phase(f"train stage 2 from --cfg config_mld_egobody.yaml {two[0]}: epoch means "
+          f"{first:.5f} -> {last:.5f}, fixed-draw val {before:.5f} -> {after:.5f}", t)
+
+    t = time.perf_counter()
+    system = s2.system
+    set_stage(system, None)  # eval mode, dropout off: the sampling default
+    batch_np, n_valid = next(eval_batches(s2.datamodule, "test", B))
+    batch = to_torch(batch_np, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+
+    def ego_slice():
+        feats = system.sample_from_cond(system.encode_conditioning(batch), generator=gen)
+        out = system.eval_fk(batch, feats)
+        metric = EgoMetric(split="test")
+        mask = lengths_to_mask(batch["length"].long(), system.cfg.motion_length)
+        metric.update(out["joints_rst"][:n_valid], out["joints_ref"][:n_valid],
+                      out["quat_rst"][:n_valid], out["quat_ref"][:n_valid], mask[:n_valid])
+        return feats, out, metric.compute()
+
+    t0 = time.perf_counter()
+    (feats, out, means), counts = counted(ego_slice)
+    wall = time.perf_counter() - t0
+    require(tuple(feats.shape) == (B, 60, system.cfg.nfeats), f"T=2 features {feats.shape}")
+    require(all(bool(torch.isfinite(v).all()) for v in out.values()), "T=2 outputs not finite")
+    require(all(math.isfinite(v) for v in means.values()), f"T=2 EgoMetric {means}")
+    require(counts == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3,
+                       "ddim_md_t2": 1}, f"T=2 slice launch counts {counts}")
+    launches["ddim_md_t2"] = counts["ddim_md_t2"]
+    record("egobody_sampling_t2", counts)
+    phase(f"EgoBody slice at latent [2, 256] (trained stage 2, B={B}): launches {counts}, "
+          f"EgoMetric {json.dumps({k: round(v, 4) for k, v in means.items()})}, "
+          f"{wall:.3f} s on the host clock", t)
+
+    t = time.perf_counter()
+    preset = preset_from_yaml(load_config(mld_yaml, overrides=parse_dotted_overrides(two)))
+    _, cpu_system = build(preset, torch.device("cpu"))
+    cpu_system.load_state_dict({k: v.cpu() for k, v in system.state_dict().items()})
+    small = {k: v[:2].cpu() for k, v in batch.items()}
+    small["scene"] = small["scene"][:, :512].contiguous()
+    z_small = torch.randn(2, 2, 256, generator=torch.Generator().manual_seed(SEED + 54))
+    ref = cpu_system.sample_from_cond(cpu_system.encode_conditioning(small), z_init=z_small)
+    ref_j = cpu_system.eval_fk(small, ref)["joints_rst"]
+    got = system.sample_from_cond(
+        system.encode_conditioning({k: v.to(dev) for k, v in small.items()}),
+        z_init=z_small.to(dev))
+    got_j = system.eval_fk({k: v.to(dev) for k, v in small.items()}, got)["joints_rst"]
+    compare("T=2 slice features, card vs CPU", got.cpu(), ref, float(ref.abs().max()), SLICE_RTOL)
+    compare("T=2 slice joints, card vs CPU", got_j.cpu(), ref_j, float(ref_j.abs().max()),
+            SLICE_RTOL)
+    del cpu_system
+    phase("T=2 slice reference: card path agrees with the CPU plain path (B=2, 512 points)", t)
+
+    t = time.perf_counter()
+    ten = load_config(mld_yaml, overrides=parse_dotted_overrides(["model.latent_dim=[10,256]"]))
+    _, system10 = build(preset_from_yaml(ten), dev)
+    perturb_parameters_(system10, torch.Generator().manual_seed(SEED + 1))
+    cond = system10.encode_conditioning(batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 55)
+    t0 = time.perf_counter()
+    feats, counts = counted(lambda: system10.sample_from_cond(cond, generator=gen))
+    wall = time.perf_counter() - t0
+    require(tuple(feats.shape) == (B, 60, system10.cfg.nfeats)
+            and bool(torch.isfinite(feats).all()), "T=10 features")
+    require(counts == {**none, "ddim_md_t10": 1}, f"T=10 sampling launch counts {counts}")
+    launches["ddim_md_t10"] = counts["ddim_md_t10"]
+    record("egobody_sampling_t10", counts)
+    del system10
+    phase(f"sample_from_cond at latent [10, 256] (B={B}): launches {counts}, {wall:.3f} s on the "
+          "host clock", t)
+
+    # ---- 36. the grid variant at T = 2 still launches ddim_fused
+    t = time.perf_counter()
+    grid_cfg = load_config(mld_yaml, overrides=parse_dotted_overrides(
+        [*two, "model.fused_variant=grid"]))
+    _, grid = build(preset_from_yaml(grid_cfg), dev)
+    grid.load_state_dict(system.state_dict())
+    cond = system.encode_conditioning(batch)
+    z_init = torch.randn(B, 2, 256, generator=torch.Generator().manual_seed(SEED + 56)).to(dev)
+    loop_feats = system.sample_from_cond(cond, z_init=z_init)
+    grid_feats, counts = counted(lambda: grid.sample_from_cond(cond, z_init=z_init))
+    require(grid.cfg.fused_variant == "grid" and counts == {**none, "ddim_md_t2": 1},
+            f"T=2 grid variant launch counts {counts}")
+    record("egobody_sampling_t2_grid_variant", counts)
+    compare("T=2 grid vs loop variant features", grid_feats, loop_feats,
+            float(loop_feats.abs().max()), SLICE_RTOL)
+    del grid, system, s1, s2
+    torch.cuda.empty_cache()
+    phase(f"grid variant at latent [2, 256]: launches {counts} (ddim_fused, not the grid entry)",
+          t)
+
+
+def entry_phases(dev, counted, counters, record, work: str) -> None:
+    """Phases 37-40: the root entry points through `--cfg`. 37: `demo`
+    with `config_mld_egobody.yaml --mesh` (kernels 1/3 and kernel 3 once);
+    38: `demo` with `config_mld_humanml3d.yaml` and an `--example` file the
+    phase writes (kernel 5 once), then `--task random_sampling` (nothing),
+    and with `config_mld_humanact12.yaml --actions` (kernel 5 once); 39:
+    `scene_encoder` (kernels 1/3 at H = 256) against the plain twin; 40:
+    `fit` over the ego demo's first sample."""
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch import demo, fit, scene_encoder
+    from seeme_tpu_torch.nn.init import init_parameters_
+    from seeme_tpu_torch.nn.pointnet import ResnetPointnet
+    from seeme_tpu_torch.ops.pointnet_fused import FusedPointnet
+
+    none = {k: 0 for k in counters}
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+    def check_files(folder, names):
+        got = sorted(os.listdir(folder))
+        require(got == sorted(names), f"{folder}: wrote {got}, not {sorted(names)}")
+        for n in names:
+            if n.endswith(".npy"):
+                require(bool(np.isfinite(np.load(os.path.join(folder, n))).all()), f"{n} not finite")
+
+    # ---- 37. the ego demo with meshes
+    t = time.perf_counter()
+    ego_dir = os.path.join(work, "demo_ego")
+    saved, counts = counted(lambda: demo.main([
+        "--cfg", os.path.join(configs, "config_mld_egobody.yaml"), "--mesh", "--out", ego_dir]))
+    require(counts == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3,
+                       "ddim_md_t1": 1}, f"ego demo launch counts {counts}")
+    record("demo_egobody", counts)
+    check_files(ego_dir, ["faces.npy"] + [f"{p}_{i}{q}.npy" for i in range(4)
+                                          for p, q in (("sample", ""), ("gt", ""),
+                                                       ("sample", "_mesh"))])
+    mesh = np.load(os.path.join(ego_dir, "sample_0_mesh.npy"))
+    require(mesh.shape == (60, 6890, 3), f"mesh {mesh.shape}")
+    phase(f"demo --cfg config_mld_egobody.yaml --mesh: {len(saved)} samples, meshes "
+          f"{mesh.shape}, launches {counts}", t)
+
+    # ---- 38. the text and action demos
+    t = time.perf_counter()
+    example = os.path.join(work, "captions.txt")
+    with open(example, "w") as f:
+        f.write("120 a person walks forward and turns around\n"
+                "60 someone jumps up twice\n"
+                "a person waves with the right hand\n")
+    text_yaml = os.path.join(configs, "config_mld_humanml3d.yaml")
+    text_dir = os.path.join(work, "demo_text")
+    saved, counts = counted(lambda: demo.main(["--cfg", text_yaml, "--example", example,
+                                               "--out", text_dir]))
+    require(counts == {**none, "ddim_tok_t1": 1}, f"text demo launch counts {counts}")
+    record("demo_text_example", counts)
+    check_files(text_dir, ["captions.txt", "sample_0.npy", "sample_1.npy", "sample_2.npy"])
+    shapes = [np.load(p).shape for p in saved]
+    require([s[0] for s in shapes] == [120, 60, 196], f"text demo lengths {shapes}")
+    rand_dir = os.path.join(work, "demo_random")
+    saved, counts = counted(lambda: demo.main(["--cfg", text_yaml, "--task", "random_sampling",
+                                               "--out", rand_dir]))
+    require(counts == none, f"random-sampling demo launch counts {counts}")
+    check_files(rand_dir, [f"random_{i}.npy" for i in range(4)])
+    action_dir = os.path.join(work, "demo_action")
+    saved, counts_a = counted(lambda: demo.main([
+        "--cfg", os.path.join(configs, "config_mld_humanact12.yaml"), "--actions", "0,3,7",
+        "--out", action_dir]))
+    require(counts_a == {**none, "ddim_tok_t1": 1}, f"action demo launch counts {counts_a}")
+    record("demo_action", counts_a)
+    check_files(action_dir, ["action_0.npy", "action_3.npy", "action_7.npy"])
+    phase(f"demo text --example: joints {shapes}, launches ddim_tok_t1 1; --task "
+          f"random_sampling: none; action --actions 0,3,7: "
+          f"{np.load(saved[0]).shape}, launches {counts_a}", t)
+
+    # ---- 39. the scene encoder
+    t = time.perf_counter()
+    emb, counts = counted(lambda: scene_encoder.main([]))
+    require(counts == {**none, "pointnet_input_block_h256": 1, "pointnet_split_block_h256": 3},
+            f"scene_encoder launch counts {counts}")
+    record("scene_encoder", counts)
+    enc = ResnetPointnet(out_dim=512, hidden_dim=256)
+    init_parameters_(enc, torch.Generator().manual_seed(0))
+    pcd = torch.as_tensor(np.random.RandomState(0).randn(1, 20000, 3).astype(np.float32))
+    with torch.no_grad():
+        plain = FusedPointnet()(enc.requires_grad_(False).eval(), pcd)
+    require(tuple(emb.shape) == (1, 512), f"scene embedding {tuple(emb.shape)}")
+    compare("scene_encoder embedding, kernels vs plain twin", emb.cpu(), plain,
+            float(plain.abs().max()), POINTNET_RTOL)
+    phase(f"scene_encoder (20000 points, H=256): shape {tuple(emb.shape)}, norm "
+          f"{float(emb.norm()):.3f}, launches {counts}", t)
+
+    # ---- 40. fitting the ego demo's first sample
+    t = time.perf_counter()
+    t0 = time.perf_counter()
+    out, counts = counted(lambda: fit.main([
+        "--joints", os.path.join(ego_dir, "sample_0.npy"), "--steps", "100",
+        "--gmm", os.path.join(work, "no_gmm"), "--out", os.path.join(work, "fit.npz"),
+        "--save_mesh", os.path.join(work, "fit_mesh.npy")]))
+    wall = time.perf_counter() - t0
+    losses = out["losses"]
+    require(counts == none, f"fit launch counts {counts}")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"fit losses {losses[0]} -> {losses[-1]}")
+    require(all(bool(torch.isfinite(v).all()) for v in out["params"].values()), "fit params")
+    phase(f"fit (60 frames, 100 Adam steps on the card): loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}, terms {json.dumps({k: round(v, 5) for k, v in out['terms'].items()})}"
+          f", {wall:.3f} s on the host clock", t)
 
 
 def forward_counter(module) -> list:
@@ -2456,10 +2966,12 @@ def print_pointnet_launch(info: dict, tile: int) -> None:
             and info["tile"] == tile, f"pointnet launch {info}")
 
 
-def ddim_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int) -> float:
+def ddim_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int, tokens: int = 1) -> float:
     """Operations of one `ddim_fused` call from the weight shapes: the
     per-window precompute (condition and time-token projections) plus every
-    step's latent-row work (`seeme_tpu/ops/denoiser_fused.py:864-925`)."""
+    step's work on the `tokens` latent rows of each of the `rows` sequences
+    (`seeme_tpu/ops/denoiser_fused.py:864-925`, `fused_ddim_flops(n_tok=...)`;
+    each latent row attends to tokens + n_cond + 1 keys)."""
     from seeme_tpu_torch.ops.denoiser_fused import layer_names
 
     def wf(name):  # flops per row through a Linear weight (out, in)
@@ -2474,23 +2986,23 @@ def ddim_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int) -> float
         total += rows * n_cond * (2 * proj + wf(f"{ca}.key.weight") + wf(f"{ca}.value.weight"))
         total += steps * (2 * proj + wf(f"{ca}.proj_out.emb_layers.1.weight")
                           + wf(f"{ffn}.proj_out.emb_layers.1.weight"))
-        step = 3 * proj + 4.0 * D * (n_cond + 2) + wf(f"{sa}.self_attn.out_proj.weight")
+        step = 3 * proj + 4.0 * D * (tokens + n_cond + 1) + wf(f"{sa}.self_attn.out_proj.weight")
         step += wf(f"{sa}.linear1.weight") + wf(f"{sa}.linear2.weight")
         step += wf(f"{ca}.query.weight") + 4.0 * D * n_cond
         step += wf(f"{ca}.proj_out.out_layers.2.weight")
         step += wf(f"{ffn}.linear1.weight") + wf(f"{ffn}.linear2.weight")
         step += wf(f"{ffn}.proj_out.out_layers.2.weight")
-        total += steps * rows * step
+        total += steps * rows * tokens * step
     for j in range((num_layers - 1) // 2):
-        total += steps * rows * wf(f"encoder.linear_blocks.{j}.weight")
+        total += steps * rows * tokens * wf(f"encoder.linear_blocks.{j}.weight")
     return total
 
 
-def tok_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int) -> float:
+def tok_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int, tokens: int = 1) -> float:
     """Operations of one `ddim_fused_tok` call from the weight shapes: the
     per-window precompute (condition projection, every step's time token)
-    plus every step's work on all S = n_cond + 2 token rows of each of the
-    `rows` sequences (uncond and cond count apart), the token-path
+    plus every step's work on all S = tokens + 1 + n_cond token rows of each
+    of the `rows` sequences (uncond and cond count apart), the token-path
     counterpart of `seeme_tpu/ops/denoiser_fused.py:864-925`."""
     from seeme_tpu_torch.ops.denoiser_fused import layer_names
 
@@ -2499,7 +3011,7 @@ def tok_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int) -> float:
         return 2.0 * w.shape[0] * w.shape[1]
 
     D = sd["encoder.norm.weight"].shape[0]
-    S = n_cond + 2
+    S = tokens + 1 + n_cond
     total = steps * (wf("time_embedding.linear_1.weight") + wf("time_embedding.linear_2.weight"))
     if "emb_proj.1.weight" in sd:
         total += rows * n_cond * wf("emb_proj.1.weight")

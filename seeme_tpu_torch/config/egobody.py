@@ -93,9 +93,10 @@ def vae_egobody() -> Preset:
         name="s1_egobody",
         # model: latent_dim [1, 256], ff_size 128, num_layers 5, droupout
         # 0.1, guidance 1.0, uncondp 0.1, scene_points 20000, scene_feat_dim
-        # 512 (:59-76); the denoiser is built but does not train in this stage
+        # 512 (:59-76); the denoiser is built but does not train in this
+        # stage, the token-concat stack of MD_TRANS false (base.yaml:31, :28)
         model=SeeMeConfig(condition=(), dropout=0.1, guidance_scale=1.0, guidance_uncondp=0.1,
-                          loss=EGOBODY_LOSS),
+                          md_trans=False, loss=EGOBODY_LOSS),
         train=TrainConfig(stage="vae", end_epoch=3000, step_size=3000),
     )
 

@@ -1,11 +1,15 @@
 """Every preset the CLIs offer, the ego configs (`config/egobody.py`), the
 text-to-motion ones (`config/humanml3d.py`) and the action-to-motion ones
-(`config/a2m.py`), and `build`, which makes a preset's datamodule and
-system."""
+(`config/a2m.py`); `from_cli`, which gives the preset a CLI names by
+`--preset` or by `--cfg` (a shipped YAML through `config/loader.py` and
+`config/build.py`); and `build`, which makes a preset's datamodule and
+system. Each preset is the config its YAML builds
+(`tests/test_torch_config.py`)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
@@ -16,10 +20,28 @@ from ..models.seeme import SeeMeSystem
 from ..models.t2m import T2MConfig, T2MSystem
 from .a2m import A2M_PRESETS
 from .egobody import PRESETS as EGO_PRESETS
-from .egobody import Preset
+from .egobody import Preset, apply_overrides
 from .humanml3d import T2M_PRESETS
 
 PRESETS = {**EGO_PRESETS, **T2M_PRESETS, **A2M_PRESETS}
+
+
+def from_cli(preset: Optional[str], cfg: Optional[str], cfg_assets: Optional[str] = None,
+             overrides: Sequence[str] = ()) -> Preset:
+    """The preset a CLI names: `--preset NAME` with `model.X=V`, `train.X=V`,
+    `test.X=V` overrides (Python literals, `apply_overrides`), or `--cfg
+    FILE [--cfg_assets FILE]` with dotted YAML overrides (`TRAIN.BATCH_SIZE=8
+    model.latent_dim=[2,256]`), as `train.py` and `test.py` read them."""
+    if (preset is None) == (cfg is None):
+        raise ValueError("name the config by --preset or by --cfg, not both or neither")
+    if cfg is None:
+        return apply_overrides(PRESETS[preset](), overrides)
+    from .build import load_smpl_or_synthetic, preset_from_yaml
+    from .loader import load_config, parse_dotted_overrides
+
+    loaded = load_config(cfg, cfg_assets, overrides=parse_dotted_overrides(overrides))
+    load_smpl_or_synthetic(loaded)  # raises where the JAX package would read a file
+    return preset_from_yaml(loaded)
 
 
 def build(preset: Preset, device: torch.device):

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "refusals.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {

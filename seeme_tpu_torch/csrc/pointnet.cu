@@ -74,6 +74,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "refusals.cuh"
+
 namespace {
 
 constexpr int KS = 16;         // K of one ring slot: one bf16 wgmma step
@@ -743,6 +745,8 @@ extern "C" int pointnet_info(int input, int H, int* info) {
   return cudaErrorInvalidValue;
 }
 
+// The message of a launcher's error code: a refusal's (refusals.cuh), else CUDA's.
 extern "C" const char* seeme_error_string(int err) {
+  if (const char* refusal = refusal_string(err)) return refusal;
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -161,7 +161,7 @@ class A2MSystem(nn.Module):
             z_init = torch.randn(shape, generator=generator, device=self.device)
         z_init = z_init.to(self.device, torch.float32).contiguous()
         steps = cfg.num_inference_timesteps
-        if cfg.num_heads == 1:
+        if cfg.num_heads == 1:  # kernel 5 at any number of latent tokens, as a2m.py:129-136
             sd, weights = self.kernel_operands()
             z = ddim_fused_tok(sd, cond.contiguous(), z_init, self.schedule, steps,
                                cfg.num_layers, cfg.guidance_scale, weights=weights)

@@ -44,7 +44,7 @@ from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
-from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid
+from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid, ddim_fused_tok
 from ..ops import tensor_versions
 from ..ops.pointnet_fused import FusedPointnet
 from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
@@ -74,6 +74,9 @@ class SeeMeConfig:
     guidance_scale: float = 1.0
     guidance_uncondp: float = 0.1       # element-wise CFG mask rate in training
     predict_epsilon: bool = True        # TRAIN.ABLATION.PREDICT_EPSILON
+    # TRAIN.ABLATION.MD_TRANS: the MD stylization stack (kernel 3), or the
+    # token-concat stack (kernel 5) that the stage-1 configs build and never train
+    md_trans: bool = True
     mlp_dist: bool = False              # TRAIN.ABLATION.MLP_DIST
     num_inference_timesteps: int = 50
     scene_points: int = 20000
@@ -134,7 +137,7 @@ class SeeMeSystem(nn.Module):
         self.vae = MotionVae(cfg.nfeats, cfg.latent_dim, cfg.ff_size, cfg.num_layers,
                              dropout=cfg.dropout, mlp_dist=cfg.mlp_dist)
         self.denoiser = Denoiser(cfg.latent_dim, cfg.ff_size, cfg.num_layers, text_encoded_dim=d,
-                                 dropout=cfg.dropout)
+                                 md_trans=cfg.md_trans, dropout=cfg.dropout)
         self.use_interactee = "interactee" in cfg.condition
         self.use_scene = "scene" in cfg.condition
         self.use_image = "image" in cfg.condition
@@ -179,7 +182,8 @@ class SeeMeSystem(nn.Module):
         key = tensor_versions(self.denoiser)
         if self._ddim_operands is None or self._ddim_operands[0] != key:
             sd = self.denoiser.state_dict()
-            self._ddim_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers)))
+            self._ddim_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers,
+                                                           self.cfg.md_trans)))
         return (*self._ddim_operands[1], self._pointnet_operands())
 
     def _pointnet_operands(self):
@@ -392,16 +396,20 @@ class SeeMeSystem(nn.Module):
                          generator: Optional[torch.Generator] = None,
                          z_init: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Reverse diffusion (the fused DDIM kernel, through the entry
-        `cfg.fused_variant` names) + VAE decode. z_init
-        (B, 1, D) replaces the drawn initial noise. Returns normalized
-        features (B, T, nfeats)."""
+        `cfg.fused_variant` names; with more than one latent token always
+        `ddim_fused`, as `seeme_tpu/models/seeme.py:532-534` routes) + VAE
+        decode. z_init (B, *latent_dim) replaces the drawn initial noise.
+        Returns normalized features (B, T, nfeats)."""
         cfg = self.cfg
         B = cond_full.shape[0] // (2 if cfg.guidance_scale > 1.0 else 1)
         shape = (B, cfg.latent_dim[0], cfg.latent_dim[-1])
         if z_init is None:
             z_init = torch.randn(shape, generator=generator, device=self.device)
         sd, weights, _ = self.kernel_operands()
-        ddim = ddim_fused_grid if cfg.fused_variant == "grid" else ddim_fused
+        grid = cfg.fused_variant == "grid" and cfg.latent_dim[0] == 1
+        ddim = ddim_fused_grid if grid else ddim_fused
+        if not cfg.md_trans:  # the token-concat stack: kernel 5
+            ddim = ddim_fused_tok
         z = ddim(sd, cond_full.contiguous(),
                  z_init.to(self.device, torch.float32).contiguous(), self.schedule,
                  cfg.num_inference_timesteps, cfg.num_layers, cfg.guidance_scale,

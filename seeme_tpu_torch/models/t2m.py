@@ -128,7 +128,9 @@ class T2MSystem(nn.Module):
         return self._kernel_operands[1]
 
     def takes_kernel(self, n_cond: int, cond_mask: Optional[torch.Tensor]) -> bool:
-        """Whether `sample` runs the token kernel: the pooled VAE model."""
+        """Whether `sample` runs the token kernel: the pooled VAE model, at
+        any number of latent tokens (`seeme_tpu/models/t2m.py:225-250`); a
+        shape the kernel cannot take raises there, naming the limit."""
         cfg = self.cfg
         return (not self.diffusion_only and cfg.arch == "trans_enc" and cfg.num_heads == 1
                 and n_cond <= TOK_MAX_COND and cond_mask is None)

@@ -35,13 +35,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     "pointnet_input_block": [_P] * 10 + [_I] * 3 + [_P],
     "pointnet_split_block": [_P] * 8 + [_I] * 3 + [_P],
-    "ddim_md_t1": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
-    "ddim_tok_t1": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
-    "ddim_md_t1_info": [_I] * 7 + [_P],
-    "ddim_tok_t1_info": [_I] * 5 + [_P],
+    "ddim_md": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    "ddim_tok": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "ddim_md_info": [_I] * 8 + [_P],
+    "ddim_tok_info": [_I] * 6 + [_P],
     "pointnet_info": [_I, _I, _P],
 }
 BUILD_TIMEOUT = 600  # seconds for the compiles together, and again for the link
+REFUSED = 10000  # launchers' codes past this are refusals (csrc/refusals.cuh), not CUDA errors
 
 _lock = threading.Lock()
 _lib = None
@@ -141,11 +142,16 @@ def _build(path: Path) -> str:
     return "".join(log)
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a launcher returned a non-zero cudaGetLastError()."""
-    if err != 0:
-        msg = load_library().seeme_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: cudaError_t {err} ({msg})")
+def check(err: int, name: str, call: str = "") -> None:
+    """Raise if a launcher returned non-zero: ValueError, naming the limit,
+    for a refusal (`call` describes the arguments), else RuntimeError with
+    the cudaError_t."""
+    if err == 0:
+        return
+    msg = load_library().seeme_error_string(err).decode()
+    if err > REFUSED:
+        raise ValueError(f"{name}: {call}: {msg}" if call else f"{name}: {msg}")
+    raise RuntimeError(f"{name}: CUDA launch failed: cudaError_t {err} ({msg})")
 
 
 def stream_ptr(device) -> int:

@@ -3,11 +3,11 @@
     python -m seeme_tpu_torch.ops.ddim_profile [--batch 64,1] [--steps 50]
         [--threads 256:512,512:512]
 
-Copies `csrc/ddim_md.cu`, `csrc/ddim_tok.cu` and `csrc/ddim_common.cuh` into
-a temporary directory under `seeme_tpu_torch/_build/`, adds `clock64()`
-counters that CTA 0's thread 0 sums over a launch, builds the copy (with
-`pointnet.cu`) into its own library, and runs both kernels through their
-wrappers on seeded random weights: the MD kernel at guidance 1 and 2.5 on
+Copies the DDIM kernel sources (`csrc/ddim_*`, `csrc/refusals.cuh`) into a
+temporary directory under `seeme_tpu_torch/_build/`, adds `clock64()`
+counters that CTA 0's thread 0 sums over a launch of the T = 1 instances,
+builds the copy (with `pointnet.cu`) into its own library, and runs both
+kernels through their wrappers on seeded random weights: the MD kernel at guidance 1 and 2.5 on
 the EgoBody denoiser's widths, the token kernel at 1 and 7.5 on the
 text-to-motion denoiser's, 50 steps. `--threads` builds one such library
 per pair of CTA sizes (MD kernel : token kernel, as `DDIM_THREADS`; the
@@ -94,11 +94,18 @@ def _patch(text: str, edits) -> str:
     return text
 
 
+# each DDIM translation unit and the counters' name in it: the T = 1
+# instances' are the ones read
+_UNITS = {"ddim_md_t1.cu": "md", "ddim_md.cu": "md_general", "ddim_tok_t1.cu": "tok",
+          "ddim_tok.cu": "tok_general"}
+
+
 def instrumented_sources() -> dict:
     """File name -> instrumented text of the DDIM kernel sources."""
-    header = (_build.CSRC / "ddim_common.cuh").read_text()
-    out = {"ddim_common.cuh": _patch(header, _HEADER)}
-    for name in ("ddim_md.cu", "ddim_tok.cu"):
+    out = {name: (_build.CSRC / name).read_text()
+           for name in (*_UNITS, "refusals.cuh")}
+    out["ddim_common.cuh"] = _patch((_build.CSRC / "ddim_common.cuh").read_text(), _HEADER)
+    for name in ("ddim_md.cuh", "ddim_tok.cuh"):
         out[name] = _patch((_build.CSRC / name).read_text(), _KERNEL)
     return out
 
@@ -107,9 +114,9 @@ def build(tmp: Path, md_threads: int, tok_threads: int) -> ctypes.CDLL:
     for name, text in instrumented_sources().items():
         (tmp / name).write_text(text)
     nvcc = _build.find_nvcc()
-    jobs = [(tmp / "ddim_md.cu", ["-DPROF_KERNEL=md", f"-DDDIM_THREADS={md_threads}"]),
-            (tmp / "ddim_tok.cu", ["-DPROF_KERNEL=tok", f"-DDDIM_THREADS={tok_threads}"]),
-            (_build.CSRC / "pointnet.cu", [])]
+    jobs = [(tmp / name, [f"-DPROF_KERNEL={kernel}", "-DDDIM_THREADS="
+                          f"{md_threads if name.startswith('ddim_md') else tok_threads}"])
+            for name, kernel in _UNITS.items()] + [(_build.CSRC / "pointnet.cu", [])]
     objs = [tmp / f"{src.stem}.o" for src, _ in jobs]
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

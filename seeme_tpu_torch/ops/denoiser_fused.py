@@ -1,17 +1,21 @@
 """The DDIM reverse process in one CUDA launch (`seeme_tpu/ops/denoiser_fused.py`).
 
 * `denoiser_apply_pure(sd, x, timesteps, cond)`: a plain twin of
-  `models.denoiser.Denoiser` for one latent token (T=1), reading the
-  denoiser's state dict. md_trans=True: the MD stylization stack, with the
-  step-invariant condition projections hoisted (`md_step_invariants`).
-  md_trans=False: the plain post-norm GELU stack over [x; time; cond].
+  `models.denoiser.Denoiser` for T latent tokens, reading the denoiser's
+  state dict. md_trans=True: the MD stylization stack, with the
+  step-invariant condition projections hoisted (`md_step_invariants`); one
+  latent token takes the T=1 layer (`_md_layer_t1`), more the general one
+  (`_md_layer`), as the JAX twin branches. md_trans=False: the plain
+  post-norm GELU stack over [x; time; cond], keeping the first T rows.
   Single head, as the JAX twin.
 * `ddim_fused_plain`: `diffusion/sampling.py::ddim_sample` (eta 0,
   epsilon prediction, CFG mix) over `denoiser_apply_pure`, for either block
   type, with the per-window precompute of the kernels.
 * `ddim_fused` and `ddim_fused_grid` (md_trans=True) launch
   `csrc/ddim_md.cu`; `ddim_fused_tok` (md_trans=False) launches
-  `csrc/ddim_tok.cu`. Each runs all steps, all layers, the CFG mix and the
+  `csrc/ddim_tok.cu`, for any number T of latent tokens (each kernel's T = 1
+  specialisation at one token, its general instance past it). Each runs all
+  steps, all layers, the CFG mix and the
   DDIM update in one kernel launched as clusters of `CLUSTER_CTAS` CTAs that
   split every weight matrix by columns (`csrc/ddim_common.cuh`; a width
   that does not split is refused), after the per-window precompute
@@ -20,7 +24,9 @@
   package's `ddim_fused_grid` does in XLA. The TPU's grid variant differs
   from its loop variant only in where that precompute runs, so both MD
   entries share one CUDA kernel; each counts its own launches
-  (`.launches`). For CPU tensors they run `ddim_fused_plain`.
+  (`.launches`, and by latent token count in `.launches_by_tokens`). For
+  CPU tensors they run `ddim_fused_plain`; on the card what a kernel cannot
+  take raises, naming the limit.
 
 GELU is the exact erf form throughout, as in the flax `Denoiser`.
 """
@@ -136,6 +142,40 @@ def _md_layer_t1(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
     return x + _stylization_eo(sd, f"{ffn}.proj_out", h, ffn_eo)
 
 
+def _md_layer(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
+              emb: torch.Tensor) -> torch.Tensor:
+    """One MD layer for T latent tokens (`denoiser_fused.py:284-318`). x (B,
+    T, D); emb (B, 1, D) is the time token. Each latent row attends to the T
+    latent rows of its sample, the condition tokens (their k/v hoisted in
+    `inv`) and the time token; the condition and time rows' own outputs are
+    never kept, so they are not computed. The linear cross-attention mixes
+    the condition values by <softmaxed query, softmaxed key>, not normalised
+    over the tokens."""
+    (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, f"{name}.sa_block.self_attn")
+    D = x.shape[-1]
+    se = F.silu(emb[:, 0])
+    ca_eo = _lin(sd, f"{name}.ca_block.proj_out.emb_layers.1", se)
+    ffn_eo = _lin(sd, f"{name}.ffn.proj_out.emb_layers.1", se)
+
+    q = F.linear(x, wq, bq)
+    keys = torch.cat([F.linear(x, wk, bk), inv["k_xf"], F.linear(emb, wk, bk)], dim=1)
+    values = torch.cat([F.linear(x, wv, bv), inv["v_xf"], F.linear(emb, wv, bv)], dim=1)
+    attn = torch.softmax(q @ keys.transpose(1, 2) / math.sqrt(D), dim=-1)
+    sa = f"{name}.sa_block"
+    x = _ln(sd, f"{sa}.norm1", x + _lin(sd, f"{sa}.self_attn.out_proj", attn @ values))
+    h = _lin(sd, f"{sa}.linear2", F.relu(_lin(sd, f"{sa}.linear1", x)))
+    x = _ln(sd, f"{sa}.norm2", x + h)
+
+    ca = f"{name}.ca_block"
+    query = torch.softmax(_lin(sd, f"{ca}.query", _ln(sd, f"{ca}.norm", x)), dim=-1)
+    y = (query @ inv["ca_key"].transpose(1, 2)) @ inv["ca_value"]   # (B, T, D)
+    x = x + _stylization_eo(sd, f"{ca}.proj_out", y, ca_eo)
+
+    ffn = f"{name}.ffn"
+    h = _lin(sd, f"{ffn}.linear2", F.gelu(_lin(sd, f"{ffn}.linear1", x)))
+    return x + _stylization_eo(sd, f"{ffn}.proj_out", h, ffn_eo)
+
+
 def _encoder_layer(sd: StateDict, name: str, x: torch.Tensor) -> torch.Tensor:
     """Post-norm GELU encoder layer over each sample's tokens (B, S, D),
     single-head attention within the sample (`denoiser_fused.py:94-146`)."""
@@ -180,23 +220,23 @@ def denoiser_apply_pure(sd: StateDict, x: torch.Tensor, timesteps: torch.Tensor 
                         cond: torch.Tensor | None, num_layers: int = 5, md_trans: bool = True,
                         md_invariants: Dict | None = None,
                         time_token: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain twin of `Denoiser.forward` for x (B, 1, D). md_invariants, from
+    """Plain twin of `Denoiser.forward` for x (B, T, D). md_invariants, from
     `md_step_invariants`, may carry the MD stack's condition invariants; then
     cond is unused. time_token (B, 1, D), the embedded time token, replaces
     the timestep MLP; then timesteps is unused."""
-    if x.shape[1] != 1:
-        raise ValueError("denoiser_apply_pure covers the one-latent-token path")
+    T = x.shape[1]
     emb = time_token if time_token is not None else _time_tokens(sd, timesteps)[:, None]
     pe = sd["query_pos.pe"][:, 0]
     if not md_trans:
         xseq = torch.cat([x, emb, _project_cond(sd, cond)], dim=1)
         h = xseq + pe[: xseq.shape[1]][None]
-        return _uskip(sd, h, num_layers, lambda name, h: _encoder_layer(sd, name, h))[:, :1]
+        return _uskip(sd, h, num_layers, lambda name, h: _encoder_layer(sd, name, h))[:, :T]
     inv = md_invariants
     if inv is None:
         inv = md_step_invariants(sd, _project_cond(sd, cond), num_layers)
-    return _uskip(sd, x + pe[:1][None], num_layers,
-                  lambda name, h: _md_layer_t1(sd, name, h, inv[name], emb))
+    layer = _md_layer_t1 if T == 1 else _md_layer
+    return _uskip(sd, x + pe[:T][None], num_layers,
+                  lambda name, h: layer(sd, name, h, inv[name], emb))
 
 
 def ddim_schedule_arrays(schedule, num_steps: int, device="cpu"):
@@ -236,8 +276,8 @@ def _window_precompute(sd: StateDict, cond: torch.Tensor, timesteps: torch.Tenso
 class KernelWeights:
     """The denoiser's weights in a kernel's layout: every matrix as a fresh
     contiguous (in, out) f32 tensor, and a device table of their pointers in
-    the order of the enum in `csrc/ddim_md.cu` (md_trans=True, 32 per layer)
-    or `csrc/ddim_tok.cu` (md_trans=False, its first 16, per layer), then the
+    the order of the enum in `csrc/ddim_md.cuh` (md_trans=True, 32 per layer)
+    or `csrc/ddim_tok.cuh` (md_trans=False, its first 16, per layer), then the
     skip_linears, the final norm and query_pos row 0."""
 
     @torch.no_grad()
@@ -299,8 +339,6 @@ def _check_call(name: str, sd: StateDict, cond: torch.Tensor, z_init: torch.Tens
                 md_trans: bool) -> KernelWeights:
     """Raise on any input the kernels do not take; return the weights."""
     B, T, D = z_init.shape
-    if T != 1:
-        raise ValueError(f"{name}: the kernel covers one latent token")
     if cond.dim() != 3 or cond.shape[0] != (2 * B if guidance_scale > 1.0 else B):
         raise ValueError(f"{name}: cond of shape {tuple(cond.shape)} for batch {B}"
                          f" at guidance {guidance_scale}")
@@ -330,35 +368,46 @@ def _check_split(name: str, n: int) -> None:
 
 
 def cluster_launch(md_trans: bool, batch: int, n_cond: int, weights: KernelWeights,
-                   guidance_scale: float) -> Dict[str, int]:
+                   guidance_scale: float, tokens: int = 1) -> Dict[str, int]:
     """The cluster launch `ddim_fused` (md_trans) or `ddim_fused_tok` makes
     for these shapes, asked of the CUDA runtime without launching: CTAs per
-    cluster, CTAs in the grid, clusters that fit on the card at once, and
-    dynamic shared memory bytes per CTA."""
-    info = (ctypes.c_int * 4)()
+    cluster, CTAs in the grid, clusters that fit on the card at once,
+    dynamic shared memory bytes per CTA, and samples a cluster carries."""
     lib = _build.load_library()
     cfg = int(guidance_scale > 1.0)
+    info = (ctypes.c_int * 5)()
     if md_trans:
-        err = lib.ddim_md_t1_info(batch, n_cond, weights.d_model, weights.sa_ff, weights.ff,
-                                  weights.num_layers, cfg, info)
+        err = lib.ddim_md_info(batch, tokens, n_cond, weights.d_model, weights.sa_ff, weights.ff,
+                               weights.num_layers, cfg, info)
     else:
-        err = lib.ddim_tok_t1_info(batch, n_cond, weights.ff, weights.num_layers, cfg, info)
-    _build.check(err, "ddim_md_t1_info" if md_trans else "ddim_tok_t1_info")
-    return dict(zip(("cluster", "grid", "active_clusters", "smem_bytes"), info))
+        err = lib.ddim_tok_info(batch, tokens, n_cond, weights.ff, weights.num_layers, cfg, info)
+    _build.check(err, "ddim_md_info" if md_trans else "ddim_tok_info")
+    return dict(zip(("cluster", "grid", "active_clusters", "smem_bytes", "samples"), info))
+
+
+def _tokens(T: int, NC: int, cfg: int) -> str:
+    return f"{T} latent and {NC} condition tokens{' under CFG' if cfg else ''}"
+
+
+def _count(wrapper, T: int) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_tokens[T] = wrapper.launches_by_tokens.get(T, 0) + 1
 
 
 def _launch_ddim_md(wrapper, sd, cond, z_init, schedule, num_steps, num_layers,
                     guidance_scale, weights):
-    """Run `csrc/ddim_md.cu` (MD stack, T=1) after the per-window precompute,
-    counting the launch on `wrapper`."""
+    """Run `csrc/ddim_md.cu` (MD stack, T latent tokens) after the per-window
+    precompute, counting the launch on `wrapper`."""
     name = wrapper.__name__
     weights = _check_call(name, sd, cond, z_init, num_layers, guidance_scale, weights, True)
     dev = z_init.device
-    B, _, D = z_init.shape
+    B, T, D = z_init.shape
     if D != 256:
         raise ValueError(f"{name}: latent width {D} is not 256")
     for n in (weights.sa_ff, weights.ff):
         _check_split(name, n)
+    cfg = int(guidance_scale > 1.0)
+    lib = _build.load_library()
     timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
     with torch.no_grad():
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
@@ -370,25 +419,26 @@ def _launch_ddim_md(wrapper, sd, cond, z_init, schedule, num_steps, num_layers,
         inv_step = torch.stack([
             torch.cat([inv[n][k] for k in ("k_emb", "v_emb", "ca_eo", "ffn_eo")], dim=-1)
             for n in names]).contiguous()                               # (L, steps, 6D)
-    z0 = (z_init * schedule.init_noise_sigma).reshape(B, D).contiguous()
-    z_out = torch.empty(B, D, device=dev)
-    lib = _build.load_library()
-    wrapper.launches += 1
-    _build.check(lib.ddim_md_t1(
+    z0 = (z_init * schedule.init_noise_sigma).reshape(B, T * D).contiguous()
+    z_out = torch.empty(B, T * D, device=dev)
+    pe = sd["query_pos.pe"][:T, 0].contiguous()
+    _build.check(lib.ddim_md(
         z0.data_ptr(), z_out.data_ptr(), inv_cond.data_ptr(), inv_step.data_ptr(),
-        weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(),
-        B, cond.shape[0], cond.shape[1], D, weights.sa_ff, weights.ff, num_layers, num_steps,
-        float(guidance_scale), int(guidance_scale > 1.0), _build.stream_ptr(dev)), "ddim_md_t1")
-    return z_out.reshape(B, 1, D)
+        weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(), pe.data_ptr(),
+        B, cond.shape[0], cond.shape[1], D, weights.sa_ff, weights.ff, num_layers, num_steps, T,
+        float(guidance_scale), cfg, _build.stream_ptr(dev)), name,
+        _tokens(T, cond.shape[1], cfg))
+    _count(wrapper, T)
+    return z_out.reshape(B, T, D)
 
 
 def ddim_fused(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
                schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
                guidance_scale: float = 1.0, weights: KernelWeights | None = None) -> torch.Tensor:
     """Whole DDIM reverse process (eps prediction, eta 0) over the MD stack,
-    as `ddim_sample`: z_init (B, 1, D) is unit noise, scaled by
+    as `ddim_sample`: z_init (B, T, D) is unit noise, scaled by
     init_noise_sigma here; cond (B, NC, text_dim), or (2B, ...) as
-    [uncond; cond] when guidance_scale > 1. Returns z (B, 1, D)."""
+    [uncond; cond] when guidance_scale > 1. Returns z (B, T, D)."""
     if z_init.device.type == "cpu":
         return ddim_fused_plain(sd, cond, z_init, schedule, num_steps, num_layers,
                                 guidance_scale)
@@ -397,6 +447,7 @@ def ddim_fused(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
 
 
 ddim_fused.launches = 0
+ddim_fused.launches_by_tokens = {}
 
 
 def ddim_fused_grid(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
@@ -416,6 +467,7 @@ def ddim_fused_grid(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
 
 
 ddim_fused_grid.launches = 0
+ddim_fused_grid.launches_by_tokens = {}
 
 TOK_MAX_COND = 8  # condition tokens the token kernel takes, as the JAX fused route
 
@@ -426,40 +478,45 @@ def ddim_fused_tok(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
                    weights: KernelWeights | None = None) -> torch.Tensor:
     """Whole DDIM reverse process over the plain token-concat stack
     (md_trans=False, the JAX package's `ddim_fused(md_trans=False)`): as
-    `ddim_fused`, with cond (B or 2B, NC <= 8, text_dim). Launches
-    `csrc/ddim_tok.cu` for CUDA tensors, counted in `ddim_fused_tok.launches`."""
+    `ddim_fused`, with cond (B or 2B, NC <= 8, text_dim); the kernel refuses
+    more than 30 token rows a sample (T + 1 + NC, twice that under CFG).
+    Launches `csrc/ddim_tok.cu` for CUDA tensors, counted in
+    `ddim_fused_tok.launches`."""
     if z_init.device.type == "cpu":
         return ddim_fused_plain(sd, cond, z_init, schedule, num_steps, num_layers,
                                 guidance_scale, md_trans=False)
     weights = _check_call("ddim_fused_tok", sd, cond, z_init, num_layers, guidance_scale,
                           weights, False)
     dev = z_init.device
-    B, _, D = z_init.shape
+    B, T, D = z_init.shape
     NC = cond.shape[1]
-    if D != 256:
-        raise ValueError(f"ddim_fused_tok: latent width {D} is not 256")
+    cfg = int(guidance_scale > 1.0)
     if not 1 <= NC <= TOK_MAX_COND:
         raise ValueError(f"ddim_fused_tok: {NC} condition tokens; the kernel takes 1 to "
                          f"{TOK_MAX_COND}")
+    if D != 256:
+        raise ValueError(f"ddim_fused_tok: latent width {D} is not 256")
     _check_split("ddim_fused_tok", weights.ff)
     if weights.ff > D:
         raise ValueError(f"ddim_fused_tok: feed-forward width {weights.ff} is over {D}")
+    lib = _build.load_library()
     timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
     with torch.no_grad():
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
-        pe = sd["query_pos.pe"][: NC + 2, 0]
-        cond_in = (cond_p + pe[2:]).contiguous()           # (Bc, NC, D), positions 2..
-        time_in = (time_tokens + pe[1]).contiguous()        # (steps, D), position 1
-    z0 = (z_init * schedule.init_noise_sigma).reshape(B, D).contiguous()
-    z_out = torch.empty(B, D, device=dev)
-    lib = _build.load_library()
-    ddim_fused_tok.launches += 1
-    _build.check(lib.ddim_tok_t1(
+        pe = sd["query_pos.pe"][: T + 1 + NC, 0]
+        cond_in = (cond_p + pe[T + 1:]).contiguous()       # (Bc, NC, D), positions T+1..
+        time_in = (time_tokens + pe[T]).contiguous()        # (steps, D), position T
+    z0 = (z_init * schedule.init_noise_sigma).reshape(B, T * D).contiguous()
+    z_out = torch.empty(B, T * D, device=dev)
+    pe_lat = pe[:T].contiguous()
+    _build.check(lib.ddim_tok(
         z0.data_ptr(), z_out.data_ptr(), cond_in.data_ptr(), time_in.data_ptr(),
-        weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(),
-        B, NC, weights.ff, num_layers, num_steps, float(guidance_scale),
-        int(guidance_scale > 1.0), _build.stream_ptr(dev)), "ddim_tok_t1")
-    return z_out.reshape(B, 1, D)
+        weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(), pe_lat.data_ptr(),
+        B, NC, weights.ff, num_layers, num_steps, T, float(guidance_scale), cfg,
+        _build.stream_ptr(dev)), "ddim_fused_tok", _tokens(T, NC, cfg))
+    _count(ddim_fused_tok, T)
+    return z_out.reshape(B, T, D)
 
 
 ddim_fused_tok.launches = 0
+ddim_fused_tok.launches_by_tokens = {}

@@ -6,6 +6,11 @@ action-to-motion branch (`_a2m_eval`, `test.py:365-450`).
         [--replication_times N] [--checkpoint PATH] [--count_time]
         [--save_predictions] [--device cpu] [--out DIR]
         [model.FIELD=VALUE ...] [test.FIELD=VALUE ...]
+    python -m seeme_tpu_torch.test --cfg configs/config_NAME.yaml [--cfg_assets FILE]
+        [the same options] [KEY.PATH=VALUE ...]
+
+`--cfg` reads a shipped YAML with dotted YAML overrides (`TEST.MM=true`,
+`model.latent_dim=[2,256]`), as `test.py` does (`config/presets.py::from_cli`).
 
 NAME is a preset of `config/egobody.py`, `config/humanml3d.py` or
 `config/a2m.py`. The system is built from it and,
@@ -73,8 +78,8 @@ import numpy as np
 import torch
 
 from .._device import full_float32, resolve_device
-from ..config.egobody import OUT_ROOT, apply_overrides
-from ..config.presets import PRESETS, build
+from ..config.egobody import OUT_ROOT
+from ..config.presets import PRESETS, build, from_cli
 from ..core.masks import lengths_to_mask
 from ..core.rotation2xyz import POSE_FEATS
 from ..core.smpl import NUM_JOINTS
@@ -96,8 +101,11 @@ from ..train.checkpoint import load_weights
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seeme_tpu_torch.test")
-    p.add_argument("--preset", required=True, choices=sorted(PRESETS),
-                   help="a preset of config/egobody.py, config/humanml3d.py or config/a2m.py")
+    which = p.add_mutually_exclusive_group(required=True)
+    which.add_argument("--preset", choices=sorted(PRESETS),
+                       help="a preset of config/egobody.py, config/humanml3d.py or config/a2m.py")
+    which.add_argument("--cfg", help="a YAML config, e.g. configs/config_mld_egobody.yaml")
+    p.add_argument("--cfg_assets", default=None, help="assets YAML merged last (with --cfg)")
     p.add_argument("--batch_size", type=int, default=None, help="TEST.BATCH_SIZE")
     p.add_argument("--replication_times", type=int, default=None, help="TEST.REPLICATION_TIMES")
     p.add_argument("--checkpoint", default=None, help="TEST.CHECKPOINTS")
@@ -106,7 +114,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default=None, help="experiment dir")
     p.add_argument("overrides", nargs="*", default=[],
-                   help="model.FIELD=VALUE, train.FIELD=VALUE or test.FIELD=VALUE")
+                   help="with --preset model.FIELD=VALUE, train.FIELD=VALUE or test.FIELD=VALUE; "
+                        "with --cfg dotted YAML keys, e.g. TEST.MM=true")
     return p.parse_args(argv)
 
 
@@ -140,7 +149,7 @@ class Evaluator:
     """One evaluation run, set up as `test.py` sets it up; `run` evaluates."""
 
     def __init__(self, args: argparse.Namespace):
-        preset = apply_overrides(PRESETS[args.preset](), args.overrides)
+        preset = from_cli(args.preset, args.cfg, args.cfg_assets, args.overrides)
         tc = preset.test
         for name in ("batch_size", "replication_times", "checkpoint"):
             if getattr(args, name) is not None:

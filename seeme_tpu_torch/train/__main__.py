@@ -4,6 +4,13 @@ action-to-motion configs.
     python -m seeme_tpu_torch.train --preset NAME
         [--batch_size N] [--epochs N] [--out DIR] [--resume DIR]
         [--pretrained_vae PATH] [--device cpu] [model.FIELD=VALUE ...] [train.FIELD=VALUE ...]
+    python -m seeme_tpu_torch.train --cfg configs/config_NAME.yaml [--cfg_assets FILE]
+        [the same options] [KEY.PATH=VALUE ...]
+
+With `--cfg` the shipped YAML goes through the port's loader and builder
+(`config/loader.py`, `config/build.py`: base.yaml, the file, the module
+YAMLs, the assets, then the dotted overrides, read as YAML values, as
+`train.py` takes them); each YAML builds the same preset as its name below.
 
 NAME is a preset of `config/egobody.py` (vae_egobody, mld_egobody,
 mld_egobody_image, vae_gimo, mld_gimo, vae_interactee, mld_interactee) or
@@ -53,8 +60,8 @@ import numpy as np
 import torch
 
 from .._device import full_float32, resolve_device
-from ..config.egobody import OUT_ROOT, apply_overrides
-from ..config.presets import PRESETS, build
+from ..config.egobody import OUT_ROOT
+from ..config.presets import PRESETS, build, from_cli
 from ..data.batch import eval_batches
 from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
@@ -73,15 +80,20 @@ from .state import make_optimizer
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seeme_tpu_torch.train")
-    p.add_argument("--preset", required=True, choices=sorted(PRESETS),
-                   help="a preset of config/egobody.py, config/humanml3d.py or config/a2m.py")
+    which = p.add_mutually_exclusive_group(required=True)
+    which.add_argument("--preset", choices=sorted(PRESETS),
+                       help="a preset of config/egobody.py, config/humanml3d.py or config/a2m.py")
+    which.add_argument("--cfg", help="a YAML config, e.g. configs/config_mld_egobody.yaml")
+    p.add_argument("--cfg_assets", default=None, help="assets YAML merged last (with --cfg)")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None, help="END_EPOCH")
     p.add_argument("--out", default=None, help="experiment dir")
     p.add_argument("--resume", default=None, help="experiment dir to resume from")
     p.add_argument("--pretrained_vae", default=None, help="stage-1 checkpoint for stage 2")
     p.add_argument("--device", default="cuda")
-    p.add_argument("overrides", nargs="*", default=[], help="model.FIELD=VALUE or train.FIELD=VALUE")
+    p.add_argument("overrides", nargs="*", default=[],
+                   help="with --preset model.FIELD=VALUE or train.FIELD=VALUE; with --cfg "
+                        "dotted YAML keys, e.g. TRAIN.BATCH_SIZE=8 model.latent_dim=[2,256]")
     return p.parse_args(argv)
 
 
@@ -90,7 +102,7 @@ class Trainer:
     `fill_feature_cache` and then `fit`."""
 
     def __init__(self, args: argparse.Namespace):
-        preset = apply_overrides(PRESETS[args.preset](), args.overrides)
+        preset = from_cli(args.preset, args.cfg, args.cfg_assets, args.overrides)
         tc = preset.train
         if args.batch_size is not None:
             tc = dataclasses.replace(tc, batch_size=args.batch_size)
@@ -149,7 +161,8 @@ class Trainer:
         elif clear_stale_steps(self.exp_dir):
             self.log(f"cleared checkpoints an earlier run left in {self.exp_dir}")
         with open(os.path.join(self.exp_dir, "config.json"), "w") as f:
-            json.dump({"preset": args.preset, **dataclasses.asdict(preset)}, f, indent=1)
+            json.dump({"preset": args.preset, "cfg": args.cfg, **dataclasses.asdict(preset)}, f,
+                      indent=1)
         self.history: List[Dict] = []
         self.checkpoints: List[str] = []
         self.log(f"stage={self.stage} device={self.device} batch={self.batch_size} "

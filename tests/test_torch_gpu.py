@@ -10,8 +10,10 @@ partly or not at all (1, 3, 5, 17, 64), with and without CFG; the MD
 kernel at 1 and 3 condition tokens (the interactee-only and the
 image-conditioned configs; their launch plan fits at both guidances); the token
 kernel at 1, 3 and 8 condition tokens (up to 20 token rows a cluster) and at
-the action-to-motion shape (text width 256, no emb_proj); and widths that do
-not split into the cluster's column slices. A stage-2 train step on the
+the action-to-motion shape (text width 256, no emb_proj); both DDIM kernels
+at 2 and 10 latent tokens (their general instances) and the token counts
+they refuse; a SEE-ME model with the token-concat stack (`md_trans=False`,
+the stage-1 ego presets') through kernel 5 at 1-3 condition tokens; and widths that do not split into the cluster's column slices. A stage-2 train step on the
 card agrees with the same step on the CPU. Both PointNet kernels again at
 hidden width 256 (128 points a CTA), at batch 1, 3 and 64 and tiles filled
 partly or not at all, and the ProHMR-Scene and EgoHMR evaluation paths on
@@ -265,6 +267,119 @@ def test_ddim_kernel_condition_tokens(cuda, batch, n_cond, guidance):
     z = dfu.ddim_fused(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance, weights=weights)
     ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance)
     assert rel_err(z, ref) < 1e-3
+
+
+@pytest.mark.parametrize("guidance", [1.0, 2.5])
+@pytest.mark.parametrize("tokens", [2, 10])
+@pytest.mark.parametrize("batch", [3, 17])
+def test_ddim_kernel_multi_token(cuda, batch, tokens, guidance):
+    """Kernel 3's general instance at 2 and 10 latent tokens (the weights do
+    not depend on the token count), both MD entries, against the plain
+    version; one launch each, counted under its token count; the launch
+    plan within the card's shared memory."""
+    den = seeded(Denoiser((tokens, 256), ff_size=128, num_layers=5), 3, cuda)
+    sd = den.state_dict()
+    g = torch.Generator().manual_seed(9)
+    z0 = torch.randn(batch, tokens, 256, generator=g).to(cuda)
+    cond = torch.randn((2 if guidance > 1 else 1) * batch, 2, 256, generator=g).to(cuda)
+    weights = dfu.KernelWeights(sd, 5)
+    info = dfu.cluster_launch(True, batch, 2, weights, guidance, tokens=tokens)
+    cap = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert info["cluster"] == 8 and 1 <= info["samples"] and info["smem_bytes"] <= cap
+    sched = (DiffusionSchedule(), 10)
+    before = dfu.ddim_fused.launches_by_tokens.get(tokens, 0)
+    z = dfu.ddim_fused(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance,
+                       weights=weights)
+    assert dfu.ddim_fused.launches_by_tokens[tokens] == before + 1 and z.shape == z0.shape
+    ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance)
+    assert rel_err(z, ref) < 1e-3
+    grid = dfu.ddim_fused_grid(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance,
+                               weights=weights)
+    assert torch.equal(grid, z)
+
+
+@pytest.mark.parametrize("tokens,guidance,text_dim", [(2, 1.0, 768), (2, 7.5, 768),
+                                                      (10, 1.0, 768), (10, 7.5, 768),
+                                                      (2, 1.0, 256), (10, 1.0, 256)])
+@pytest.mark.parametrize("batch", [3, 17])
+def test_ddim_tok_kernel_multi_token(cuda, batch, tokens, guidance, text_dim):
+    """Kernel 5's general instance at 2 and 10 latent tokens, one condition
+    token, at the T2M shape (text 768) and the shipped preset's (256); at
+    10 tokens under CFG a sample is 24 rows and a cluster carries one."""
+    sd = t2m_denoiser(cuda, text_dim)
+    g = torch.Generator().manual_seed(10)
+    z0 = torch.randn(batch, tokens, 256, generator=g).to(cuda)
+    cond = torch.randn((2 if guidance > 1 else 1) * batch, 1, text_dim, generator=g).to(cuda)
+    if guidance > 1:
+        cond[:batch] = 0.0
+    weights = dfu.KernelWeights(sd, 5, md_trans=False)
+    info = dfu.cluster_launch(False, batch, 1, weights, guidance, tokens=tokens)
+    assert info["samples"] == 1 or tokens < 10 or guidance == 1.0
+    sched = (DiffusionSchedule(), 10)
+    before = dfu.ddim_fused_tok.launches_by_tokens.get(tokens, 0)
+    z = dfu.ddim_fused_tok(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance,
+                           weights=weights)
+    assert dfu.ddim_fused_tok.launches_by_tokens[tokens] == before + 1 and z.shape == z0.shape
+    ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=5, guidance_scale=guidance,
+                               md_trans=False)
+    assert rel_err(z, ref) < 1e-3
+
+
+@pytest.mark.parametrize("condition,tokens,guidance", [((), 1, 1.0), ((), 2, 2.5),
+                                                        (("interactee", "scene"), 1, 2.5),
+                                                        (("interactee", "scene"), 2, 1.0),
+                                                        (("interactee", "scene", "image"), 2,
+                                                         2.5)])
+def test_seeme_token_concat_on_kernel5(cuda, condition, tokens, guidance):
+    """A SEE-ME model with `md_trans=False` (the stage-1 ego presets' stack)
+    at full width samples through kernel 5, once a call, counted under its
+    token count, at 1, 2 and 3 condition tokens; the features within 1e-3
+    of its plain version's decoded."""
+    data = SyntheticEgoDataset(5, 60, scene_points=256, with_image="image" in condition,
+                               image_size=64, seed=0)
+    cfg = SeeMeConfig(latent_dim=(tokens, 256), md_trans=False, condition=condition,
+                      guidance_scale=guidance, scene_points=256)
+    system = seeded(SeeMeSystem(cfg, synthetic_smpl(256), data.mean, data.std, device=cuda,
+                                seed=1), 2, cuda)
+    batch = to_torch(data.batch(0, 5), cuda)
+    cond = system.encode_conditioning(batch)
+    z0 = torch.randn(5, tokens, 256, generator=torch.Generator().manual_seed(11)).to(cuda)
+    before = dfu.ddim_fused_tok.launches_by_tokens.get(tokens, 0)
+    md_before = dfu.ddim_fused.launches
+    feats = system.sample_from_cond(cond, z_init=z0)
+    assert dfu.ddim_fused_tok.launches_by_tokens[tokens] == before + 1
+    assert dfu.ddim_fused.launches == md_before
+    sd = system.kernel_operands()[0]
+    z = dfu.ddim_fused_plain(sd, cond, z0, system.schedule, cfg.num_inference_timesteps,
+                             cfg.num_layers, guidance, md_trans=False)
+    assert rel_err(feats, system.vae.decode(z, cfg.motion_length)) < 1e-3
+
+
+def test_multi_token_limits_raise(cuda):
+    """A token count past what a cluster holds raises, naming the limit,
+    and launches nothing: kernel 5's 30 token rows a sample (31 without
+    CFG, 32 under it), kernel 3's shared memory a CTA."""
+    sched = (DiffusionSchedule(), 4)
+    tok = t2m_denoiser(cuda)
+    before = dfu.ddim_fused_tok.launches
+    for cond, T, g, match in ((torch.zeros(2, 1, 768, device=cuda), 29, 1.0,
+                               "29 latent and 1 condition tokens: kernel 5 takes at most 30 "
+                               "token rows a sample"),
+                              (torch.zeros(4, 1, 768, device=cuda), 14, 7.5,
+                               "14 latent and 1 condition tokens under CFG: kernel 5 takes at "
+                               "most 30")):
+        with pytest.raises(ValueError, match=match):
+            dfu.ddim_fused_tok(tok, cond, torch.randn(2, T, 256, device=cuda), *sched,
+                               num_layers=5, guidance_scale=g)
+    assert dfu.ddim_fused_tok.launches == before
+    md = seeded(Denoiser((1, 256), ff_size=128, num_layers=5), 3, cuda).state_dict()
+    before = dfu.ddim_fused.launches
+    with pytest.raises(ValueError, match="40 latent and 2 condition tokens under CFG: one "
+                                         "sample's rows need more shared memory"):
+        dfu.ddim_fused(md, torch.randn(4, 2, 256, device=cuda),
+                       torch.randn(2, 40, 256, device=cuda), *sched, num_layers=5,
+                       guidance_scale=2.5)
+    assert dfu.ddim_fused.launches == before
 
 
 def test_cluster_launch(cuda):

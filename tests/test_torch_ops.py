@@ -287,11 +287,11 @@ def test_ddim_profile_instruments_both_kernels():
     src = ddim_profile.instrumented_sources()
     assert "g_prof" in src["ddim_common.cuh"]
     assert all(f"PROF_ADD({i}," in src["ddim_common.cuh"] for i in range(6))
-    assert all("PROF_ADD(6, k1 - k0)" in src[k] for k in ("ddim_md.cu", "ddim_tok.cu"))
+    assert all("PROF_ADD(6, k1 - k0)" in src[k] for k in ("ddim_md.cuh", "ddim_tok.cuh"))
 
 
 def test_kernel_weights_layout(denoiser_pair):
-    """The pointer table's order is the enum of csrc/ddim_md.cu: 32 operands
+    """The pointer table's order is the enum of csrc/ddim_md.cuh: 32 operands
     per MD layer, (in, out) matrices, then skip_linears, final norm, pe row."""
     sd, _, _ = denoiser_pair
     kw = dfu.KernelWeights(sd, 3)
@@ -428,7 +428,7 @@ def test_ddim_fused_tok_matches_exact_jax_path(token_pair, guidance):
 
 
 def test_token_kernel_weights_layout(token_pair):
-    """The pointer table's order is the enum of csrc/ddim_tok.cu: 16 operands
+    """The pointer table's order is the enum of csrc/ddim_tok.cuh: 16 operands
     per encoder layer, (in, out) matrices, then skip_linears, final norm, pe row."""
     sd, _, _ = token_pair
     kw = dfu.KernelWeights(sd, 3, md_trans=False)
@@ -456,8 +456,8 @@ def test_token_wrapper_checks_its_inputs(token_pair):
     with pytest.raises(ValueError, match="for batch 2"):
         dfu.ddim_fused_tok(meta, torch.empty(2, 1, TEXT, device="meta"), z0, *sched,
                            num_layers=3, guidance_scale=7.5)
-    with pytest.raises(ValueError, match="one latent token"):
-        dfu.ddim_fused_tok(meta, torch.empty(2, 1, TEXT, device="meta"),
+    with pytest.raises(ValueError, match="9 condition tokens; the kernel takes 1 to 8"):
+        dfu.ddim_fused_tok(meta, torch.empty(2, 9, TEXT, device="meta"),
                            torch.empty(2, 2, D, device="meta"), *sched, num_layers=3)
     assert dfu.ddim_fused_tok.launches == before
 
