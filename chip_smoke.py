@@ -6,8 +6,11 @@ the test CLI, the diffusion-only model and the token text mode), the
 ProHMR-Scene and EgoHMR perception stack's evaluation and training paths,
 HumanAct12 / UESTC action-to-motion (sampling, both training stages, the
 test CLI with either evaluator), multi-token latents through both DDIM
-kernels with a multi-token EgoBody config from the shipped YAML, and the
-root entry points `demo`, `scene_encoder` and `fit` through `--cfg`.
+kernels with a multi-token EgoBody config from the shipped YAML, the
+root entry points `demo`, `scene_encoder` and `fit` through `--cfg`, the
+SMPL model file on those paths, the evaluators trained by
+`tools.train_evaluator` and used by the test CLI, the HumanML3D feature
+pipeline with RIFKE and APE / AVE, and host-to-device prefetching.
 
     python3 chip_smoke.py
 
@@ -205,7 +208,29 @@ Phases, each printing one line with its seconds as soon as it ends:
  39. `python -m seeme_tpu_torch.scene_encoder` (20 000 points; kernels 1 / 2
      at H=256 once / three times) against the plain twin (1e-4 of max|out|);
  40. `python -m seeme_tpu_torch.fit` over the ego demo's first sample, 100
-     Adam steps on the card: falling loss, finite parameters, host time.
+     Adam steps on the card: falling loss, finite parameters, host time;
+ 41. a 6890-vertex SMPL file written in the MPI `.pkl` layout and as the
+     `.npz` cache, read on the card bitwise as written; the test CLI with
+     `--cfg config_mld_egobody.yaml model.smpl_path=<pkl>` at B=64
+     (expected: 1 / 3 / kernel 3 once) and that slice card vs CPU at B=2;
+ 42. `fit --smpl_path <pkl>` and the a2m test CLI with the file (kernel 5
+     once);
+ 43-45. `python -m seeme_tpu_torch.tools.train_evaluator` for the
+     HumanAct12 GRU (12 epochs, val accuracy > 0.3), the UESTC ST-GCN (3
+     epochs, falling loss) and the HumanML3D TM2T trio (`--debug`, 150
+     epochs, test R@1(32) > 0.15): no launch while training, ms a step and
+     the device idle share, each file reloaded by the test CLI's loader
+     with outputs bitwise the trainer's, then the test CLI through `--cfg`
+     with it (kernel 5 once, "loaded evaluator" logged);
+ 46. `preprocess_humanml` on the card and on the CPU over seeded joints
+     (22 and 21 joints, 196 frames): features within 1e-5 of max, the RIC
+     recovery against the canonical joints, RIFKE and APE / AVE card vs CPU;
+ 47. stage-2 EgoBody training at B=64 with the raw 20 000-point scene per
+     batch through `run_epoch`'s prefetching: each prefetched batch bitwise
+     its host batch, the terms of 6 steps (after a warm-up step, in halves
+     run prefetched / synchronous / synchronous / prefetched) within 1e-6 of
+     a synchronous loop's on a twin trainer, ms a step and idle share of
+     both, and one batch's pageable and pinned copies alone.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
 path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
 at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
@@ -248,6 +273,9 @@ TRAIN_GRAD_RTOL = 1e-3   # its gradients, card vs CPU, relative to each tensor's
 GRAD_FLOOR = 1e-8        # absolute bound for a gradient that is zero but for f32 rounding
 TRAIN_LR = 1e-3          # the card-vs-CPU step's learning rate
 HMR_POINTS = 20000       # the perception stack's scene points at full width
+EVAL_T2M_EPOCHS = 150    # the TM2T trio's epochs on the --debug split (the JAX test's count)
+FEATURE_RTOL = 1e-5      # card vs CPU features of preprocess_humanml, relative to max |feat|
+PREFETCH_STEPS = 6       # timed stage-2 steps of the prefetching epoch and of the synchronous loop
 
 _t0 = time.perf_counter()
 
@@ -729,6 +757,15 @@ def main() -> int:
     try:
         multitoken_phases(dev, counted, counters, record, kernels, launches, work)
         entry_phases(dev, counted, counters, record, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="seeme_tools_")
+    try:
+        smpl_file_phases(dev, counted, counters, record, work)
+        evaluator_phases(dev, counted, counters, record, work)
+        feature_phases(dev)
+        prefetch_phases(dev, counted, counters, record, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2733,6 +2770,394 @@ def entry_phases(dev, counted, counters, record, work: str) -> None:
           f"{losses[-1]:.5f}, terms {json.dumps({k: round(v, 5) for k, v in out['terms'].items()})}"
           f", {wall:.3f} s on the host clock", t)
 
+
+def smpl_file_phases(dev, counted, counters, record, work: str) -> None:
+    """Phases 41-42: the SMPL model file. 41: a 6890-vertex body written in
+    the MPI layout (`core/smpl.py::save_smpl`: chumpy-typed fields through a
+    stand-in module registered only while pickling, a csc `J_regressor`,
+    (V, 3, 207) pose blend shapes) and as the `.npz` cache, read back on the
+    card bitwise; the test CLI with `--cfg config_mld_egobody.yaml
+    model.smpl_path=<pkl>` at B=64 (expected: 1 / 3 / kernel 3 once, the
+    file's body in the system), then that slice card vs CPU at B=2 with 512
+    points. 42: `fit --smpl_path` and the a2m test CLI with the file."""
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch import fit
+    from seeme_tpu_torch.config.presets import build
+    from seeme_tpu_torch.core import smpl as psmpl
+    from seeme_tpu_torch.data.synthetic import to_torch
+    from seeme_tpu_torch.test.__main__ import Evaluator
+    from seeme_tpu_torch.test.__main__ import main as test_main
+    from seeme_tpu_torch.test.__main__ import parse_args as test_args
+
+    none = {k: 0 for k in counters}
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+    # ---- 41. the file, read on the card, and the EgoBody --cfg slice on its body
+    t = time.perf_counter()
+    written = psmpl.synthetic_smpl(n_verts=6890, seed=SEED)
+    pkl, npz = os.path.join(work, "SMPL_NEUTRAL.pkl"), os.path.join(work, "SMPL_NEUTRAL.npz")
+    psmpl.save_smpl(written, pkl)
+    psmpl.save_smpl(written, npz)
+    for path in (pkl, npz):
+        body = psmpl.load_smpl(path, dev)
+        for name in ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights",
+                     "parents"):
+            got = getattr(body, name)
+            require(got.is_cuda and torch.equal(got.cpu(), getattr(written, name)),
+                    f"{os.path.basename(path)}: {name} is not the written array")
+        require(np.array_equal(body.extra_joint_ids.cpu().numpy(), psmpl.EXTRA_JOINT_VERTEX_IDS)
+                and np.array_equal(body.faces, written.faces),
+                f"{os.path.basename(path)}: extra joints or faces")
+    ev = Evaluator(test_args(["--cfg", os.path.join(configs, "config_mld_egobody.yaml"),
+                              "--out", os.path.join(work, "test_smpl_file"),
+                              f"model.smpl_path={pkl}"]))
+    require(ev.preset.smpl_path == pkl
+            and torch.equal(ev.system.smpl.v_template.cpu(), written.v_template),
+            "the --cfg system does not carry the file's body")
+    result, counts = counted(ev.run)
+    require(counts == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3,
+                       "ddim_md_t1": 1}, f"EgoBody --cfg test CLI with the SMPL file {counts}")
+    record("egobody_test_cli_smpl_file", counts)
+    stats = result["stats"]
+    require(stats and all(math.isfinite(x) for v in stats.values() for x in v.values()),
+            f"EgoBody test CLI statistics {stats}")
+    system = ev.system
+    _, cpu_system = build(ev.preset, torch.device("cpu"))
+    cpu_system.load_state_dict({k: v.cpu() for k, v in system.state_dict().items()})
+    small = to_torch(next(ev.datamodule.batches("test", 2, shuffle=False)), "cpu")
+    small["scene"] = small["scene"][:, :512].contiguous()
+    z_small = torch.randn(2, 1, system.cfg.latent_dim[-1],
+                          generator=torch.Generator().manual_seed(SEED + 41))
+    with torch.no_grad():
+        ref = cpu_system.sample_from_cond(cpu_system.encode_conditioning(small), z_init=z_small)
+        ref_out = cpu_system.eval_fk(small, ref)
+        on = {k: v.to(dev) for k, v in small.items()}
+        got = system.sample_from_cond(system.encode_conditioning(on), z_init=z_small.to(dev))
+        got_out = system.eval_fk(on, got)
+    compare("SMPL-file slice features, card vs CPU", got.cpu(), ref, float(ref.abs().max()),
+            SLICE_RTOL)
+    compare("SMPL-file slice joints, card vs CPU", got_out["joints_rst"].cpu(),
+            ref_out["joints_rst"], float(ref_out["joints_rst"].abs().max()), SLICE_RTOL)
+    del ev, system, cpu_system
+    torch.cuda.empty_cache()
+    phase(f"SMPL file: 6890-vertex .pkl ({os.path.getsize(pkl)} B) and .npz read on the card "
+          f"bitwise as written; test --cfg config_mld_egobody.yaml model.smpl_path=<pkl> B={BATCH}: "
+          f"launches {counts}, metric means "
+          f"{json.dumps({k: round(v['mean'], 4) for k, v in sorted(stats.items())})}; card vs "
+          f"CPU at B=2 agrees", t)
+
+    # ---- 42. fit and the a2m test CLI on the file
+    t = time.perf_counter()
+    body = psmpl.load_smpl(pkl, dev)
+    g = torch.Generator().manual_seed(SEED + 42)
+    with torch.no_grad():
+        target = psmpl.smpl_joints24(body, (0.5 * torch.randn(60, 10, generator=g)).to(dev),
+                                     (0.2 * torch.randn(60, 69, generator=g)).to(dev),
+                                     (0.2 * torch.randn(60, 3, generator=g)).to(dev))
+    np.save(os.path.join(work, "smpl_joints.npy"), target.cpu().numpy())
+    out, counts = counted(lambda: fit.main([
+        "--joints", os.path.join(work, "smpl_joints.npy"), "--steps", "50", "--smpl_path", pkl,
+        "--gmm", os.path.join(work, "no_gmm"), "--out", os.path.join(work, "fit_file.npz")]))
+    losses = out["losses"]
+    require(counts == none and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"fit --smpl_path: launches {counts}, losses {losses[0]} -> {losses[-1]}")
+    result, counts_a = counted(lambda: test_main([
+        "--cfg", os.path.join(configs, "config_mld_humanact12.yaml"), "--out",
+        os.path.join(work, "test_a2m_smpl_file"), f"model.smpl_path={pkl}"]))
+    require(counts_a == {**none, "ddim_tok_t1": 1}, f"a2m --cfg test CLI with the file {counts_a}")
+    record("a2m_test_cli_smpl_file", counts_a)
+    require(all(math.isfinite(x) for v in result["stats"].values() for x in v.values()),
+            f"a2m test CLI statistics {result['stats']}")
+    phase(f"fit --smpl_path <pkl> (60 frames, 50 steps): loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; test --cfg config_mld_humanact12.yaml model.smpl_path=<pkl>: "
+          f"launches {counts_a}, metric means "
+          f"{json.dumps({k: round(v['mean'], 4) for k, v in sorted(result['stats'].items())})}", t)
+
+
+def evaluator_phases(dev, counted, counters, record, work: str) -> None:
+    """Phases 43-45: `python -m seeme_tpu_torch.tools.train_evaluator` on the
+    card, each trained file reloaded by the test CLI's loader (its outputs
+    on a fixed batch bitwise the trainer's) and then used by the test CLI
+    through `--cfg` (expected: kernel 5 once, "loaded evaluator" in its
+    log). 43: the HumanAct12 GRU, 12 epochs, final val accuracy > 0.3; 44:
+    the UESTC ST-GCN, 3 epochs, its epoch loss falling; 45: the HumanML3D
+    trio with `--debug`, EVAL_T2M_EPOCHS epochs, test R@1(32) > 0.15. Each
+    reports ms a step (`StepTimer`, synchronised) and the device idle share
+    over 5 more steps."""
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch.eval.t2m_evaluator import T2MEvaluator
+    from seeme_tpu_torch.test.__main__ import action_evaluator
+    from seeme_tpu_torch.test.__main__ import main as test_main
+    from seeme_tpu_torch.tools import train_evaluator
+
+    none = {k: 0 for k in counters}
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+    def reloaded_outputs(tr, path):
+        """The trainer's outputs and the loader's on the val split's first 16."""
+        x = tr.inputs(next(tr.dm.batches("val", 16, shuffle=False)))
+        with torch.no_grad():
+            want = tr.outputs(x)
+            if tr.kind == "t2m":
+                ev = T2MEvaluator(nfeats=tr.dm.nfeats, ckpt=path, device=dev)
+                mov = ev.movement_encoder(x["feats"][..., :-4])
+                got = (ev.text_encoder(x["words"], x["pos"], x["cap_lens"]),
+                       ev.motion_encoder(mov, x["length"] // ev.unit_len))
+                return list(got), list(want)
+            clf = action_evaluator(tr.name, tr.dm.num_classes, SEED, dev, checkpoint=path)
+            return [clf(tr.classifier_input(x["motion"]), x["length"])[0]], [want]
+
+    def idle_share(tr):
+        tr.module.requires_grad_(True)
+        tr.train_mode(True)
+        x = tr.inputs(next(tr.train_batches(0)))
+        busy, wall, _ = profile_busy(lambda: [tr.step(x) for _ in range(5)])
+        return 1 - busy / wall
+
+    def run(label, yaml, args, key, check):
+        t = time.perf_counter()
+        path = os.path.join(work, f"{label}.tar")
+        tr, counts = counted(lambda: train_evaluator.main(
+            ["--cfg", os.path.join(configs, yaml), "--out", path] + args))
+        require(counts == none, f"{label} training launched {counts}")
+        losses = [r["loss"] for r in tr.history]
+        require(all(math.isfinite(v) for v in losses), f"{label} losses {losses}")
+        check(tr, losses)
+        got, want = reloaded_outputs(tr, path)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"{label}: the reloaded file's outputs are not the trainer's")
+        out = os.path.join(work, f"test_{label}")
+        result, counts = counted(lambda: test_main([
+            "--cfg", os.path.join(configs, yaml), "--out", out, f"TEST.{key}={path}"]))
+        require(counts == {**none, "ddim_tok_t1": 1}, f"{label} test CLI launch counts {counts}")
+        record(f"test_cli_trained_{label}", counts)
+        with open(os.path.join(out, "test_log.txt")) as f:
+            require("loaded evaluator" in f.read(), f"{label}: the test CLI did not load it")
+        require(all(math.isfinite(x) for v in result["stats"].values() for x in v.values()),
+                f"{label} test CLI statistics {result['stats']}")
+        ms = sorted(1e3 * x for x in tr.timer.times[1:])
+        idle = idle_share(tr)
+        final = ("R@1(32) on the test split" if tr.kind == "t2m"
+                 else f"accuracy on the {tr.metric_split} split")
+        phase(f"train_evaluator {label} ({tr.kind}, {len(tr.timer.times)} steps of "
+              f"{tr.args.batch_size}): loss {losses[0]:.4f} -> {losses[-1]:.4f}, final "
+              f"{final} {tr.final_metric:.3f}, {ms[len(ms) // 2]:.3f} ms a step (median, min "
+              f"{ms[0]:.3f}, max {ms[-1]:.3f}), device idle share {idle:.3f} over 5 more steps; "
+              f"reloaded bitwise; test CLI with it: launches {counts}, means "
+              f"{json.dumps({k: round(v['mean'], 4) for k, v in sorted(result['stats'].items())})}",
+              t)
+
+    def gru_check(tr, losses):
+        require(tr.final_metric > 0.3, f"GRU final val accuracy {tr.final_metric}")
+
+    def falls(tr, losses):
+        require(losses[-1] < losses[0], f"ST-GCN epoch losses {losses}")
+
+    def r1_check(tr, losses):
+        require(tr.final_metric > 0.15, f"TM2T test R@1(32) {tr.final_metric}")
+
+    run("humanact12_gru", "config_mld_humanact12.yaml", ["--epochs", "12"],
+        "EVALUATOR_CHECKPOINT", gru_check)
+    run("uestc_stgcn", "config_mld_uestc.yaml", ["--epochs", "3"], "EVALUATOR_CHECKPOINT",
+        falls)
+    run("humanml3d_tm2t", "config_mld_humanml3d.yaml",
+        ["--debug", "--epochs", str(EVAL_T2M_EPOCHS)], "T2M_EVALUATOR_DIR", r1_check)
+
+
+def feature_phases(dev) -> None:
+    """Phase 46: the HumanML3D / KIT feature pipeline on the card.
+    `preprocess_humanml` over seeded random-walk joints (22 and 21 joints,
+    196 frames, two clips each) on the card and on the CPU: features within
+    FEATURE_RTOL of max |feat|, recovered joints within 1e-5; the RIC
+    recovery of the card's features against its canonical joints (5e-3, the
+    CPU test's bound); RIFKE and APE / AVE card vs CPU (1e-5)."""
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch.core import rifke
+    from seeme_tpu_torch.core.motion_process import SPECS, forward_kinematics, process_file
+    from seeme_tpu_torch.core.ric import recover_from_ric
+    from seeme_tpu_torch.eval.ape_ave import ApeAveMetrics
+    from seeme_tpu_torch.tools import preprocess_humanml
+
+    t = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="seeme_features_")
+    worst = {}
+    try:
+        for name in ("humanml3d", "kit"):
+            spec, rng = SPECS[name], np.random.RandomState(SEED + 46)
+            src = os.path.join(base, name, "joints")
+            os.makedirs(src)
+            for i in range(2):  # FK of small drifting rotations, plus a walking root
+                aa = np.cumsum(rng.randn(196, spec.joints_num, 3) * 0.02, axis=0)
+                angle = np.linalg.norm(aa, axis=-1, keepdims=True) + 1e-9
+                quat = np.concatenate([np.cos(angle / 2), np.sin(angle / 2) * aa / angle], -1)
+                root = np.cumsum(rng.randn(196, 3) * 0.01, axis=0) + [0.0, 0.9, 0.0]
+                offsets = spec.raw_offsets * (0.2 + 0.2 * rng.rand(spec.joints_num, 1))
+                joints = forward_kinematics(*(torch.as_tensor(a) for a in (quat, root, offsets)),
+                                            spec)
+                np.save(os.path.join(src, f"{i:06d}.npy"), joints.numpy())
+            outs = {}
+            for where, extra in (("card", []), ("cpu", ["--cpu"])):
+                d = os.path.join(base, name, where)
+                t_run = time.perf_counter()
+                result = preprocess_humanml.main([
+                    "--dataset", name, "--joints_dir", src, "--out_vecs", os.path.join(d, "vecs"),
+                    "--out_joints", os.path.join(d, "joints"), "--stats", base] + extra)
+                require(len(result["processed"]) == 2, f"{name} preprocess {where}: {result}")
+                outs[where] = (d, time.perf_counter() - t_run)
+            for f in sorted(os.listdir(os.path.join(outs["cpu"][0], "vecs"))):
+                card, cpu = (np.load(os.path.join(outs[w][0], "vecs", f)) for w in ("card", "cpu"))
+                require(card.shape == (195, 263 if name == "humanml3d" else 251),
+                        f"{name} features {card.shape}")
+                worst[f"{name} features"] = compare(
+                    f"{name} {f} features, card vs CPU", torch.as_tensor(card),
+                    torch.as_tensor(cpu), float(np.abs(cpu).max()), FEATURE_RTOL)
+                card_j, cpu_j = (np.load(os.path.join(outs[w][0], "joints", f))
+                                 for w in ("card", "cpu"))
+                worst[f"{name} recovered joints"] = compare(
+                    f"{name} {f} recovered joints, card vs CPU", torch.as_tensor(card_j),
+                    torch.as_tensor(cpu_j), float(np.abs(cpu_j).max()), 1e-5)
+            raw = torch.as_tensor(np.load(os.path.join(src, "000000.npy")), device=dev)
+            data, glob, _, _ = process_file(raw, spec)
+            rec = recover_from_ric(data.float(), spec.joints_num)
+            gap = float((rec.double() - glob[:-1]).abs().max())
+            require(gap < 5e-3, f"{name}: RIC recovery of the card's features off by {gap}")
+            worst[f"{name} RIC recovery (abs)"] = gap
+            worst[f"{name} ms on card / cpu"] = [round(1e3 * outs[w][1], 1) for w in ("card", "cpu")]
+        joints = torch.as_tensor(np.stack([np.load(os.path.join(base, "humanml3d", "joints", f))
+                                           for f in ("000000.npy", "000001.npy")]),
+                                 dtype=torch.float32)
+        feats_cpu = rifke.joints_to_rifke(joints)
+        feats = rifke.joints_to_rifke(joints.to(dev))
+        scale = float(feats_cpu.abs().max())
+        worst["rifke"] = compare("RIFKE features, card vs CPU", feats.cpu(), feats_cpu, scale, 1e-5)
+        back_cpu = rifke.rifke_to_joints(feats_cpu)
+        worst["rifke inverse"] = compare("RIFKE inverse, card vs CPU",
+                                         rifke.rifke_to_joints(feats).cpu(), back_cpu,
+                                         float(back_cpu.abs().max()), 1e-5)
+        noisy = joints + 0.05 * torch.randn(joints.shape, generator=torch.Generator().manual_seed(7))
+        lengths = np.array([196, 150])
+        metrics = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = ApeAveMetrics()
+            m.update(noisy.to(device), joints.to(device), lengths)
+            metrics[where] = m.compute()
+        for k, v in metrics["cpu"].items():
+            require(abs(metrics["card"][k] - v) <= 1e-5 * max(abs(v), 1e-12),
+                    f"{k}: card {metrics['card'][k]} vs CPU {v}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    phase(f"feature pipeline: preprocess_humanml card vs CPU, RIC recovery, RIFKE and APE/AVE "
+          f"agree; max abs gaps and times {json.dumps(worst)}; APE/AVE "
+          f"{json.dumps({k: round(v, 5) for k, v in sorted(metrics['card'].items())})}", t)
+
+
+def prefetch_phases(dev, counted, counters, record, work: str) -> None:
+    """Phase 47: stage-2 EgoBody training at B=64 with the raw 20 000-point
+    scene in every batch (no feature cache, ~18 MB a batch) through
+    `run_epoch`, whose batches come through `data/prefetch.py`: every
+    prefetched batch bitwise its host batch; after one warm-up step each,
+    the terms of PREFETCH_STEPS steps against a loop of
+    `train_step(to_torch(b))` on a twin trainer with the same weights,
+    generators and batches (1e-6 relative), in two halves run prefetched,
+    synchronous, synchronous, prefetched; the host clock a step and the
+    device idle share of both loops, and one batch's pageable copy and
+    pinned staged copy alone (a record, not a claim)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch.data.prefetch import prefetch_to_device
+    from seeme_tpu_torch.data.synthetic import to_torch
+    from seeme_tpu_torch.train.__main__ import Trainer, parse_args
+    from seeme_tpu_torch.train.loop import run_epoch, train_step
+
+    t = time.perf_counter()
+    none = {k: 0 for k in counters}
+    argv = ["--preset", "mld_egobody", "--epochs", "1", "train.feature_cache=False",
+            "--out", os.path.join(work, "prefetch")]
+    a, b = Trainer(parse_args(argv)), Trainer(parse_args(argv))
+    b.system.load_state_dict(a.system.state_dict())
+    host = list(itertools.islice(itertools.chain.from_iterable(
+        a.train_batches(epoch) for epoch in itertools.count()), PREFETCH_STEPS + 1))
+    mb = sum(v.nbytes for v in host[0].values() if isinstance(v, np.ndarray)) / 1e6
+    require(host[0]["scene"].shape == (BATCH, HMR_POINTS, 3), f"scene {host[0]['scene'].shape}")
+    for h, d in zip(host, prefetch_to_device(iter(host), dev)):
+        for k, v in h.items():
+            require(d[k].is_cuda and torch.equal(d[k].cpu(), torch.as_tensor(v)),
+                    f"prefetched {k} is not its host batch")
+
+    def copy_ms(fn, n=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    pageable = copy_ms(lambda: to_torch(host[0], dev))
+    staged = copy_ms(lambda: next(prefetch_to_device(iter(host[:1]), dev)))
+    for tr in (a, b):  # one warm-up step each, on the same batch and draws
+        torch.manual_seed(SEED + 47)
+        train_step(tr.system, tr.stage, tr.optimizer, tr.schedule, 0, to_torch(host[0], dev),
+                   tr.generator)
+    half = PREFETCH_STEPS // 2
+    halves = (host[1:1 + half], host[1 + half:])
+    steps_a, synced, runs = [], [], {"prefetched": [], "synchronous": []}
+
+    def prefetched(k):
+        def run():
+            steps_a.extend(run_epoch(a.system, a.stage, a.optimizer, a.schedule, 1 + k * half,
+                                     iter(halves[k]), a.generator)[2])
+        return run
+
+    def synchronous(k):
+        def run():
+            for i, h in enumerate(halves[k], 1 + k * half):
+                synced.append(train_step(b.system, b.stage, b.optimizer, b.schedule, i,
+                                         to_torch(h, dev), b.generator))
+        return run
+
+    all_counts = []
+    # prefetched, synchronous, synchronous, prefetched; each half's dropout
+    # draws (torch's default generator) seeded alike for both loops
+    for k, name in ((0, "prefetched"), (0, "synchronous"), (1, "synchronous"),
+                    (1, "prefetched")):
+        torch.manual_seed(SEED + 48 + k)
+        run = prefetched(k) if name == "prefetched" else synchronous(k)
+        (busy, wall, _), counts = counted(lambda: profile_busy(run))
+        runs[name].append((busy, wall))
+        if name == "prefetched":
+            all_counts.append(counts)
+    counts = {k: sum(c[k] for c in all_counts) for k in all_counts[0]}
+    require(counts == {**none, "pointnet_input_block": PREFETCH_STEPS,
+                       "pointnet_split_block": 3 * PREFETCH_STEPS},
+            f"prefetched stage-2 epoch launch counts {counts}")
+    record("prefetch_stage2_steps", counts)
+    for i, (x, y) in enumerate(zip(steps_a, synced)):
+        for k in y:
+            require(abs(x[k] - y[k]) <= 1e-6 * max(abs(y[k]), 1e-12),
+                    f"step {i} {k}: prefetched {x[k]} vs synchronous {y[k]}")
+    require(len(steps_a) == len(synced) == PREFETCH_STEPS, "prefetch steps missing")
+    (busy_a, wall_a), (busy_b, wall_b) = (
+        [sum(x) for x in zip(*runs[name])] for name in ("prefetched", "synchronous"))
+    ms_a = [round(w / half, 3) for _, w in runs["prefetched"]]
+    ms_b = [round(w / half, 3) for _, w in runs["synchronous"]]
+    n = PREFETCH_STEPS
+    phase(f"prefetch: stage 2 (mld_egobody, no cache) B={BATCH}, {HMR_POINTS} points, "
+          f"{mb:.1f} MB a batch, {n} steps after a warm-up, in halves run prefetched, "
+          f"synchronous, synchronous, prefetched: every prefetched batch bitwise its host batch, "
+          f"terms within 1e-6 of the synchronous loop's; prefetched {wall_a / n:.3f} ms a step "
+          f"on the host clock (halves {ms_a}), device idle share {1 - busy_a / wall_a:.3f}; "
+          f"synchronous {wall_b / n:.3f} ms a step (halves {ms_b}), idle share "
+          f"{1 - busy_b / wall_b:.3f}; one batch alone: pageable copy {pageable:.3f} ms, pinned "
+          f"staging and copy {staged:.3f} ms; launches {counts}", t)
 
 def forward_counter(module) -> list:
     """A list that grows by one at each forward of `module`."""

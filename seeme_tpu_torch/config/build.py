@@ -20,7 +20,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..core.smpl import SmplModel, synthetic_smpl
+from ..core.smpl import SmplModel, smpl_body
 from ..models.a2m import A2MConfig
 from ..models.seeme import SeeMeConfig
 from ..models.t2m import T2MConfig
@@ -191,27 +191,29 @@ def preset_from_yaml(cfg: Config) -> Preset:
         word_vectorizer_path=str(cfg.select("DATASET.WORD_VERTILIZER_PATH", "") or ""),
         evaluator_checkpoint=str(te.get("EVALUATOR_CHECKPOINT") or ""))
     return Preset(name=str(cfg.get("NAME", name)), model=model, train=train, dataset=name,
-                  test=test)
+                  test=test, smpl_path=smpl_path_of(cfg))
+
+
+def smpl_path_of(cfg: Config) -> str:
+    """`model.smpl_path` when that file exists, else empty."""
+    path = str(cfg.select("model.smpl_path", "") or "")
+    return path if path and os.path.exists(path) else ""
 
 
 def load_smpl_or_synthetic(cfg: Config) -> SmplModel:
-    """The synthetic body (`synthetic_smpl(6890)`) that the JAX builder
-    falls back to without the SMPL file (`:61-69`); reading the file itself
-    is not ported, so a configured file that exists raises."""
-    path = cfg.select("model.smpl_path", "")
-    if path and os.path.exists(path):
-        raise NotImplementedError(f"{path}: reading the SMPL model file is not ported "
-                                  "(ROADMAP §1 item 6); without it the synthetic body runs")
-    return synthetic_smpl(n_verts=6890)
+    """The configured SMPL body model, or the deterministic synthetic one
+    (`synthetic_smpl(6890)`) when the file is absent, as
+    `seeme_tpu/config/build.py:61-68` falls back."""
+    return smpl_body(smpl_path_of(cfg))
 
 
 def build_system(cfg: Config, device: torch.device) -> Tuple[Preset, Any, Any]:
     """(preset, datamodule, system) of a loaded config, as
     `seeme_tpu/config/build.py:146-162` with `get_datamodule`: the ego,
     text-to-motion or action-to-motion system by DATASET_NAME, seeded with
-    SEED_VALUE, on the synthetic body."""
+    SEED_VALUE, on the configured SMPL body (the synthetic one without the
+    file)."""
     from .presets import build
 
-    load_smpl_or_synthetic(cfg)  # raises where the JAX package would read a file
     preset = preset_from_yaml(cfg)
     return (preset, *build(preset, device))

@@ -23,7 +23,9 @@ from typing import Optional, Sequence
 from ..models.seeme import SeeMeConfig
 from ..train.losses import LossWeights
 
-OUT_ROOT = "./experiments/torch"  # the port's experiment folders (`<OUT_ROOT>/<name>`)
+# the port's experiment folders, `<OUT_ROOT>/<name>`: the shipped YAMLs'
+# `<FOLDER>/torch/<model_type>` (`utils/logger.py::create_experiment_dir`)
+OUT_ROOT = "./experiments/torch/mld"
 
 
 @dataclass(frozen=True)
@@ -81,6 +83,9 @@ class Preset:
     train: TrainConfig
     dataset: str = "egobody"    # DATASET_NAME (:8)
     test: TestConfig = field(default_factory=TestConfig)
+    # model.smpl_path (:73) when that file exists (`config/build.py::smpl_path_of`);
+    # empty = the synthetic body, as a preset names no file
+    smpl_path: str = ""
 
 
 # LOSS (config_*_egobody.yaml:47-57; LAMBDA_JOINT from base.yaml:72)

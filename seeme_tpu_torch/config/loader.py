@@ -318,3 +318,45 @@ def load_config(cfg_path: str | Path, cfg_assets: Optional[str | Path] = None,
     if overrides:
         merged = deep_merge(merged, overrides)
     return resolve_interpolations(merged)
+
+
+def _emit_scalar(v: Any) -> str:
+    """One value in the subset `parse_yaml` reads back as the same value."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        text = repr(v)
+        if text in ("inf", "-inf", "nan"):
+            raise ValueError(f"{v!r} has no form in the YAML subset")
+        mantissa, e, exp = text.partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + (e + (exp if exp[0] in "+-" else "+" + exp) if e else "")
+    if isinstance(v, str):
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n") + '"'
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_emit_scalar(x) for x in v) + "]"
+    raise ValueError(f"{type(v).__name__} {v!r} has no form in the YAML subset")
+
+
+def dump_yaml(cfg: Dict, indent: int = 0) -> str:
+    """A nested mapping as YAML text of the subset `parse_yaml` reads (an
+    empty mapping is written as null, which the subset reads back)."""
+    lines = []
+    for k, v in cfg.items():
+        if isinstance(v, dict) and v:
+            lines.append(" " * indent + f"{k}:")
+            lines.append(dump_yaml(v, indent + 2))
+        else:
+            lines.append(" " * indent + f"{k}: " + _emit_scalar(None if v == {} else v))
+    return "\n".join(lines)
+
+
+def save_config(cfg: Dict, path: str | Path) -> None:
+    """The config snapshot of an experiment folder (`seeme_tpu/config/loader.py:157-166`)."""
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg) + "\n")

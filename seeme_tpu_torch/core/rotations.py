@@ -1,5 +1,5 @@
-"""Rotation conversions of the ego metrics and the rot6d forward kinematics
-(`seeme_tpu/core/rotations.py:20-154`).
+"""Rotation conversions of the ego metrics, the rot6d forward kinematics
+and the axis-angle readouts (`seeme_tpu/core/rotations.py:20-154`).
 
 Quaternions are (w, x, y, z), as in the reference. Two 6-D layouts exist
 (`EgoHMR/utils/geometry.py:47-66`): "prohmr" reads the six numbers as two
@@ -66,6 +66,24 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     quat = torch.gather(cand, -2, pivot[..., None, None].expand(*pivot.shape, 1, 4))[..., 0, :]
     quat = quat * torch.where(quat[..., :1] < 0, -1.0, 1.0)
     return quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
+
+
+def quat_to_aa(quat: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) wxyz -> axis-angle (..., 3); near the
+    identity (sin(angle/2) < 1e-7) the scale is its limit, 2."""
+    quat = quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
+    w = quat[..., :1].clamp(-1.0, 1.0)
+    xyz = quat[..., 1:]
+    sin_half = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(sin_half, w)
+    scale = torch.where(sin_half < 1e-7, torch.full_like(angle, 2.0),
+                        angle / sin_half.clamp_min(1e-12))
+    return xyz * scale
+
+
+def rotmat_to_aa(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3)."""
+    return quat_to_aa(rotmat_to_quat(R))
 
 
 def rot6d_to_rotmat(x: torch.Tensor, mode: str = "prohmr") -> torch.Tensor:

@@ -2,13 +2,18 @@
 kinematics of the losses and the eval path (`smpl_joints24`), and the full
 linear-blend-skinning forward that gives the mesh (`smpl_forward`).
 
-`synthetic_smpl` makes the same numpy `RandomState` draws as the JAX
-package's, so both packages build the same body from one seed.
+`load_smpl` reads the model file (`seeme_tpu/core/smpl.py:92-165`): the MPI
+`.pkl`, whose chumpy arrays and sparse regressor unpickle without chumpy,
+or its `.npz` cache. `synthetic_smpl` makes the same numpy `RandomState`
+draws as the JAX package's, so both packages build the same body from one
+seed.
 """
 
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -21,6 +26,14 @@ NUM_BETAS = 10
 # Standard SMPL kinematic tree (parent of joint k); joint 0 = pelvis (root).
 PARENTS = np.array(
     [-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21],
+    dtype=np.int64,
+)
+
+# smplx vertex_ids['smplh']: the 21 extra joints appended after the 24
+# skeleton joints, in smplx's order (nose, eyes, ears, toes, heels, fingertips)
+EXTRA_JOINT_VERTEX_IDS = np.array(
+    [332, 6260, 2800, 4071, 583, 3216, 3226, 3387, 6617, 6624, 6787,
+     2746, 2319, 2445, 2556, 2673, 6191, 5782, 5905, 6016, 6133],
     dtype=np.int64,
 )
 
@@ -42,6 +55,142 @@ class SmplModel:
             move(self.v_template), move(self.shapedirs), move(self.posedirs),
             move(self.j_regressor), move(self.lbs_weights), move(self.parents),
             self.faces, move(self.extra_joint_ids))
+
+
+def _to_np(x: Any) -> np.ndarray:
+    """A pickle field (ndarray, chumpy array or its stub, scipy sparse) as a
+    dense ndarray."""
+    if hasattr(x, "toarray"):  # scipy sparse
+        return np.asarray(x.toarray())
+    if hasattr(x, "r"):  # real chumpy
+        return np.asarray(x.r)
+    return np.asarray(x)  # ndarray, or _ChumpyStub through __array__
+
+
+class _ChumpyStub:
+    """Stands in for `chumpy.ch.Ch` while unpickling: the official SMPL pkls
+    store chumpy objects whose state carries the dense array."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+    def __array__(self, dtype=None, copy=None):
+        for key in ("x", "v", "a"):
+            if key in self.__dict__:
+                return np.asarray(self.__dict__[key], dtype=dtype)
+        raise ValueError("chumpy stub holds no array payload")
+
+
+class _SmplUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyStub
+        if module in ("scipy.sparse.csc", "scipy.sparse._csc"):
+            import scipy.sparse
+
+            return scipy.sparse.csc_matrix
+        return super().find_class(module, name)
+
+
+def load_smpl(path: str, device: str | torch.device = "cpu") -> SmplModel:
+    """The SMPL model file (`.pkl` as MPI ships it, or an `.npz` cache) on
+    `device`: the file contract of `smplx.SMPL(model_path=...)`. The shape
+    blend shapes are cut to NUM_BETAS, the pose blend shapes stored (V, 3,
+    207) become (207, V*3), the root's parent is -1, and the 21 extra joint
+    vertices apply to the 6890-vertex body only."""
+    if path.endswith(".npz"):
+        data = dict(np.load(path, allow_pickle=True))
+    else:
+        with open(path, "rb") as f:
+            data = _SmplUnpickler(f, encoding="latin1").load()
+
+    v_template = _to_np(data["v_template"]).astype(np.float32)
+    shapedirs = _to_np(data["shapedirs"]).astype(np.float32)[..., :NUM_BETAS]
+    posedirs = _to_np(data["posedirs"]).astype(np.float32)
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T
+    j_regressor = _to_np(data["J_regressor"]).astype(np.float32)
+    lbs_weights = _to_np(data["weights"]).astype(np.float32)
+    parents = _to_np(data["kintree_table"])[0].astype(np.int64)
+    parents[0] = -1
+    faces = data.get("f", data.get("faces"))
+    faces = None if faces is None else _to_np(faces).astype(np.int64)
+    extra = EXTRA_JOINT_VERTEX_IDS if v_template.shape[0] == 6890 else None
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+
+    return SmplModel(
+        v_template=f32(v_template),
+        shapedirs=f32(shapedirs),
+        posedirs=f32(posedirs),
+        j_regressor=f32(j_regressor),
+        lbs_weights=f32(lbs_weights),
+        parents=torch.as_tensor(parents, device=device),
+        faces=faces,
+        extra_joint_ids=None if extra is None else torch.as_tensor(extra, device=device),
+    )
+
+
+def save_smpl(model: SmplModel, path: str) -> None:
+    """Write a body in the model file's layout, which `load_smpl` reads
+    back bit for bit: an `.npz` cache, or the MPI `.pkl` (pickle protocol
+    2), whose `v_template`, `shapedirs`, `posedirs` (V, 3, 207) and
+    `weights` are `chumpy.ch.Ch` objects holding their array in `x`, with a
+    `scipy.sparse` csc `J_regressor`, `kintree_table` (2, 24) and `f`. The
+    chumpy class is a stand-in registered in `sys.modules` only while
+    pickling: chumpy itself is not needed."""
+    import sys
+    import types
+
+    import scipy.sparse
+
+    arrays = {
+        "v_template": model.v_template.cpu().numpy(),
+        "shapedirs": model.shapedirs.cpu().numpy(),
+        "posedirs": model.posedirs.cpu().numpy().T.reshape(-1, 3, model.posedirs.shape[0]),
+        "weights": model.lbs_weights.cpu().numpy(),
+    }
+    parents = model.parents.cpu().numpy().astype(np.int64)
+    kintree = np.stack([np.where(parents < 0, 2 ** 32 - 1, parents),
+                        np.arange(len(parents))]).astype(np.int64)
+    faces = model.faces if model.faces is not None else np.zeros((0, 3), np.int64)
+    regressor = model.j_regressor.cpu().numpy()
+    if path.endswith(".npz"):
+        np.savez(path, J_regressor=regressor, kintree_table=kintree, f=faces, **arrays)
+        return
+
+    ch_mod = types.ModuleType("chumpy.ch")
+
+    class Ch:
+        def __init__(self, x):
+            self.x = x
+
+    Ch.__module__, Ch.__qualname__ = "chumpy.ch", "Ch"
+    ch_mod.Ch = Ch
+    saved = {name: sys.modules.get(name) for name in ("chumpy", "chumpy.ch")}
+    sys.modules["chumpy"] = types.ModuleType("chumpy")
+    sys.modules["chumpy.ch"] = ch_mod
+    try:
+        data = {k: Ch(v) for k, v in arrays.items()}
+        data.update(J_regressor=scipy.sparse.csc_matrix(regressor), kintree_table=kintree,
+                    f=faces.astype(np.uint32))
+        with open(path, "wb") as f:
+            pickle.dump(data, f, protocol=2)
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+def smpl_body(path: str = "", device: str | torch.device = "cpu") -> SmplModel:
+    """The body every path but the perception CLIs runs: the SMPL file at
+    `path`, or the synthetic 6890-vertex body when `path` is empty."""
+    return load_smpl(path, device) if path else synthetic_smpl(n_verts=6890).to(device)
 
 
 def synthetic_smpl(n_verts: int = 256, seed: int = 0) -> SmplModel:

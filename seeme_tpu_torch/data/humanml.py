@@ -8,8 +8,9 @@ the class). `HumanML3DDataModule` is the JAX data module: the standard
 release under `root` (`new_joint_vecs/<id>.npy` features, `texts/<id>.txt`
 `caption#tokens` lines, `{train,val,test}.txt` ids, `Mean.npy` / `Std.npy`,
 and the evaluator's `Mean_eval.npy` / `Std_eval.npy` when present) or,
-without it, synthetic splits of 256 / 64 / 64. The release is read per
-batch in the order of `random.Random(seed)` (a shuffled id list, then each
+without it, synthetic splits of 256 / 64 / 64 (32 / 33 / 33 under DEBUG).
+The release is read per batch in the order of `random.Random(seed)` (a
+shuffled id list, then each
 clip cropped to whole units of 4 frames at a random start when
 shuffling), so both packages give the same batches. 263 features and 22 joints for HumanML3D, 251 and 21 for
 KIT. `feats2joints` recovers the joints from normalized features by RIC.
@@ -93,7 +94,8 @@ def feats2joints(features: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
 
 class HumanML3DDataModule:
     def __init__(self, root: Optional[str] = None, nfeats: int = HUMANML_NFEATS,
-                 max_len: int = 196, min_len: int = MIN_LEN, text_dim: int = 768):
+                 max_len: int = 196, min_len: int = MIN_LEN, text_dim: int = 768,
+                 num_train: int = 256):
         self.nfeats = nfeats
         self.njoints = 22 if nfeats == HUMANML_NFEATS else 21
         self.max_len, self.min_len, self.unit_len = max_len, min_len, UNIT_LEN
@@ -101,11 +103,12 @@ class HumanML3DDataModule:
         self.is_synthetic = root is None or not os.path.isdir(os.path.join(root, "new_joint_vecs"))
         self.mean_eval = self.std_eval = None
         if self.is_synthetic:
+            n_eval = max(num_train // 4, 33)  # a pool of 32 and one more, as the JAX module
             self._sets = {split: SyntheticT2MDataset(size, max_len, min_len, nfeats, seed, text_dim)
-                          for split, size, seed in (("train", 256, 0), ("val", 64, 1),
-                                                    ("test", 64, 2))}
+                          for split, size, seed in (("train", num_train, 0), ("val", n_eval, 1),
+                                                    ("test", n_eval, 2))}
             self.mean, self.std = self._sets["train"].mean, self._sets["train"].std
-            self.num_train = 256
+            self.num_train = num_train
             return
         self.root = root
         self.mean = np.load(os.path.join(root, "Mean.npy"))

@@ -92,16 +92,16 @@ class SyntheticDataModule:
 
 class SyntheticA2MDataModule(A2MSplits):
     """HumanAct12- / UESTC-shaped action-to-motion data: 240 train, 60 val
-    and 60 test samples (the JAX package's DEBUG size, 48, is not ported),
-    class-signature offsets shared by every split over a cumulative random
-    walk, each clip `num_frames` long."""
+    and 60 test samples (48 / 12 / 12 under DEBUG), class-signature offsets
+    shared by every split over a cumulative random walk, each clip
+    `num_frames` long."""
 
     is_synthetic = True
 
     def __init__(self, num_classes: int = 12, nfeats: int = 150, num_frames: int = 60,
-                 name: str = "humanact12"):
+                 name: str = "humanact12", debug: bool = False):
         rng = np.random.RandomState(0)
-        n = 240
+        n = 48 if debug else 240
         base = rng.randn(num_classes, 1, nfeats).astype(np.float32)
 
         def make(n_samples, seed):
@@ -124,12 +124,14 @@ A2M_CLASSES = {"humanact12": HUMANACT12_CLASSES, "uestc": UESTC_CLASSES}
 
 def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int = 60,
                    scene_points: int = 1024, root: str = "./datasets", image_size: int = 224,
-                   text_dim: int = 768, min_len: int = MIN_LEN):
+                   text_dim: int = 768, min_len: int = MIN_LEN, debug: bool = False):
     """The datamodule of DATASET_NAME `name`: its release under `root` when
     it is there, else the synthetic data (`image_size` sizes its crops; a
     text-to-motion set takes clips of `min_len` to `motion_length` frames
     and makes its synthetic text embeddings `text_dim` wide; an
-    action-to-motion set's clips are `motion_length` frames)."""
+    action-to-motion set's clips are `motion_length` frames). `debug` (the
+    config's DEBUG) gives the text- and action-to-motion sets the JAX
+    package's small synthetic splits."""
     if name == "humanact12":
         path = os.path.join(root, "HumanAct12Poses", "humanact12poses.pkl")
         if os.path.exists(path):
@@ -139,12 +141,14 @@ def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int 
         if os.path.exists(os.path.join(path, "vibe_cache_refined.pkl")):
             return UestcDataModule(path, num_frames=motion_length)
     if name in A2M_CLASSES:
-        return SyntheticA2MDataModule(A2M_CLASSES[name], num_frames=motion_length, name=name)
+        return SyntheticA2MDataModule(A2M_CLASSES[name], num_frames=motion_length, name=name,
+                                      debug=debug)
     if name in T2M_RELEASES:
         folder, nfeats = T2M_RELEASES[name]
         path = os.path.join(root, folder)
         return HumanML3DDataModule(path if os.path.isdir(path) else None, nfeats,
-                                   max_len=motion_length, min_len=min_len, text_dim=text_dim)
+                                   max_len=motion_length, min_len=min_len, text_dim=text_dim,
+                                   num_train=32 if debug else 256)
     if name not in RELEASES:
         raise KeyError(f"unknown dataset {name!r}; registered: "
                        f"{sorted({**RELEASES, **T2M_RELEASES, **A2M_CLASSES})}")

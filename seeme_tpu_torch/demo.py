@@ -30,7 +30,9 @@ With `--replication` > 1 the text and action files get a `_{rep}` suffix.
 Weights come from `--checkpoint` (else TEST.CHECKPOINTS: a trainer's
 `<step>.pt`, its experiment dir or `.../checkpoints/latest`) when it
 exists, else the seeded random init (SEED_VALUE); the noise from a
-generator seeded with 0. Joints are written as float32, as the JAX CLI
+generator seeded with 0. The ego and action configs run on the SMPL file
+`model.smpl_path` names when it exists (`demo.py:206`), else on the
+synthetic body. Joints are written as float32, as the JAX CLI
 writes them. `--render` needs the joints renderer (`render/`), which is not
 ported yet: it raises. It runs on the card unless `--device cpu` (or
 `--cpu`) is given, and raises when there is no card.

@@ -14,10 +14,10 @@ body_pose, shared betas and transl (from the target pelvis) fits the body's
 `torch.optim.Adam` takes `optax.adam`'s step (epsilon outside the square
 root, both moments bias-corrected). It writes the parameters to `--out` and,
 with `--save_mesh`, the fitted vertices and `<name>_faces.npy`. The body is
-the synthetic SMPL model (`synthetic_smpl(6890)`), which the root script
-also falls back to without the SMPL file; reading that file is not ported,
-so a `--smpl_path` that exists raises. It runs on the card unless `--device
-cpu` (or `--cpu`) is given, and raises when there is no card.
+the SMPL file at `--smpl_path` when it exists, else the synthetic SMPL model
+(`synthetic_smpl(6890)`), as the root script reads it (`fit.py:113-119`).
+It runs on the card unless `--device cpu` (or `--cpu`) is given, and raises
+when there is no card.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 
 from ._device import full_float32, resolve_device
 from .core.pose_prior import MaxMixturePrior
-from .core.smpl import SmplModel, smpl_forward, smpl_joints24, synthetic_smpl
+from .core.smpl import SmplModel, smpl_body, smpl_forward, smpl_joints24
 
 # knees and elbows bend one way: exp of the wrong-sign angle is penalized
 # (the reference's pose indices [55-3, 58-3, 12-3, 15-3] of the 69-d body pose)
@@ -103,11 +103,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else args.device)
     full_float32()
-    if os.path.exists(args.smpl_path):
-        raise NotImplementedError(f"{args.smpl_path}: reading the SMPL model file is not "
-                                  "ported (ROADMAP §1 item 6); without it the synthetic "
-                                  "body runs")
-    smpl = synthetic_smpl(n_verts=6890).to(dev)
+    smpl = smpl_body(args.smpl_path if os.path.exists(args.smpl_path) else "", dev)
     prior = MaxMixturePrior(args.gmm)
     if prior.is_fallback:
         print("no GMM asset — standard-normal pose prior")

@@ -10,7 +10,7 @@ action-to-motion branch (`_a2m_eval`, `test.py:365-450`).
         [the same options] [KEY.PATH=VALUE ...]
 
 `--cfg` reads a shipped YAML with dotted YAML overrides (`TEST.MM=true`,
-`model.latent_dim=[2,256]`), as `test.py` does (`config/presets.py::from_cli`).
+`model.latent_dim=[2,256]`), as `test.py` does (`config/presets.py::cli_config`).
 
 NAME is a preset of `config/egobody.py`, `config/humanml3d.py` or
 `config/a2m.py`. The system is built from it and,
@@ -32,7 +32,11 @@ confidence interval, min, max of each metric over the replications),
 `test_log.txt`, with `--count_time` `times.txt` (each batch's seconds), and
 with `--save_predictions` one `pred_<i>.npy` / `gt_<i>.npy` of joints per
 sequence of the first replication, under `--out` (default
-`experiments/torch/<preset name>`).
+`experiments/torch/mld/<preset name>`; with `--cfg` the YAML's
+`<FOLDER>/torch/<model_type>/<NAME>`, where it also writes a timestamped
+`<stamp>_test.log`, as `test.py:63-64`). The ego and action configs' SMPL
+body is the file `model.smpl_path` names when it exists (`--cfg`), else
+the synthetic one.
 
 A text-to-motion preset evaluates the test split the same number of
 times: each batch's captions are encoded on the host when it carries no
@@ -79,7 +83,7 @@ import torch
 
 from .._device import full_float32, resolve_device
 from ..config.egobody import OUT_ROOT
-from ..config.presets import PRESETS, build, from_cli
+from ..config.presets import PRESETS, build, cli_config
 from ..core.masks import lengths_to_mask
 from ..core.rotation2xyz import POSE_FEATS
 from ..core.smpl import NUM_JOINTS
@@ -97,6 +101,7 @@ from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
 from ..nn.init import init_parameters_
 from ..train.checkpoint import load_weights
+from ..utils.logger import create_experiment_dir, create_logger
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -149,7 +154,7 @@ class Evaluator:
     """One evaluation run, set up as `test.py` sets it up; `run` evaluates."""
 
     def __init__(self, args: argparse.Namespace):
-        preset = from_cli(args.preset, args.cfg, args.cfg_assets, args.overrides)
+        preset, config = cli_config(args.preset, args.cfg, args.cfg_assets, args.overrides)
         tc = preset.test
         for name in ("batch_size", "replication_times", "checkpoint"):
             if getattr(args, name) is not None:
@@ -159,9 +164,12 @@ class Evaluator:
         self.preset = preset = dataclasses.replace(preset, test=tc)
         self.device = resolve_device(args.device)
         full_float32()
-        self.exp_dir = os.path.abspath(args.out or os.path.join(OUT_ROOT, preset.name))
+        default_dir = (create_experiment_dir(config, phase="test") if config is not None
+                       else os.path.join(OUT_ROOT, preset.name))
+        self.exp_dir = os.path.abspath(args.out or default_dir)
         os.makedirs(self.exp_dir, exist_ok=True)
         self._log_path = os.path.join(self.exp_dir, "test_log.txt")
+        self.logger = create_logger(self.exp_dir, phase="test") if config is not None else None
         self.stage, self.seed = preset.train.stage, preset.train.seed
         self.datamodule, self.system = build(preset, self.device)
         if self.datamodule.is_synthetic:
@@ -175,7 +183,10 @@ class Evaluator:
 
     def log(self, msg: str) -> None:
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
-        print(line, flush=True)
+        if self.logger is not None:
+            self.logger.info(msg)
+        else:
+            print(line, flush=True)
         with open(self._log_path, "a") as f:
             f.write(line + "\n")
 
@@ -233,9 +244,9 @@ class Evaluator:
         system, tc, dm = self.system, self.preset.test, self.datamodule
         evaluator = T2MEvaluator(nfeats=system.cfg.nfeats, ckpt=tc.evaluator_dir or None,
                                  glove_root=tc.word_vectorizer_path or None, device=self.device)
-        if not evaluator.is_pretrained:
-            self.log("t2m evaluator running with its seeded random init "
-                     "(test.evaluator_dir names the released weights)")
+        self.log(f"loaded evaluator {tc.evaluator_dir}" if evaluator.is_pretrained else
+                 "t2m evaluator running with its seeded random init "
+                 "(test.evaluator_dir names the released or trained weights)")
         replications: List[Dict[str, float]] = []
         times: List[float] = []
         for rep in range(tc.replication_times):

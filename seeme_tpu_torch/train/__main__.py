@@ -39,11 +39,15 @@ trains `denoiser` and `embed_action` over the frozen VAE, with no cache.
 
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
-float32 (TF32 off). The SMPL body is the JAX package's synthetic model
-(`synthetic_smpl(6890)`), which it also falls back to without the SMPL file;
-the port does not read SMPL files yet. It writes `config.json`,
-`train_log.txt` and `checkpoints/<step>.pt` under `--out` (default
-`experiments/torch/<preset name>`).
+float32 (TF32 off). The SMPL body of the ego and action configs is the file
+`model.smpl_path` names when it exists (`--cfg`), else the synthetic model
+(`synthetic_smpl(6890)`). It writes `config.json`, `train_log.txt` and
+`checkpoints/<step>.pt` under `--out` (default `experiments/torch/mld/<preset
+name>`); with `--cfg` the default is the YAML's `<FOLDER>/torch/<model_type>/<NAME>`,
+and it also writes a timestamped `<stamp>_train.log`, the `config.yaml`
+snapshot and the TensorBoard / Weights & Biases scalars where those packages
+are installed (`utils/logger.py`, as `train.py:83-87`). Every epoch's line
+carries `utils/profiling.py::memory_stats` (`train.py:390-394`).
 """
 
 from __future__ import annotations
@@ -61,10 +65,13 @@ import torch
 
 from .._device import full_float32, resolve_device
 from ..config.egobody import OUT_ROOT
-from ..config.presets import PRESETS, build, from_cli
+from ..config.loader import save_config
+from ..config.presets import PRESETS, build, cli_config
 from ..data.batch import eval_batches
 from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
+from ..utils.logger import TensorBoardWriter, WandbLogger, create_experiment_dir, create_logger
+from ..utils.profiling import memory_stats
 from .checkpoint import (
     clear_stale_steps,
     load_pretrained_vae,
@@ -102,7 +109,7 @@ class Trainer:
     `fill_feature_cache` and then `fit`."""
 
     def __init__(self, args: argparse.Namespace):
-        preset = from_cli(args.preset, args.cfg, args.cfg_assets, args.overrides)
+        preset, config = cli_config(args.preset, args.cfg, args.cfg_assets, args.overrides)
         tc = preset.train
         if args.batch_size is not None:
             tc = dataclasses.replace(tc, batch_size=args.batch_size)
@@ -113,9 +120,19 @@ class Trainer:
         self.preset = preset = dataclasses.replace(preset, train=tc)
         self.device = resolve_device(args.device)
         full_float32()
-        self.exp_dir = os.path.abspath(args.out or os.path.join(OUT_ROOT, preset.name))
+        default_dir = (create_experiment_dir(config) if config is not None
+                       else os.path.join(OUT_ROOT, preset.name))
+        self.exp_dir = os.path.abspath(args.out or default_dir)
         os.makedirs(self.exp_dir, exist_ok=True)
         self._log_path = os.path.join(self.exp_dir, "train_log.txt")
+        self.logger = None
+        self.tb = self.wb = None
+        if config is not None:
+            self.logger = create_logger(self.exp_dir, "train")
+            save_config(config, os.path.join(self.exp_dir, "config.yaml"))
+            self.tb = TensorBoardWriter(self.exp_dir,
+                                        enabled=bool(config.select("LOGGER.TENSORBOARD", True)))
+            self.wb = WandbLogger(config, self.exp_dir)
         self.stage, self.seed = tc.stage, tc.seed
         self.datamodule, self.system = build(preset, self.device)
         self.preset = preset = dataclasses.replace(preset, model=self.system.cfg)
@@ -170,9 +187,17 @@ class Trainer:
 
     def log(self, msg: str) -> None:
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
-        print(line, flush=True)
+        if self.logger is not None:
+            self.logger.info(msg)
+        else:
+            print(line, flush=True)
         with open(self._log_path, "a") as f:
             f.write(line + "\n")
+
+    def close(self) -> None:
+        if self.tb is not None:
+            self.tb.close()
+            self.wb.finish()
 
     def fill_feature_cache(self) -> Optional[float]:
         """Stage 2's cache of the frozen encoders' features, once per sample
@@ -242,12 +267,17 @@ class Trainer:
             self.step, means, steps, ms = run_epoch(
                 self.system, self.stage, self.optimizer, self.schedule, self.step,
                 self.train_batches(epoch), self.generator)
-            record = {"epoch": epoch, "means": means, "steps": steps, "step_ms": ms}
-            mem = ""
+            memory = memory_stats(self.device)
+            record = {"epoch": epoch, "means": means, "steps": steps, "step_ms": ms,
+                      "memory": memory}
+            mem = "".join(f" {k}={v:.2f}" for k, v in memory.items())
             if self.device.type == "cuda":
-                mem = f" max_memory_allocated={torch.cuda.max_memory_allocated(self.device)}"
+                mem += f" max_memory_allocated={torch.cuda.max_memory_allocated(self.device)}"
             self.log(f"epoch {epoch}/{tc.end_epoch} step {self.step} "
                      + " ".join(f"{k}={v:.5f}" for k, v in sorted(means.items())) + mem)
+            if self.tb is not None:
+                self.tb.scalars(self.step, means, prefix=f"{self.stage}/")
+                self.wb.log(self.step, means, prefix=f"{self.stage}/")
             if (epoch + 1) % val_every == 0:
                 record["val"] = validate(self.system, self.stage, self.val_batches())
                 self.log(f"val epoch {epoch} " + " ".join(
@@ -266,6 +296,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     if seconds is not None:
         trainer.log(f"feature cache filled in {seconds:.3f} s")
     trainer.fit()
+    trainer.close()
     return trainer
 
 

@@ -3,9 +3,12 @@
 
 A step is the loss of its stage (`SeeMeSystem.vae_loss` or
 `diffusion_loss`), backward, and one AdamW update at the step's learning
-rate, with the loss terms fetched from the device once. The JAX package's
-scan, gather and device-resident variants exist for XLA dispatch and have no
-counterpart here.
+rate, with the loss terms fetched from the device once. `run_epoch` takes
+its batches through `data/prefetch.py::prefetch_to_device`, as the JAX loop
+does (`seeme_tpu/train/loop.py:264-295`): the next batch's copy to the card
+overlaps the step. The JAX package's scan, gather, sharding and
+device-resident variants exist for XLA dispatch and have no counterpart
+here.
 
 Random draws: each loss call draws its noise from the explicit `generator`
 (or takes injected `draws`). `nn.Dropout` takes no generator, so dropout
@@ -24,6 +27,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.prefetch import prefetch_to_device
 from ..data.synthetic import to_torch
 
 
@@ -54,7 +58,8 @@ def train_step(system, stage: str, optimizer: torch.optim.Optimizer,
 
 class _StepClock:
     """Per-step milliseconds: CUDA events on the card, the host clock
-    elsewhere; every step ends in the terms' fetch, which waits for it."""
+    elsewhere; every step ends in the terms' fetch, which waits for it. The
+    batch is on the device before the step's first mark (prefetched)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -80,15 +85,14 @@ def run_epoch(system, stage: str, optimizer: torch.optim.Optimizer,
               batches: Iterable[Dict[str, np.ndarray]],
               generator: Optional[torch.Generator] = None
               ) -> Tuple[int, Dict[str, float], List[Dict[str, float]], List[float]]:
-    """One pass over host batches; returns (the update count after it, the
-    mean of each term, each step's terms, each step's milliseconds, the
-    batch's move to the device included)."""
+    """One pass over host batches, prefetched to the system's device;
+    returns (the update count after it, the mean of each term, each step's
+    terms, each step's milliseconds)."""
     clock = _StepClock(system.device)
     steps = []
-    for b in batches:
+    for b in prefetch_to_device(batches, system.device):
         clock.mark()
-        terms = train_step(system, stage, optimizer, schedule, count,
-                           to_torch(b, system.device), generator)
+        terms = train_step(system, stage, optimizer, schedule, count, b, generator)
         clock.mark()
         count += 1
         steps.append(terms)

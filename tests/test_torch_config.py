@@ -27,6 +27,7 @@ from seeme_tpu.config.loader import parse_dotted_overrides as j_overrides
 from seeme_tpu.core.pose_prior import MaxMixturePrior as JPrior
 from seeme_tpu_torch.config import build, loader, registry
 from seeme_tpu_torch.config.presets import PRESETS, from_cli
+from seeme_tpu_torch.core.smpl import save_smpl, synthetic_smpl
 from seeme_tpu_torch.core.pose_prior import MaxMixturePrior
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -150,15 +151,15 @@ def test_builder_raises_on_what_the_port_cannot_run(override, match):
 
 def test_smpl_file_is_not_read(tmp_path):
     """Without the SMPL file the synthetic body runs, as in the JAX builder;
-    a configured file that exists raises (reading it is not ported)."""
+    a configured file that exists is read (its body, not the synthetic one)."""
     cfg = loader.load_config(os.path.join(CONFIGS, "config_mld_egobody.yaml"))
     assert build.load_smpl_or_synthetic(cfg).v_template.shape == (6890, 3)
     pkl = tmp_path / "SMPL_NEUTRAL.pkl"
-    pkl.write_bytes(b"")
+    body = synthetic_smpl(n_verts=256, seed=5)
+    save_smpl(body, str(pkl))
     cfg = loader.load_config(os.path.join(CONFIGS, "config_mld_egobody.yaml"),
                              overrides={"model": {"smpl_path": str(pkl)}})
-    with pytest.raises(NotImplementedError, match="SMPL model file is not ported"):
-        build.load_smpl_or_synthetic(cfg)
+    assert torch.equal(build.load_smpl_or_synthetic(cfg).v_template, body.v_template)
 
 
 def test_cli_takes_cfg_or_preset():

@@ -17,7 +17,8 @@ from seeme_tpu_torch._device import resolve_device
 from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.eval.t2m_evaluator import T2MEvaluator
 from seeme_tpu_torch.models.a2m import A2MConfig, A2MSystem
-from seeme_tpu_torch import test_egohmr, test_prohmr_scene, train_egohmr, train_prohmr_scene
+from seeme_tpu_torch import fit, test_egohmr, test_prohmr_scene, train_egohmr, train_prohmr_scene
+from seeme_tpu_torch.tools import preprocess_humanml, preprocess_scene_egohmr, train_evaluator
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
@@ -73,7 +74,12 @@ def test_every_module_imports():
             "seeme_tpu_torch.models.a2m", "seeme_tpu_torch.nn.action",
             "seeme_tpu_torch.core.rotation2xyz", "seeme_tpu_torch.data.a2m",
             "seeme_tpu_torch.config.a2m", "seeme_tpu_torch.eval.action_classifier",
-            "seeme_tpu_torch.eval.stgcn", "seeme_tpu_torch.eval.action_metrics"} <= set(names)
+            "seeme_tpu_torch.eval.stgcn", "seeme_tpu_torch.eval.action_metrics",
+            "seeme_tpu_torch.core.motion_process", "seeme_tpu_torch.core.rifke",
+            "seeme_tpu_torch.eval.ape_ave", "seeme_tpu_torch.data.prefetch",
+            "seeme_tpu_torch.utils.logger", "seeme_tpu_torch.utils.profiling",
+            "seeme_tpu_torch.tools.preprocess_humanml", "seeme_tpu_torch.tools.train_evaluator",
+            "seeme_tpu_torch.tools.preprocess_scene_egohmr"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -110,6 +116,16 @@ def test_entry_points_raise_without_cuda():
     for cli in (test_prohmr_scene, test_egohmr, train_prohmr_scene, train_egohmr):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["--tiny"])
+    configs = ROOT / "configs"
+    for cfg in ("config_mld_humanml3d.yaml", "config_mld_humanact12.yaml"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_evaluator.main(["--cfg", str(configs / cfg), "--out", "unused.tar"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess_humanml.main(["--joints_dir", ".", "--out_vecs", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess_scene_egohmr.run_s2(".", "unused", "train")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit.main(["--joints", "unused.npy"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
