@@ -421,15 +421,15 @@ def main() -> int:
     del out_k, pool_k
     ms = time_ms(lambda: pfu.fused_input_block(*in_args, split=in_split), 3)
     plain_ms = time_ms(lambda: pfu.fused_input_block_plain(*in_args), 3)
-    macs = B * N * (3 * 2 * H + 2 * H * H + H * H + 2 * H * H)
+    flops = input_block_flops(B, N, H)
     nbytes = tensor_bytes(points, pw["wpos"], pw["bpos"], pw["b0"], pw["b1"], *in_split)
     nbytes += 4 * (B * N * H + B * H)
     kernels.append(dict(name="pointnet_input_block", route="cuda",
                         source="seeme_tpu_torch/csrc/pointnet.cu",
                         replaces="seeme_tpu/ops/pointnet_pallas.py:112",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=2 * macs))
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops))
     phase(f"kernel pointnet_input_block (B={B}, N={N}, H={H}): {ms:.3f} ms, plain {plain_ms:.3f} ms"
-          f", {pointnet_rates(2 * macs, nbytes, ms)}", t)
+          f", {pointnet_rates(flops, nbytes, ms)}", t)
 
     t = time.perf_counter()
     sp_args = (out_p, pool_p, *(pw[f"block_1.{n}"]
@@ -445,16 +445,16 @@ def main() -> int:
     del out_k, pool_k, out_s, pool_s
     ms = time_ms(lambda: pfu.fused_split_block(*sp_args, split=sp_split), 3)
     plain_ms = time_ms(lambda: pfu.fused_split_block_plain(*sp_args), 3)
-    macs = B * N * 3 * H * H + 2 * B * H * H
+    flops = split_block_flops(B, N, H)
     # x, pooled, w0p, b0, b1, wsp (the wrapper's folds) and the split weights
     nbytes = tensor_bytes(*(sp_args[i] for i in (0, 1, 3, 4, 6, 8)), *sp_split)
     nbytes += 4 * (B * N * H + B * H)
     kernels.append(dict(name="pointnet_split_block", route="cuda",
                         source="seeme_tpu_torch/csrc/pointnet.cu",
                         replaces="seeme_tpu/ops/pointnet_pallas.py:56",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=2 * macs))
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops))
     phase(f"kernel pointnet_split_block (B={B}, N={N}, H={H}): {ms:.3f} ms, plain {plain_ms:.3f} ms"
-          f", {pointnet_rates(2 * macs, nbytes, ms)}", t)
+          f", {pointnet_rates(flops, nbytes, ms)}", t)
     del out_p, pool_p, sp_args, in_args, in_split, sp_split
     torch.cuda.empty_cache()
 
@@ -766,6 +766,7 @@ def main() -> int:
         evaluator_phases(dev, counted, counters, record, work)
         feature_phases(dev)
         prefetch_phases(dev, counted, counters, record, work)
+        slice13_phases(dev, counted, counters, record, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1341,17 +1342,17 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
         iters = 3 if b == BATCH else 20
         ms = time_ms(lambda: pfu.fused_input_block(*in_args, split=in_split), iters)
         plain_ms = time_ms(lambda: pfu.fused_input_block_plain(*in_args), 3)
-        macs = b * n * (3 * 2 * H + 2 * H * H + H * H + 2 * H * H)
+        flops = input_block_flops(b, n, H)
         nbytes = tensor_bytes(points, w["wpos"], w["bpos"], w["b0"], w["b1"], *in_split)
         nbytes += 4 * (b * n * H + b * H)
         phase(f"kernel pointnet_input_block (B={b}, N={n}, H={H}): {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, {pointnet_rates(2 * macs, nbytes, ms)}", t)
+              f"{plain_ms:.3f} ms, {pointnet_rates(flops, nbytes, ms)}", t)
         if b == BATCH:
             kernels.append(dict(name="pointnet_input_block_h256", route="cuda",
                                 source="seeme_tpu_torch/csrc/pointnet.cu",
                                 replaces="seeme_tpu/ops/pointnet_pallas.py:112", hidden=H,
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                                flops=2 * macs))
+                                flops=flops))
         t = time.perf_counter()
         sp_args = (out_p, pool_p, *(w[f"block_1.{k}"] for k in sp_names))
         out_k, pool_k = pfu.fused_split_block(*sp_args, split=sp_split)
@@ -1364,17 +1365,17 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
         del out_k, pool_k, out_s, pool_s
         ms = time_ms(lambda: pfu.fused_split_block(*sp_args, split=sp_split), iters)
         plain_ms = time_ms(lambda: pfu.fused_split_block_plain(*sp_args), 3)
-        macs = b * n * 3 * H * H + 2 * b * H * H
+        flops = split_block_flops(b, n, H)
         nbytes = tensor_bytes(*(sp_args[i] for i in (0, 1, 3, 4, 6, 8)), *sp_split)
         nbytes += 4 * (b * n * H + b * H)
         phase(f"kernel pointnet_split_block (B={b}, N={n}, H={H}): {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, {pointnet_rates(2 * macs, nbytes, ms)}", t)
+              f"{plain_ms:.3f} ms, {pointnet_rates(flops, nbytes, ms)}", t)
         if b == BATCH:
             kernels.append(dict(name="pointnet_split_block_h256", route="cuda",
                                 source="seeme_tpu_torch/csrc/pointnet.cu",
                                 replaces="seeme_tpu/ops/pointnet_pallas.py:56", hidden=H,
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                                flops=2 * macs))
+                                flops=flops))
         del out_p, pool_p, sp_args, in_args
     torch.cuda.empty_cache()
 
@@ -3294,6 +3295,344 @@ def device_busy(trainer, steps: int):
     return profile_busy(run)
 
 
+def slice13_phases(dev, counted, counters, record, work: str) -> None:
+    """Phases 48-54: the thirteenth slice. 48: DEBUG on the `--cfg` route
+    (`config_mld_egobody.yaml DEBUG=true`: 32 / 16 / 16 samples and the
+    cache fill's launches they imply, one epoch; `--nodebug`: 256 / 64 /
+    64); 49: `demo --render --mesh` on the EgoBody config (kernels 1 / 3 / 1;
+    the gifs' frames, or the refusal naming matplotlib where it is not
+    installed); 50: the demo's card-sampled joints and meshes through the
+    exporters, read back; 51: `tsne`'s latents card vs CPU; 52: the bound
+    counts of kernels 1, 2, 3 and 5 against FlopCounterMode's count of
+    their plain versions, and `flops`' six paths; 53: `preflight
+    --end-to-end` on an asset tree the phase writes (kernel 5 once); 54:
+    the pretrained text encoder card vs CPU, or its refusal naming
+    transformers."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch import demo
+    from seeme_tpu_torch.core.smpl import synthetic_smpl
+    from seeme_tpu_torch.data.humanml import SyntheticT2MDataset
+    from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset
+    from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
+    from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
+    from seeme_tpu_torch.models.text_encoder import ClipTextEncoder
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.ops import pointnet_fused as pfu
+    from seeme_tpu_torch.tools import (export_bvh, export_fbx, export_gltf, export_obj, flops,
+                                       preflight, tsne)
+    from seeme_tpu_torch.train.__main__ import Trainer, parse_args
+
+    none = {k: 0 for k in counters}
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    ego_yaml = os.path.join(configs, "config_mld_egobody.yaml")
+
+    def sizes(dm):
+        return tuple(sum(len(ix) for ix in dm.batch_indices(s, 1, shuffle=False, drop_last=False))
+                     for s in ("train", "val", "test"))
+
+    # ---- 48. DEBUG on the --cfg route, and --nodebug
+    t = time.perf_counter()
+    base = ["--cfg", ego_yaml, "--epochs", "1"]
+    debug = Trainer(parse_args([*base, "--out", os.path.join(work, "debug"), "DEBUG=true"]))
+    require(debug.preset.debug and sizes(debug.datamodule) == (32, 16, 16),
+            f"DEBUG=true splits {sizes(debug.datamodule)}")
+    # the batch (64) is clamped to the 32-sample train split; one chunk of
+    # max(batch, 8) rows for train and one for val
+    chunks = -(-32 // debug.batch_size) + -(-16 // debug.batch_size)
+    _, counts = counted(debug.fill_feature_cache)
+    require(counts == {**none, "pointnet_input_block": chunks, "pointnet_split_block": 3 * chunks},
+            f"DEBUG cache fill launch counts {counts} (expected {chunks} / {3 * chunks})")
+    record("train_cfg_debug_cache_fill", counts)
+    _, fit_counts = counted(debug.fit)
+    require(fit_counts == none and len(debug.history) == 1
+            and math.isfinite(debug.history[-1]["means"]["total"]),
+            f"DEBUG epoch: launches {fit_counts}, history {debug.history}")
+    full = Trainer(parse_args([*base, "--nodebug", "--out", os.path.join(work, "nodebug"),
+                               "DEBUG=true"]))
+    require(not full.preset.debug and sizes(full.datamodule) == (256, 64, 64),
+            f"--nodebug splits {sizes(full.datamodule)}")
+    full_chunks = 256 // full.batch_size + -(-64 // full.batch_size)
+    _, full_counts = counted(full.fill_feature_cache)
+    require(full_counts == {**none, "pointnet_input_block": full_chunks,
+                            "pointnet_split_block": 3 * full_chunks},
+            f"--nodebug cache fill launch counts {full_counts}")
+    record("train_cfg_nodebug_cache_fill", full_counts)
+    del debug, full
+    torch.cuda.empty_cache()
+    phase(f"--cfg config_mld_egobody.yaml DEBUG=true: splits 32 / 16 / 16, batch clamped to 32, "
+          f"cache fill launches {chunks} / {3 * chunks}, one epoch (loss finite); --nodebug: "
+          f"256 / 64 / 64, cache fill {full_chunks} / {3 * full_chunks}", t)
+
+    # ---- 49. demo --render (and --mesh, for the exporters) on the EgoBody config
+    t = time.perf_counter()
+    demo_dir = os.path.join(work, "demo_render")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+
+    def run_demo():
+        try:
+            return demo.main(["--cfg", ego_yaml, "--render", "--mesh", "--num_samples", "1",
+                              "--out", demo_dir]), None
+        except ImportError as e:
+            return None, e
+
+    (saved, err), counts = counted(run_demo)
+    require(counts == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3,
+                       "ddim_md_t1": 1}, f"demo --render launch counts {counts}")
+    record("demo_render", counts)
+    joints = np.load(os.path.join(demo_dir, "sample_0.npy"))
+    if has_mpl:
+        require(err is None, f"demo --render failed with matplotlib installed: {err}")
+        from PIL import Image
+
+        with Image.open(os.path.join(demo_dir, "sample_0.gif")) as im:
+            require(im.n_frames == joints.shape[0],
+                    f"sample_0.gif has {im.n_frames} frames, not {joints.shape[0]}")
+        branch = f"matplotlib present: sample_0.gif of {joints.shape[0]} frames"
+    else:
+        require(err is not None and "matplotlib" in str(err),
+                f"demo --render without matplotlib: {err!r}")
+        branch = f"matplotlib absent: refused with ImportError({str(err)[:60]!r}...)"
+    phase(f"demo --render --mesh (config_mld_egobody.yaml, 1 sample): launches {counts}; "
+          f"{branch}", t)
+
+    # ---- 50. the exporters on the demo's card-sampled joints and meshes
+    t = time.perf_counter()
+    mesh = np.load(os.path.join(demo_dir, "sample_0_mesh.npy"))
+    faces_path = os.path.join(demo_dir, "faces.npy")
+    faces = np.load(faces_path)
+    out = os.path.join(work, "export")
+
+    def obj_vertices(path):
+        with open(path) as f:
+            rows = [line.split()[1:] for line in f if line.startswith("v ")]
+        return np.asarray(rows, np.float64)
+
+    n = export_obj.main(["--npy", os.path.join(demo_dir, "sample_0_mesh.npy"), "--faces",
+                         faces_path, "--stride", "20", "--out", os.path.join(out, "obj")])
+    errs = {"obj": max(float(np.abs(obj_vertices(os.path.join(
+        out, "obj", "seq_000", f"frame_{f:04d}.obj")) - mesh[f]).max()) for f in (0, 20, 40))}
+    export_bvh.main(["--joints", os.path.join(demo_dir, "sample_0.npy"), "--out",
+                     os.path.join(out, "m.bvh")])
+    with open(os.path.join(out, "m.bvh")) as f:
+        lines = f.read().splitlines()
+    motion = np.asarray([line.split() for line in lines[lines.index("MOTION") + 3:]], np.float64)
+    order = [export_bvh.SMPL_JOINT_NAMES.index(line.split()[1]) for line in lines
+             if line.strip().startswith(("ROOT", "JOINT"))]
+    parents = export_bvh.PARENTS
+    local = np.stack([joints[:, j] - (joints[:, parents[j]] if parents[j] >= 0 else 0)
+                      for j in order], 1).reshape(len(joints), -1)
+    errs["bvh"] = float(np.abs(motion - local).max())
+    export_gltf.main(["--npy", os.path.join(demo_dir, "sample_0.npy"), "--out",
+                      os.path.join(out, "m.glb")])
+    errs["gltf"] = float(np.abs(glb_tracks(os.path.join(out, "m.glb"), export_gltf)
+                                - joints[:, :24]).max())
+    fbx_out = export_fbx.main(["--mesh", os.path.join(demo_dir, "sample_0_mesh.npy"), "--faces",
+                               faces_path, "--out", os.path.join(out, "a.fbx")])
+    if export_fbx.bpy_available():
+        require(os.path.exists(fbx_out), f"export_fbx wrote no {fbx_out}")
+    else:
+        errs["fbx obj"] = float(np.abs(obj_vertices(os.path.join(
+            fbx_out, "frame_0007.obj")) - mesh[7]).max())
+        export_fbx.main(["--joints", os.path.join(demo_dir, "sample_0.npy"), "--out",
+                         os.path.join(out, "b.fbx")])
+        errs["fbx glb"] = float(np.abs(glb_tracks(os.path.join(out, "b.glb"), export_gltf)
+                                       - joints[:, :24]).max())
+        poses = (np.random.RandomState(SEED).randn(8, 72) * 0.3).astype(np.float32)
+        np.save(os.path.join(out, "poses.npy"), poses)
+        export_fbx.main(["--poses", os.path.join(out, "poses.npy"), "--out",
+                         os.path.join(out, "c.fbx")])
+        card = glb_tracks(os.path.join(out, "c.glb"), export_gltf)
+        cpu = export_fbx.pose_joints(poses, None, torch.device("cpu"))
+        errs["fbx poses card vs CPU"] = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    require(all(v <= 1e-6 for k, v in errs.items() if "poses" not in k),
+            f"exported files differ from the arrays: {errs}")
+    require(errs.get("fbx poses card vs CPU", 0.0) <= 1e-5,
+            f"export_fbx --poses joints card vs CPU: {errs}")
+    fbx = "" if export_fbx.bpy_available() else ", export_fbx fallbacks (OBJ, glb, --poses glb)"
+    shown = json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
+    phase(f"exporters on the demo's sample_0 ({mesh.shape[0]} frames, {mesh.shape[1]} vertices, "
+          f"{len(faces)} faces): {n} OBJ frames, BVH, glTF{fbx}; read back, max |file - array| "
+          f"{shown}", t)
+
+    # ---- 51. tsne: the latents on the card and on the CPU
+    t = time.perf_counter()
+    vae_yaml = os.path.join(configs, "config_vae_egobody.yaml")
+    z, xy, method = tsne.compute(vae_yaml, num=64, device=dev)  # the whole test split
+    z_cpu = tsne.compute(vae_yaml, num=64, device="cpu")[0]
+    rel = float(np.abs(z - z_cpu).max() / np.abs(z_cpu).max())
+    require(z.shape == (64, 256) and xy.shape == (64, 2) and rel <= 1e-5,
+            f"tsne latents {z.shape} card vs CPU {rel}")
+    phase(f"tsne (config_vae_egobody.yaml, the 64 test latents): card vs CPU {rel:.2e} of max, "
+          f"projection {method}", t)
+
+    # ---- 52. the bound counts against FlopCounterMode's count of the plain versions
+    t = time.perf_counter()
+    checks = {}
+    meta = torch.device("meta")
+    for H in (512, 256):
+        pts = torch.empty(BATCH, HMR_POINTS, 3, device=meta)
+        w = {"wpos": (3, 2 * H), "bpos": (2 * H,), "w0": (2 * H, H), "b0": (H,), "w1": (H, H),
+             "b1": (H,), "ws": (2 * H, H)}
+        args = [torch.empty(w[k], device=meta) for k in ("wpos", "bpos", "w0", "b0", "w1", "b1",
+                                                          "ws")]
+        x, pooled = pfu.fused_input_block_plain(pts, *args)
+        checks[f"kernel 1 H={H}"] = (flops.count(lambda: pfu.fused_input_block_plain(pts, *args)),
+                                     input_block_flops(BATCH, HMR_POINTS, H))
+        sp = [torch.empty(s, device=meta) for s in ((H, H), (H, H), (H,), (H, H), (H,), (H, H),
+                                                     (H, H))]
+        checks[f"kernel 2 H={H}"] = (flops.count(lambda: pfu.fused_split_block_plain(x, pooled,
+                                                                                     *sp)),
+                                     split_block_flops(BATCH, HMR_POINTS, H))
+    ego = SeeMeConfig()
+    data = SyntheticEgoDataset(2, ego.motion_length, scene_points=16, seed=SEED)
+    system = SeeMeSystem(ego, synthetic_smpl(6890), data.mean, data.std, device=dev, seed=SEED)
+    sd = system.kernel_operands()[0]
+    gen = torch.Generator().manual_seed(SEED)
+    cond = torch.randn(BATCH, 2, 256, generator=gen).to(dev)
+    z0 = torch.randn(BATCH, 1, 256, generator=gen).to(dev)
+    steps = ego.num_inference_timesteps
+    checks["kernel 3 (B=64, 2 cond, 50 steps)"] = (
+        flops.count(lambda: dfu.ddim_fused_plain(sd, cond, z0, system.schedule, steps,
+                                                 ego.num_layers, 1.0)),
+        ddim_flops(sd, ego.num_layers, BATCH, 2, steps))
+    del system
+    t2c = T2MConfig()
+    t2m = T2MSystem(t2c, np.zeros(263, np.float32), np.ones(263, np.float32), device=dev,
+                    seed=SEED)
+    tsd = t2m.kernel_operands()[0]
+    text = torch.randn(2 * BATCH, 1, t2c.text_encoded_dim, generator=gen).to(dev)
+    checks["kernel 5 (B=64, guidance 7.5, 50 steps)"] = (
+        flops.count(lambda: dfu.ddim_fused_plain(tsd, text, z0, t2m.schedule, steps,
+                                                 t2c.num_layers, t2c.guidance_scale,
+                                                 md_trans=False)),
+        tok_flops(tsd, t2c.num_layers, 2 * BATCH, 1, steps))
+    del t2m
+    torch.cuda.empty_cache()
+    ratios = {k: counted_ / bound for k, (counted_, bound) in checks.items()}
+    require(all(abs(r - 1) <= 0.01 for r in ratios.values()),
+            f"bound counts vs FlopCounterMode's: {ratios}")
+    paths = flops.main(["--batch_size", str(BATCH)])
+    require(all(v > 0 for v in paths.values()), f"flops paths {paths}")
+    phase("bound counts / FlopCounterMode's count of the plain version (gate 1 %): "
+          + ", ".join(f"{k} {checks[k][1] / 1e9:.3f} GFLOP, ratio {ratios[k]:.4f}"
+                      for k in checks)
+          + "; flops paths (GFLOP): "
+          + json.dumps({k: round(v / 1e9, 3) for k, v in paths.items()}), t)
+
+    # ---- 53. preflight --end-to-end on a tree this phase writes
+    t = time.perf_counter()
+    deps = os.path.join(work, "deps")
+    smpl_dir = os.path.join(deps, "smpl_models", "smpl")
+    os.makedirs(smpl_dir)
+    shutil.copy(os.path.join(work, "SMPL_NEUTRAL.pkl"), smpl_dir)
+    t2m_cfg = T2MConfig()
+    t2m_data = SyntheticT2MDataset(4, t2m_cfg.max_len, nfeats=t2m_cfg.nfeats, seed=SEED,
+                                   text_dim=t2m_cfg.text_encoded_dim)
+    t2m = T2MSystem(t2m_cfg, t2m_data.mean, t2m_data.std, device=dev, seed=SEED)
+    os.makedirs(os.path.join(deps, "checkpoints_mld"))
+    torch.save({"state_dict": t2m.state_dict(), "epoch": 0},
+               os.path.join(deps, "checkpoints_mld", "epoch=0.ckpt"))
+    del t2m
+    trio = os.path.join(deps, "t2m", "t2m", "text_mot_match", "model")
+    os.makedirs(trio)
+    shutil.copy(os.path.join(work, "humanml3d_tm2t.tar"), os.path.join(trio, "finest.tar"))
+    act = os.path.join(deps, "actionrecognition")
+    os.makedirs(act)
+    shutil.copy(os.path.join(work, "humanact12_gru.tar"), os.path.join(act, "humanact12_gru.tar"))
+    shutil.copy(os.path.join(work, "uestc_stgcn.tar"), os.path.join(act, "uestc_rot6d_stgcn.tar"))
+    (rc, rows), counts = counted(lambda: preflight.run(
+        ["--deps", deps, "--datasets", os.path.join(work, "datasets"), "--end-to-end"]))
+    require(counts == {**none, "ddim_tok_t1": 1}, f"preflight --end-to-end launch counts {counts}")
+    record("preflight_end_to_end", counts)
+    by = {r.asset: r for r in rows}
+    written = ["SMPL_NEUTRAL.pkl", "MLD checkpoint (vae+denoiser)",
+               "t2m text encoder (text_mot_match finest.tar)", "t2m motion encoder",
+               "t2m movement encoder", "humanact12_gru.tar", "uestc_rot6d_stgcn.tar"]
+    require(rc == 0 and all(by[a].status == "LOADED" for a in written)
+            and by["end-to-end t2m metrics"].status == "RAN",
+            f"preflight rc {rc}: " + "; ".join(f"{a} {by[a].status} {by[a].detail}"
+                                              for a in [*written, "end-to-end t2m metrics"]))
+    phase(f"preflight --end-to-end on a written tree: rc {rc}, {len(written)} assets LOADED, "
+          f"end-to-end RAN ({by['end-to-end t2m metrics'].detail.split(';')[0]}), launches "
+          f"{counts}, {sum(r.status == 'MISSING' for r in rows)} rows MISSING (not written)", t)
+
+    # ---- 54. the pretrained text encoder
+    t = time.perf_counter()
+    if importlib.util.find_spec("transformers") is None:
+        empty = os.path.join(work, "clip-tiny")
+        os.makedirs(empty)
+        with open(os.path.join(empty, "config.json"), "w") as f:
+            f.write("{}")
+        try:
+            ClipTextEncoder(empty, device=dev)
+            refused = None
+        except ImportError as e:
+            refused = e
+        require(refused is not None and "transformers" in str(refused),
+                f"a text-encoder directory without transformers: {refused!r}")
+        phase(f"text encoder directory without transformers: refused with ImportError naming "
+              f"it ({str(refused)[:70]!r}...)", t)
+    else:
+        import transformers
+
+        path = os.path.join(work, "clip-tiny")
+        write_tiny_clip(transformers, path)
+        texts = ["a person walks", "jump", "a person turns and walks"]
+        card = ClipTextEncoder(path, latent_dim=24, device=dev)(texts)
+        cpu = ClipTextEncoder(path, latent_dim=24, device="cpu")(texts)
+        rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        require(rel <= 1e-5, f"text encoder card vs CPU {rel}")
+        phase(f"tiny CLIP text encoder (transformers {transformers.__version__}): card vs CPU "
+              f"{rel:.2e} of max", t)
+
+
+def glb_tracks(path: str, export_gltf):
+    """(T, J, 3) joint tracks of a `.glb` `export_gltf` wrote."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    doc = export_gltf.parse_glb(data)
+    start = 20 + int.from_bytes(data[12:16], "little") + 8
+    tracks = []
+    for sampler in doc["animations"][0]["samplers"]:
+        view = doc["bufferViews"][doc["accessors"][sampler["output"]]["bufferView"]]
+        raw = data[start + view["byteOffset"]:start + view["byteOffset"] + view["byteLength"]]
+        tracks.append(np.frombuffer(raw, np.float32).reshape(-1, 3))
+    return np.stack(tracks, 1)
+
+
+def write_tiny_clip(transformers, path: str) -> None:
+    """A 2-layer, 32-wide CLIP text tower projecting to 24, with a
+    character-level BPE vocabulary, saved in PyTorch weights."""
+    import json as _json
+
+    import torch
+
+    os.makedirs(path)
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    vocab = {t: i for i, t in enumerate(letters + [f"{c}</w>" for c in letters])}
+    vocab.update({"<|startoftext|>": len(vocab), "<|endoftext|>": len(vocab) + 1})
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        _json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    transformers.CLIPTokenizer(os.path.join(path, "vocab.json"), os.path.join(path, "merges.txt"),
+                               pad_token="<|endoftext|>").save_pretrained(path)
+    cfg = transformers.CLIPTextConfig(vocab_size=len(vocab), hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=2, num_attention_heads=4,
+                                      max_position_embeddings=77, projection_dim=24,
+                                      bos_token_id=vocab["<|startoftext|>"],
+                                      eos_token_id=vocab["<|endoftext|>"],
+                                      pad_token_id=vocab["<|endoftext|>"])
+    torch.manual_seed(SEED)
+    transformers.CLIPTextModelWithProjection(cfg).save_pretrained(path)
+
+
 def profile_busy(run):
     """(device-busy ms, wall ms, device events) of `run()` under
     `torch.profiler`: the union of the device's kernel and copy intervals in
@@ -3389,6 +3728,20 @@ def print_pointnet_launch(info: dict, tile: int) -> None:
           f"{info['active_clusters']} clusters fit at once", flush=True)
     require(info["cluster"] >= 2 and info["active_clusters"] >= 1
             and info["tile"] == tile, f"pointnet launch {info}")
+
+
+def input_block_flops(B: int, N: int, H: int) -> float:
+    """Operations of kernel 1 (`fused_input_block`) over B clouds of N
+    points at hidden width H: fc_pos 3 -> 2H, then the first ResNet-FC
+    block's fc_0 2H -> H, fc_1 H -> H and shortcut 2H -> H, for every point."""
+    return 2.0 * B * N * (3 * 2 * H + 2 * H * H + H * H + 2 * H * H)
+
+
+def split_block_flops(B: int, N: int, H: int) -> float:
+    """Operations of kernel 2 (`fused_split_block`): each point's fc_0 and
+    shortcut halves over x (H -> H each) and fc_1 (H -> H), and once per
+    cloud the same two halves over the pooled feature."""
+    return 2.0 * (B * N * 3 * H * H + 2 * B * H * H)
 
 
 def ddim_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int, tokens: int = 1) -> float:

@@ -191,7 +191,7 @@ def preset_from_yaml(cfg: Config) -> Preset:
         word_vectorizer_path=str(cfg.select("DATASET.WORD_VERTILIZER_PATH", "") or ""),
         evaluator_checkpoint=str(te.get("EVALUATOR_CHECKPOINT") or ""))
     return Preset(name=str(cfg.get("NAME", name)), model=model, train=train, dataset=name,
-                  test=test, smpl_path=smpl_path_of(cfg))
+                  test=test, smpl_path=smpl_path_of(cfg), debug=bool(cfg.get("DEBUG", False)))
 
 
 def smpl_path_of(cfg: Config) -> str:

@@ -86,6 +86,9 @@ class Preset:
     # model.smpl_path (:73) when that file exists (`config/build.py::smpl_path_of`);
     # empty = the synthetic body, as a preset names no file
     smpl_path: str = ""
+    # DEBUG (base.yaml:4; false in every shipped top-level YAML): the small
+    # splits of `data/registry.py::get_datamodule(debug=True)`
+    debug: bool = False
 
 
 # LOSS (config_*_egobody.yaml:47-57; LAMBDA_JOINT from base.yaml:72)

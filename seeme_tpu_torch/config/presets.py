@@ -59,19 +59,21 @@ def build(preset: Preset, device: torch.device):
     action-to-motion system its classes and width (`build_a2m_system`); an
     ego or action-to-motion system gets the SMPL body of `preset.smpl_path`
     (the `--cfg` route's `model.smpl_path`, as `seeme_tpu/config/build.py:157`
-    and `test.py:387` read it), the synthetic one when that is empty."""
+    and `test.py:387` read it), the synthetic one when that is empty. Every
+    datamodule gets the preset's DEBUG, as `seeme_tpu/data/registry.py`
+    reads the config's."""
     cfg, seed = preset.model, preset.train.seed
     torch.manual_seed(seed)
     if isinstance(cfg, T2MConfig):
         dm = get_datamodule(preset.dataset, motion_length=cfg.max_len, min_len=cfg.min_len,
-                            text_dim=cfg.text_encoded_dim)
+                            text_dim=cfg.text_encoded_dim, debug=preset.debug)
         cfg = dataclasses.replace(cfg, nfeats=dm.nfeats)
         return dm, T2MSystem(cfg, dm.mean, dm.std, device=device, seed=seed)
     if isinstance(cfg, A2MConfig):
-        dm = get_datamodule(preset.dataset, motion_length=cfg.num_frames)
+        dm = get_datamodule(preset.dataset, motion_length=cfg.num_frames, debug=preset.debug)
         cfg = dataclasses.replace(cfg, nfeats=dm.nfeats, num_classes=dm.num_classes)
         return dm, A2MSystem(cfg, smpl_body(preset.smpl_path), device=device, seed=seed)
     dm = get_datamodule(preset.dataset, cfg.condition, cfg.motion_length, cfg.scene_points,
-                        image_size=cfg.image_size)
+                        image_size=cfg.image_size, debug=preset.debug)
     return dm, SeeMeSystem(cfg, smpl_body(preset.smpl_path), dm.mean, dm.std, device=device,
                            seed=seed)

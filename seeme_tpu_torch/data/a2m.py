@@ -12,7 +12,8 @@ skipped view 8 of side 2, the VIBE global translation (or
 training clips. Both give the 150 features the A2M system consumes: 24
 joints of diffusion-layout rot6d (144), the root trajectory from the first
 frame (3) and three zeros, `num_frames` long with zero padding and the true
-lengths. The JAX package's DEBUG truncation is not ported.
+lengths. Under DEBUG each split keeps its first 32 clips, as the JAX
+package's loaders cut them (`seeme_tpu/data/a2m.py:76-77`, `:253-257`).
 """
 
 from __future__ import annotations
@@ -59,7 +60,12 @@ class A2MSplits:
     is_synthetic = False
     _splits: Dict[str, Optional[Dict[str, np.ndarray]]]
 
-    def _finish(self, name: str, num_classes: int, nfeats: int = NFEATS) -> None:
+    def _finish(self, name: str, num_classes: int, nfeats: int = NFEATS,
+                debug: bool = False) -> None:
+        if debug:  # val may be the test split's own dict: each cut once
+            cut = {id(v): None if v is None else {k: a[:32] for k, a in v.items()}
+                   for v in self._splits.values()}
+            self._splits = {k: cut[id(v)] for k, v in self._splits.items()}
         self.name, self.num_classes, self.nfeats = name, num_classes, nfeats
         train = self._splits["train"]
         self.num_train = 0 if train is None else len(train["motion"])
@@ -92,7 +98,7 @@ class HumanAct12DataModule(A2MSplits):
     (`humanact12poses.py:31` trains on every index; FID compares generated
     against dataset statistics)."""
 
-    def __init__(self, pkl_path: str, num_frames: int = 60):
+    def __init__(self, pkl_path: str, num_frames: int = 60, debug: bool = False):
         with open(pkl_path, "rb") as f:
             data = pickle.load(f)
         feats, lengths, labels = [], [], []
@@ -106,7 +112,7 @@ class HumanAct12DataModule(A2MSplits):
         every = {"motion": np.stack(feats), "length": np.asarray(lengths, np.int32),
                  "action": np.asarray(labels, np.int32)}
         self._splits = dict.fromkeys(("train", "val", "test"), every)
-        self._finish("humanact12", HUMANACT12_CLASSES)
+        self._finish("humanact12", HUMANACT12_CLASSES, debug=debug)
 
 
 # Subject split of the release protocol: 51 of 118 subjects train, the rest
@@ -161,7 +167,7 @@ class UestcDataModule(A2MSplits):
     (The JAX module's `view="frontview"`, side 1 only, has no caller and is
     not ported.)"""
 
-    def __init__(self, root: str, num_frames: int = 60):
+    def __init__(self, root: str, num_frames: int = 60, debug: bool = False):
         with open(os.path.join(root, "info", "names.txt")) as f:
             videos = f.read().splitlines()
         with open(os.path.join(root, "info", "num_frames_min.txt")) as f:
@@ -217,4 +223,4 @@ class UestcDataModule(A2MSplits):
 
         self._splits = {k: pack(*v) for k, v in rows.items()}
         self._splits["val"] = self._splits["test"]
-        self._finish("uestc", UESTC_CLASSES)
+        self._finish("uestc", UESTC_CLASSES, debug=debug)

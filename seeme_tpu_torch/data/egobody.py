@@ -6,7 +6,8 @@ features (`pose_feats`).
 batch contract (`feats` (N, T, 2, P), `transl` (N, 2, T, 3), `betas`
 (N, 2, T, 10), `cam` (N, T, 6), `length` (N,), optional `scene` (N, n, 3),
 optional `image_crops` (N, K, 224, 224, 3) uint8) and `mean.npy`/`std.npy`
-over the (P + 3)-wide feature vector; this module slices them.
+over the (P + 3)-wide feature vector; this module slices them, each split
+to its first 10 rows under DEBUG (`seeme_tpu/data/egobody.py:50`, `:58-59`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 class EgoBodyDataModule:
-    def __init__(self, root: str, pose_feats: int = 72):
+    def __init__(self, root: str, pose_feats: int = 72, debug: bool = False):
         proc = os.path.join(root, "processed")
         if not os.path.isdir(proc):
             raise FileNotFoundError(
@@ -34,12 +35,14 @@ class EgoBodyDataModule:
         self.is_synthetic = False
         self._proc = proc
         self._splits: Dict[str, Dict[str, np.ndarray]] = {}
+        self._debug = debug
         self.num_train = (self._load("train")["feats"].shape[0]
                           if os.path.exists(os.path.join(proc, "train.npz")) else 0)
 
     def _load(self, split: str) -> Dict[str, np.ndarray]:
         if split not in self._splits:
-            self._splits[split] = dict(np.load(os.path.join(self._proc, f"{split}.npz")))
+            data = dict(np.load(os.path.join(self._proc, f"{split}.npz")))
+            self._splits[split] = {k: v[:10] for k, v in data.items()} if self._debug else data
         return self._splits[split]
 
     def split_array(self, split: str, key: str) -> np.ndarray:

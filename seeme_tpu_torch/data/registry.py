@@ -3,8 +3,9 @@
 EgoBody and GIMO load the preprocessed release (`data/egobody.py`) when
 `<root>/EgoBody` or `<root>/GIMO` exists; otherwise `SyntheticDataModule`
 keeps the path runnable, as the JAX package does (256 train, 64 val and 64
-test samples from seeds 0, 1 and 2; GIMO's 66 pose features, and its val
-split the test split, as `dataset.py:1840-1842` aliases them). HumanML3D
+test samples from seeds 0, 1 and 2, 32 / 16 / 16 under DEBUG; GIMO's 66
+pose features, and its val split the test split, as `dataset.py:1840-1842`
+aliases them). HumanML3D
 and KIT read `<root>/HumanML3D` or `<root>/KIT-ML` through
 `data/humanml.py::HumanML3DDataModule`, which falls back to its synthetic
 splits when the folder is not there. HumanAct12 reads
@@ -37,9 +38,10 @@ class SyntheticDataModule:
     """Per-split `SyntheticEgoDataset`s with the datamodule interface."""
 
     def __init__(self, condition: Sequence[str] = (), motion_length: int = 60,
-                 scene_points: int = 1024, name: str = "egobody", image_size: int = 224):
+                 scene_points: int = 1024, name: str = "egobody", image_size: int = 224,
+                 debug: bool = False):
         with_scene = "scene" in condition
-        num_train, num_eval = 256, 64
+        num_train, num_eval = (32, 16) if debug else (256, 64)
         pose_feats = 72 if name == "egobody" else 66
         common = dict(motion_length=motion_length, pose_feats=pose_feats,
                       scene_points=max(scene_points if with_scene else 0, 1),
@@ -130,16 +132,17 @@ def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int 
     text-to-motion set takes clips of `min_len` to `motion_length` frames
     and makes its synthetic text embeddings `text_dim` wide; an
     action-to-motion set's clips are `motion_length` frames). `debug` (the
-    config's DEBUG) gives the text- and action-to-motion sets the JAX
-    package's small synthetic splits."""
+    config's DEBUG) cuts every set as the JAX package does: the synthetic
+    splits are made small, and a release's splits are cut to their first 10
+    (EgoBody, GIMO) or 32 (HumanAct12, UESTC) rows."""
     if name == "humanact12":
         path = os.path.join(root, "HumanAct12Poses", "humanact12poses.pkl")
         if os.path.exists(path):
-            return HumanAct12DataModule(path, num_frames=motion_length)
+            return HumanAct12DataModule(path, num_frames=motion_length, debug=debug)
     if name == "uestc":
         path = os.path.join(root, "uestc")
         if os.path.exists(os.path.join(path, "vibe_cache_refined.pkl")):
-            return UestcDataModule(path, num_frames=motion_length)
+            return UestcDataModule(path, num_frames=motion_length, debug=debug)
     if name in A2M_CLASSES:
         return SyntheticA2MDataModule(A2M_CLASSES[name], num_frames=motion_length, name=name,
                                       debug=debug)
@@ -155,5 +158,5 @@ def get_datamodule(name: str, condition: Sequence[str] = (), motion_length: int 
     folder, pose_feats = RELEASES[name]
     path = os.path.join(root, folder)
     if os.path.isdir(path):
-        return EgoBodyDataModule(path, pose_feats=pose_feats)
-    return SyntheticDataModule(condition, motion_length, scene_points, name, image_size)
+        return EgoBodyDataModule(path, pose_feats=pose_feats, debug=debug)
+    return SyntheticDataModule(condition, motion_length, scene_points, name, image_size, debug)

@@ -4,8 +4,8 @@ write them as `.npy` joints.
     python -m seeme_tpu_torch.demo --cfg configs/config_NAME.yaml [--cfg_assets FILE]
         [--checkpoint PATH] [--num_samples 4] [--out demo_out] [--mesh]
         [--example FILE] [--task text_motion|random_sampling|reconstruction]
-        [--length N] [--actions 0,3] [--replication 1] [--device cpu | --cpu]
-        [KEY.PATH=VALUE ...]
+        [--length N] [--actions 0,3] [--replication 1] [--render]
+        [--device cpu | --cpu] [KEY.PATH=VALUE ...]
 
 The flags are the root script's (`demo.py:22-51`), and so is the dispatch
 by DATASET_NAME (`:298-322`):
@@ -33,9 +33,12 @@ exists, else the seeded random init (SEED_VALUE); the noise from a
 generator seeded with 0. The ego and action configs run on the SMPL file
 `model.smpl_path` names when it exists (`demo.py:206`), else on the
 synthetic body. Joints are written as float32, as the JAX CLI
-writes them. `--render` needs the joints renderer (`render/`), which is not
-ported yet: it raises. It runs on the card unless `--device cpu` (or
-`--cpu`) is given, and raises when there is no card.
+writes them. `--render` draws each written joint file to a `.gif` beside it
+on the host (`render/joints.py`, matplotlib): an ego sample over its ground
+truth (`sample_{i}.gif`, `demo.py:285-293`), a text or action sample alone
+(`demo.py:72-81`, `:321-322`); without matplotlib it raises an ImportError
+naming it, after the `.npy` files are written. It runs on the card unless
+`--device cpu` (or `--cpu`) is given, and raises when there is no card.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--num_samples", type=int, default=4)
     ap.add_argument("--out", default="demo_out")
     ap.add_argument("--render", action="store_true",
-                    help="render the joints (needs render/, not ported yet: raises)")
+                    help="render the written joints to gifs (needs matplotlib)")
     ap.add_argument("--mesh", action="store_true",
                     help="(ego) also write sample_{i}_mesh.npy SMPL vertex sequences")
     ap.add_argument("--example", default=None,
@@ -203,15 +206,29 @@ def _demo_ego(args, dm, system, dev, gen) -> List[str]:
             np.save(os.path.join(args.out, f"sample_{i}_mesh.npy"), verts[i].astype(np.float32))
         np.save(os.path.join(args.out, "faces.npy"), system.smpl.faces)
         print(f"saved {n_take} mesh npys (+faces.npy)")
+    if args.render:
+        from .render.joints import render_joints_video
+
+        for i in range(n_take):
+            path = render_joints_video(joints[i], os.path.join(args.out, f"sample_{i}.gif"),
+                                       gt_joints=joints_gt[i], title=f"sample {i}")
+            print(f"rendered {path}")
     return saved
+
+
+def _render_all(paths: Sequence[str]) -> None:
+    """Each joint file -> a `.gif` beside it (`demo.py:72-81`)."""
+    from .render.joints import render_joints_video
+
+    for p in paths:
+        gif = render_joints_video(np.load(p), p.replace(".npy", ".gif"),
+                                  title=os.path.basename(p)[:-4])
+        print(f"rendered {gif}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     """Run the demo; returns the `.npy` joint files written."""
     args = parse_args(argv)
-    if args.render:
-        raise NotImplementedError("--render needs the joints renderer (render/), which is not "
-                                  "ported yet (ROADMAP §1 item 5); run without it")
     dev = resolve_device("cpu" if args.cpu else args.device)
     full_float32()
     cfg = load_config(args.cfg, args.cfg_assets,
@@ -226,10 +243,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     os.makedirs(args.out, exist_ok=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     if preset.dataset in T2M_DATASETS:
-        return _demo_text(args, dm, system, dev, gen)
-    if preset.dataset in A2M_DATASETS:
-        return _demo_action(args, system, dev, gen)
-    return _demo_ego(args, dm, system, dev, gen)
+        saved = _demo_text(args, dm, system, dev, gen)
+    elif preset.dataset in A2M_DATASETS:
+        saved = _demo_action(args, system, dev, gen)
+    else:
+        return _demo_ego(args, dm, system, dev, gen)
+    if args.render:
+        _render_all(saved)
+    return saved
 
 
 if __name__ == "__main__":

@@ -115,7 +115,7 @@ class T2MSystem(nn.Module):
         self.schedule = DiffusionSchedule()
         self.text_encoder = ClipTextEncoder(cfg.text_encoder_path or None,
                                             latent_dim=cfg.text_encoded_dim,
-                                            last_hidden_state=cfg.last_hidden_state)
+                                            last_hidden_state=cfg.last_hidden_state, device=dev)
         self._kernel_operands = None
 
     def kernel_operands(self):

@@ -106,7 +106,9 @@ def _stylization_eo(sd: StateDict, prefix: str, h: torch.Tensor, eo: torch.Tenso
 def _md_layer_t1(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
                  emb: torch.Tensor) -> torch.Tensor:
     """One MD layer for a single latent token (`denoiser_fused.py:213-281`).
-    x (B, 1, D); emb (B, 1, D) is the time token."""
+    x (B, 1, D); emb (B, 1, D) or (1, 1, D), one time token for every row,
+    is the time token: its projections are then made once, as the kernel
+    makes them once a step."""
     (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, f"{name}.sa_block.self_attn")
     D = x.shape[-1]
     k_e = F.linear(emb[:, 0], wk, bk)
@@ -145,7 +147,7 @@ def _md_layer_t1(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
 def _md_layer(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
               emb: torch.Tensor) -> torch.Tensor:
     """One MD layer for T latent tokens (`denoiser_fused.py:284-318`). x (B,
-    T, D); emb (B, 1, D) is the time token. Each latent row attends to the T
+    T, D); emb (B, 1, D) or (1, 1, D) is the time token. Each latent row attends to the T
     latent rows of its sample, the condition tokens (their k/v hoisted in
     `inv`) and the time token; the condition and time rows' own outputs are
     never kept, so they are not computed. The linear cross-attention mixes
@@ -158,8 +160,10 @@ def _md_layer(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
     ffn_eo = _lin(sd, f"{name}.ffn.proj_out.emb_layers.1", se)
 
     q = F.linear(x, wq, bq)
-    keys = torch.cat([F.linear(x, wk, bk), inv["k_xf"], F.linear(emb, wk, bk)], dim=1)
-    values = torch.cat([F.linear(x, wv, bv), inv["v_xf"], F.linear(emb, wv, bv)], dim=1)
+    rows = (x.shape[0], -1, -1)
+    keys = torch.cat([F.linear(x, wk, bk), inv["k_xf"], F.linear(emb, wk, bk).expand(rows)], dim=1)
+    values = torch.cat([F.linear(x, wv, bv), inv["v_xf"], F.linear(emb, wv, bv).expand(rows)],
+                       dim=1)
     attn = torch.softmax(q @ keys.transpose(1, 2) / math.sqrt(D), dim=-1)
     sa = f"{name}.sa_block"
     x = _ln(sd, f"{sa}.norm1", x + _lin(sd, f"{sa}.self_attn.out_proj", attn @ values))
@@ -222,13 +226,13 @@ def denoiser_apply_pure(sd: StateDict, x: torch.Tensor, timesteps: torch.Tensor 
                         time_token: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of `Denoiser.forward` for x (B, T, D). md_invariants, from
     `md_step_invariants`, may carry the MD stack's condition invariants; then
-    cond is unused. time_token (B, 1, D), the embedded time token, replaces
-    the timestep MLP; then timesteps is unused."""
+    cond is unused. time_token (B, 1, D), or (1, 1, D) for every row, the
+    embedded time token, replaces the timestep MLP; then timesteps is unused."""
     T = x.shape[1]
     emb = time_token if time_token is not None else _time_tokens(sd, timesteps)[:, None]
     pe = sd["query_pos.pe"][:, 0]
     if not md_trans:
-        xseq = torch.cat([x, emb, _project_cond(sd, cond)], dim=1)
+        xseq = torch.cat([x, emb.expand(x.shape[0], -1, -1), _project_cond(sd, cond)], dim=1)
         h = xseq + pe[: xseq.shape[1]][None]
         return _uskip(sd, h, num_layers, lambda name, h: _encoder_layer(sd, name, h))[:, :T]
     inv = md_invariants
@@ -253,16 +257,21 @@ def ddim_fused_plain(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
                      schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
                      guidance_scale: float = 1.0, md_trans: bool = True) -> torch.Tensor:
     """The `ddim_sample` loop over `denoiser_apply_pure`, with the kernels'
-    per-window precompute (every step's time token; the MD stack's condition
-    invariants); cond is [uncond; cond] (2B rows) when guidance_scale > 1."""
+    per-window precompute (every step's time token; the condition
+    projection; the MD stack's condition invariants) and, as the kernels
+    make them, the time token's own projections once a step; cond is
+    [uncond; cond] (2B rows) when guidance_scale > 1."""
     timesteps = ddim_schedule_arrays(schedule, num_steps, z_init.device)[0]
     cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
     tokens = dict(zip(timesteps.tolist(), time_tokens))
     inv = md_step_invariants(sd, cond_p, num_layers) if md_trans else None
+    # the token stack takes the projected condition: without emb_proj in
+    # its weights, `_project_cond` passes it through
+    sd_steps = {k: v for k, v in sd.items() if not k.startswith("emb_proj.")}
 
     def denoiser(x, t):
-        token = tokens[int(t[0])].expand(x.shape[0], 1, -1)
-        return denoiser_apply_pure(sd, x, None, cond, num_layers, md_trans, inv, token)
+        token = tokens[int(t[0])].view(1, 1, -1)
+        return denoiser_apply_pure(sd_steps, x, None, cond_p, num_layers, md_trans, inv, token)
 
     return ddim_sample(denoiser, schedule, tuple(z_init.shape), num_steps, guidance_scale,
                        z_init=z_init)

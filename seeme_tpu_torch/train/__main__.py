@@ -3,7 +3,8 @@ action-to-motion configs.
 
     python -m seeme_tpu_torch.train --preset NAME
         [--batch_size N] [--epochs N] [--out DIR] [--resume DIR]
-        [--pretrained_vae PATH] [--device cpu] [model.FIELD=VALUE ...] [train.FIELD=VALUE ...]
+        [--pretrained_vae PATH] [--nodebug] [--device cpu] [model.FIELD=VALUE ...]
+        [train.FIELD=VALUE ...]
     python -m seeme_tpu_torch.train --cfg configs/config_NAME.yaml [--cfg_assets FILE]
         [the same options] [KEY.PATH=VALUE ...]
 
@@ -11,6 +12,9 @@ With `--cfg` the shipped YAML goes through the port's loader and builder
 (`config/loader.py`, `config/build.py`: base.yaml, the file, the module
 YAMLs, the assets, then the dotted overrides, read as YAML values, as
 `train.py` takes them); each YAML builds the same preset as its name below.
+The config's DEBUG (true in base.yaml, false in every shipped top-level
+YAML) gives the datamodule its small splits; `--nodebug` turns it off, as
+`train.py:78-79` does.
 
 NAME is a preset of `config/egobody.py` (vae_egobody, mld_egobody,
 mld_egobody_image, vae_gimo, mld_gimo, vae_interactee, mld_interactee) or
@@ -97,6 +101,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--out", default=None, help="experiment dir")
     p.add_argument("--resume", default=None, help="experiment dir to resume from")
     p.add_argument("--pretrained_vae", default=None, help="stage-1 checkpoint for stage 2")
+    p.add_argument("--nodebug", action="store_true", help="DEBUG false: the full splits")
     p.add_argument("--device", default="cuda")
     p.add_argument("overrides", nargs="*", default=[],
                    help="with --preset model.FIELD=VALUE or train.FIELD=VALUE; with --cfg "
@@ -110,6 +115,10 @@ class Trainer:
 
     def __init__(self, args: argparse.Namespace):
         preset, config = cli_config(args.preset, args.cfg, args.cfg_assets, args.overrides)
+        if args.nodebug:
+            preset = dataclasses.replace(preset, debug=False)
+            if config is not None:
+                config["DEBUG"] = False
         tc = preset.train
         if args.batch_size is not None:
             tc = dataclasses.replace(tc, batch_size=args.batch_size)

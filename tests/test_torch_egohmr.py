@@ -24,6 +24,7 @@ from seeme_tpu_torch.data.synthetic import to_torch
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from test_torch_hmr import B, VERTS, jax_sample, jx, make_batch, perturbed, rel, run_both
 from tools import convert_checkpoint as cc
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
 EGO = dict(gcn_hid_dim=128, gcn_layers=1, num_train_timesteps=100,
            timestep_respacing="ddim10")  # test_egohmr.py --tiny

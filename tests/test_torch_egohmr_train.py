@@ -9,11 +9,13 @@ statistics included, within 1e-5 relative); the condition drop and the
 capsule penetration term in float32; the training CLI against the root
 `train_egohmr.py`; and the training constants of both perception models
 against the JAX package's defaults.
+
+The CLI is in `test_torch_egohmr_train_cli.py`, the helpers in
+`torch_egohmr_train_common.py`.
 """
 
 import copy
 import inspect
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,55 +24,27 @@ import optax
 import pytest
 import torch
 
-from seeme_tpu.core import synthetic_smpl as j_synthetic_smpl
-from seeme_tpu.core.collision import point_segment_distance as j_point_segment_distance
-from seeme_tpu.core.collision import scene_collision_loss as j_scene_collision_loss
-from seeme_tpu.models.egohmr import EgoHmr as JEgoHmr
-from seeme_tpu.models.egohmr import EgoHmrConfig as JEgoHmrConfig
+from seeme_tpu.core.collision import (
+    point_segment_distance as j_point_segment_distance,
+    scene_collision_loss as j_scene_collision_loss,
+)
+from seeme_tpu.models.egohmr import EgoHmr as JEgoHmr, EgoHmrConfig as JEgoHmrConfig
 from seeme_tpu.models.prohmr import ProHMRConfig as JProHMRConfig
-from seeme_tpu_torch import test_egohmr
 from seeme_tpu_torch import train_egohmr as cli
 from seeme_tpu_torch.convert import egohmr_state_dict
 from seeme_tpu_torch.core.collision import point_segment_distance, scene_collision_loss
-from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.data.synthetic import to_torch
-from seeme_tpu_torch.models import egohmr as egohmr_model
-from seeme_tpu_torch.models import prohmr as prohmr_model
-from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
-from test_torch_hmr import POINTS, VERTS, jx, perturbed, rel, root_script
-from tools import convert_checkpoint as cc
-from test_torch_prohmr_train import B, GRAD_RTOL, LOSS_RTOL, STEP_RTOL, as_float64, batch_np, \
-    f64, loading_init
-
-EGO = cli.TINY  # train_egohmr.py --tiny
-
-
-@pytest.fixture(scope="module")
-def egohmr():
-    """The port's seeded weights as the JAX tree (`tools/convert_checkpoint.py`,
-    as in `tests/test_torch_prohmr_train.py`), perturbed, loaded back."""
-    jm = JEgoHmr(JEgoHmrConfig(**EGO), j_synthetic_smpl(n_verts=VERTS))
-    port = EgoHmr(EgoHmrConfig(**EGO), synthetic_smpl(VERTS), device="cpu")
-    sd = {k: v.numpy() for k, v in port.state_dict().items()}
-    tree = perturbed(cc.convert_egohmr(sd, num_gcn_layers=cc.infer_gcn_layers(sd)), 5)
-    port.load_state_dict(egohmr_state_dict(tree), strict=True)
-    return jm, tree, port
-
-
-def jax_draws(jm, key, n=B):
-    """`training_loss`'s draws from its key (`seeme_tpu/models/egohmr.py:416-419`)."""
-    t_rng, n_rng, m_rng = jax.random.split(key, 3)
-    return {"t": np.array(jax.random.randint(t_rng, (n,), 0, jm.schedule.num_train_timesteps)),
-            "noise": np.array(jax.random.normal(n_rng, (n, 144))),
-            "drop": np.array(jax.random.bernoulli(m_rng, jm.cfg.cond_mask_prob,
-                                                  (n, 1, 1))).reshape(n)}
-
-
-def with_body_rep(port, b):
-    """The batch with the CLI's `body_rep` target, numpy."""
-    out = dict(b)
-    out["body_rep"] = cli.add_body_rep(port, to_torch(b, "cpu"))["body_rep"].numpy()
-    return out
+from seeme_tpu_torch.models import egohmr as egohmr_model, prohmr as prohmr_model
+from seeme_tpu_torch.models.egohmr import EgoHmrConfig
+from test_torch_hmr import jx, rel
+from test_torch_prohmr_train import B, GRAD_RTOL, LOSS_RTOL, STEP_RTOL, as_float64, batch_np, f64
+from torch_egohmr_train_common import (
+    EGO,
+    egohmr,
+    jax_draws,
+    with_body_rep,
+)
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("model", ["prohmr", "egohmr"])
@@ -201,37 +175,3 @@ def test_compute_loss_with_penetration_matches_jax(egohmr):
     for k in terms:
         np.testing.assert_allclose(terms[k].item(), float(wterms[k]), rtol=LOSS_RTOL, err_msg=k)
     np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL)
-
-
-def test_cli_matches_jax_root_script(egohmr, monkeypatch, capsys, tmp_path):
-    """Both CLIs from the same weights on the same augmented data, two
-    epochs of two steps, the port's draws replayed from the JAX CLI's keys:
-    the printed epoch losses and MSEs within 1e-4 relative (plus half the
-    last printed digit); the checkpoint loads into the port's test CLI.
-    Learning rate 1e-8 for the reason `tests/test_torch_prohmr_train.py`
-    gives; the update is held to optax above."""
-    jm, tree, _ = egohmr
-    monkeypatch.setattr(JEgoHmr, "init_params", lambda self, rng: jx(tree))
-    argv = ["--tiny", "--batch_size", "32", "--epochs", "2", "--lr", "1e-8",
-            "--scene_points", str(POINTS), "--out", str(tmp_path / "jax")]
-    monkeypatch.setattr(sys, "argv", ["train_egohmr.py", *argv, "--cpu"])
-    root_script("train_egohmr").main()
-    want = [line for line in capsys.readouterr().out.splitlines() if line.startswith("epoch")]
-
-    keys, rng = [], jax.random.PRNGKey(1)
-    for _ in range(4):
-        rng, step = jax.random.split(rng)
-        keys.append(step)
-    monkeypatch.setattr(EgoHmr, "__init__", loading_init(EgoHmr.__init__, egohmr_state_dict(tree)))
-    argv[-1] = str(tmp_path / "port")
-    got = cli.main([*argv, "--device", "cpu"], draws=lambda i: jax_draws(jm, keys[i], 32))
-    assert len(want) == 2
-    for line, loss, mse in zip(want, got["losses"], got["mse"]):
-        wl = float(line.split("loss ")[1].split()[0])
-        wm = float(line.split("mse ")[1].split(",")[0])
-        assert abs(loss - wl) <= 1e-4 * abs(wl) + 5e-5, (loss, wl)
-        assert abs(mse - wm) <= 1e-4 * abs(wm) + 5e-5, (mse, wm)
-    monkeypatch.undo()
-    metrics = test_egohmr.main(["--tiny", "--device", "cpu", "--scene_points", str(POINTS),
-                                "--checkpoint", got["checkpoint"]])
-    assert all(np.isfinite(v) for v in metrics.values())

@@ -204,11 +204,15 @@ def test_demo_action_writes_what_the_jax_demo_writes(tmp_path):
     check_same_files(tmp_path / "ours", tmp_path / "ref")
 
 
-def test_demo_render_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        demo.main(["--cfg", str(CONFIGS / "config_mld_egobody.yaml"), "--render", "--cpu",
-                   "--out", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+def test_demo_render_is_not_ported(tmp_path, monkeypatch):
+    """`--render` is ported (`tests/test_torch_render.py`); on a host
+    without matplotlib it refuses with an ImportError naming it, after the
+    samples are written."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        demo.main(["--cfg", str(CONFIGS / "config_mld_humanact12.yaml"), "--render", "--cpu",
+                   "--actions", "0", "--out", str(tmp_path), *ACTION])
+    assert files(tmp_path) == ["action_0.npy"]
 
 
 def test_scene_encoder_matches_the_flax_module(tmp_path):

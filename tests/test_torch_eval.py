@@ -23,6 +23,7 @@ from seeme_tpu_torch.models.seeme import SeeMeSystem
 from seeme_tpu_torch.test.__main__ import Evaluator, main, parse_args
 from seeme_tpu_torch.train.checkpoint import save_state
 from seeme_tpu_torch.train.state import make_optimizer
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = ["model.latent_dim=(1, 32)", "model.ff_size=16", "model.num_layers=3",
         "model.scene_points=64", "model.scene_feat_dim=32", "model.image_size=32",

@@ -18,7 +18,8 @@ from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.eval.t2m_evaluator import T2MEvaluator
 from seeme_tpu_torch.models.a2m import A2MConfig, A2MSystem
 from seeme_tpu_torch import fit, test_egohmr, test_prohmr_scene, train_egohmr, train_prohmr_scene
-from seeme_tpu_torch.tools import preprocess_humanml, preprocess_scene_egohmr, train_evaluator
+from seeme_tpu_torch.tools import (export_fbx, flops, preflight, preprocess_humanml,
+                                   preprocess_scene_egohmr, train_evaluator, tsne)
 from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
 from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
@@ -79,7 +80,14 @@ def test_every_module_imports():
             "seeme_tpu_torch.eval.ape_ave", "seeme_tpu_torch.data.prefetch",
             "seeme_tpu_torch.utils.logger", "seeme_tpu_torch.utils.profiling",
             "seeme_tpu_torch.tools.preprocess_humanml", "seeme_tpu_torch.tools.train_evaluator",
-            "seeme_tpu_torch.tools.preprocess_scene_egohmr"} <= set(names)
+            "seeme_tpu_torch.tools.preprocess_scene_egohmr", "seeme_tpu_torch.render.joints",
+            "seeme_tpu_torch.render.mesh", "seeme_tpu_torch.render.pyrender_backend",
+            "seeme_tpu_torch.render.blender_backend", "seeme_tpu_torch.render.__main__",
+            "seeme_tpu_torch.tools.export_gltf", "seeme_tpu_torch.tools.plys2npy",
+            "seeme_tpu_torch.tools.export_obj", "seeme_tpu_torch.tools.export_bvh",
+            "seeme_tpu_torch.tools.export_fbx", "seeme_tpu_torch.tools.segment_egobody",
+            "seeme_tpu_torch.tools.preprocess_egobody", "seeme_tpu_torch.tools.tsne",
+            "seeme_tpu_torch.tools.flops", "seeme_tpu_torch.tools.preflight"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -126,6 +134,11 @@ def test_entry_points_raise_without_cuda():
         preprocess_scene_egohmr.run_s2(".", "unused", "train")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fit.main(["--joints", "unused.npy"])
+    for tool, argv in ((tsne, ["--cfg", str(configs / "config_vae_egobody.yaml")]),
+                       (flops, []), (preflight, ["--deps", "unused"]),
+                       (export_fbx, ["--poses", "unused.npy", "--out", "unused.fbx"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main(argv)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

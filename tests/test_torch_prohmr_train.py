@@ -39,6 +39,7 @@ from seeme_tpu_torch.data.synthetic import to_torch
 from seeme_tpu_torch.models.prohmr import GENERATOR, ProHMRConfig, ProHMRScene, gt_pose_6d
 from test_torch_hmr import IMG, POINTS, VERTS, jx, perturbed, rel, root_script
 from tools import convert_checkpoint as cc
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
 PRO = dict(flow_hidden=128, flow_depth=1)  # train_prohmr_scene.py --tiny
 B, LOSS_RTOL, GRAD_RTOL, STEP_RTOL = 2, 1e-5, 1e-4, 1e-5

@@ -42,6 +42,7 @@ from seeme_tpu_torch.models.t2m import T2MSystem
 from seeme_tpu_torch.nn.init import perturb_parameters_
 from seeme_tpu_torch.test.__main__ import main
 from tools.convert_checkpoint import convert_mld_checkpoint
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL, ZERO_ATOL = 1e-4, 1e-6

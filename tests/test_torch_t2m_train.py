@@ -16,9 +16,11 @@ Tolerances: 1e-5 for modules (of the output's max |.|), 1e-5 relative for
 loss terms and 1e-4 of each tensor's max |g| for gradients (with a 1e-8
 floor for gradients that are zero but for rounding), and 1e-4 of max
 |features| for `sample`, whose 5 DDIM steps compound the module error.
+
+The CLI, the VAE at its own widths and the data are in
+`test_torch_t2m_train_cli.py`, the helpers in `torch_t2m_train_common.py`.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -32,95 +34,40 @@ from seeme_tpu.config.build import build_t2m_system
 from seeme_tpu.config.loader import Config
 from seeme_tpu.data.humanml import HumanML3DDataModule as JDataModule
 from seeme_tpu.models.denoiser import Denoiser as JDenoiser
-from seeme_tpu.models.t2m import T2MConfig as JConfig
-from seeme_tpu.models.t2m import T2MSystem as JSystem
 from seeme_tpu.models.text_encoder import ClipTextEncoder as JTextEncoder
 from seeme_tpu.train.state import STAGE_TRAINABLE as J_STAGE_TRAINABLE
 from seeme_tpu_torch.config.humanml3d import T2M_PRESETS
 from seeme_tpu_torch.config.presets import PRESETS
 from seeme_tpu_torch.convert import from_jax_params
-from seeme_tpu_torch.data.humanml import HumanML3DDataModule
-from seeme_tpu_torch.data.registry import get_datamodule
-from seeme_tpu_torch.data.synthetic import to_torch
 from seeme_tpu_torch.models.denoiser import Denoiser
 from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
 from seeme_tpu_torch.models.text_encoder import ClipTextEncoder
-from seeme_tpu_torch.nn.init import perturb_parameters_
-from seeme_tpu_torch.train.__main__ import main
 from seeme_tpu_torch.train.state import set_stage
-from tools.convert_checkpoint import convert_mld_checkpoint
-
-B, W, TEXT, T, NTOK, STEPS = 3, 32, 48, 24, 8, 5
-MODULE_RTOL, LOSS_RTOL, GRAD_RTOL, GRAD_FLOOR, SAMPLE_RTOL = 1e-5, 1e-5, 1e-4, 1e-8, 1e-4
-SMALL = dict(latent_dim=(1, W), ff_size=16, num_layers=3, text_encoded_dim=TEXT, max_len=T,
-             num_inference_timesteps=STEPS, dropout=0.0)
-JAX_FIELDS = {f.name for f in dataclasses.fields(JConfig)} - {"use_fused"}
-
-
-def rand(seed, *shape):
-    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
-
-
-def close(got, want, rtol, msg=""):
-    want = np.asarray(want)
-    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
-                               atol=rtol * max(float(np.abs(want).max()), 1e-30), err_msg=msg)
-
-
-@pytest.fixture(scope="module")
-def jdm():
-    cfg = Config({"DEBUG": True, "DATASET": {"SAMPLER": {"MAX_LEN": T, "MIN_LEN": 8}},
-                  "model": {"denoiser": {"params": {"text_encoded_dim": TEXT}}}})
-    return JDataModule(cfg)
-
-
-def token_mask(seed):
-    """(B, NTOK) valid-token mask, at least one valid token a row."""
-    m = np.random.RandomState(seed).rand(B, NTOK) < 0.6
-    m[:, 0] = True
-    return m
-
-
-def load_jax_tree(system, tree):
-    system.load_state_dict(from_jax_params(jax.tree.map(np.asarray, tree)), strict=True)
-
-
-def build(jdm, seed=1, **kw):
-    """The same weights in both packages: the JAX init tree, perturbed on
-    the port side, then carried back through `convert_mld_checkpoint`."""
-    cfg = T2MConfig(**{**SMALL, **kw})
-    jcfg = JConfig(**{k: v for k, v in dataclasses.asdict(cfg).items() if k in JAX_FIELDS})
-    jsystem = JSystem(jcfg, feats2joints=jdm.feats2joints)
-    system = T2MSystem(cfg, jdm.mean, jdm.std, device="cpu", seed=seed)
-    load_jax_tree(system, jsystem.init_params(jax.random.PRNGKey(seed)))
-    perturb_parameters_(system, torch.Generator().manual_seed(seed + 1))
-    params = jax.tree.map(lambda a: jnp.array(a, copy=True), convert_mld_checkpoint(
-        {k: v.detach().numpy().copy() for k, v in system.state_dict().items()}))
-    return system, jsystem, params
-
-
-def batch(jdm, text_mask=False):
-    data = jdm._sets["test"]
-    items = [data[i] for i in range(B)]
-    out = {"motion": np.stack([it["motion"] for it in items]),
-           "length": np.stack([it["length"] for it in items])}
-    if text_mask:
-        out["text_emb"] = rand(3, B, NTOK, TEXT)
-        out["text_mask"] = token_mask(4)
-    else:
-        out["text_emb"] = np.stack([it["text_emb"] for it in items])
-    return to_torch(out, "cpu"), {k: jnp.asarray(v) for k, v in out.items()}
-
-
-# ------------------------------------------------------------------ modules
-
-DENOISER_CASES = {f"{name}-{'mask' if masked else 'nomask'}": (arch, novae, False, masked)
-                  for name, arch, novae in (("enc", "trans_enc", False),
-                                            ("enc-novae", "trans_enc", True),
-                                            ("dec", "trans_dec", False),
-                                            ("dec-novae", "trans_dec", True))
-                  for masked in (False, True)}
-DENOISER_CASES["md-nomask"] = ("trans_enc", False, True, False)
+from torch_t2m_train_common import (
+    B,
+    batch,
+    build,
+    close,
+    DENOISER_CASES,
+    GRAD_FLOOR,
+    GRAD_RTOL,
+    jax_draws,
+    JAX_FIELDS,
+    jdm,
+    LOSS_CASES,
+    LOSS_RTOL,
+    MODULE_RTOL,
+    NTOK,
+    rand,
+    SAMPLE_CASES,
+    SAMPLE_RTOL,
+    SMALL,
+    T,
+    TEXT,
+    token_mask,
+    W,
+)
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", list(DENOISER_CASES))
@@ -159,52 +106,6 @@ def test_denoiser_matches_flax(case):
         with pytest.raises(ValueError, match="md_trans"):
             den(torch.as_tensor(sample), torch.as_tensor(t), torch.as_tensor(cond),
                 cond_mask=torch.as_tensor(token_mask(7)))
-
-
-def test_vae_at_its_own_widths_matches_flax(jdm):
-    """`vae_num_layers` / `vae_ff_size` apart from the denoiser's (5 x 24 vs
-    3 x 16), and `mlp_dist`: encode and decode as the flax VAE."""
-    system, jsystem, params = build(jdm, vae_num_layers=5, vae_ff_size=24, mlp_dist=True)
-    assert len(system.vae.encoder.input_blocks) == 2 and len(system.denoiser.encoder.input_blocks) == 1
-    assert system.vae.encoder.middle_block.linear1.out_features == 24
-    tb, jb = batch(jdm)
-    mu, logvar = system.vae.encode(tb["motion"], tb["length"])
-    jmu, jlogvar = jax.jit(lambda p, m, n: jsystem.vae.apply(p, m, n, method=jsystem.vae.encode))(
-        params["vae"], jb["motion"], jb["length"])
-    close(mu.detach().numpy(), jmu, MODULE_RTOL)
-    close(logvar.detach().numpy(), jlogvar, MODULE_RTOL)
-    out = system.vae.decode(mu, T, tb["length"])
-    jout = jax.jit(lambda p, z, n: jsystem.vae.apply(p, z, T, n, method=jsystem.vae.decode))(
-        params["vae"], jmu, jb["length"])
-    close(out.detach().numpy(), jout, MODULE_RTOL)
-
-
-# -------------------------------------------------------------------- losses
-
-def jax_draws(jsystem, stage, jb, rng):
-    """The draws of the JAX `vae_loss` / `diffusion_loss` from `rng`."""
-    latent = (B, 1, W)
-    if stage == "vae":
-        _, z_rng = jax.random.split(rng)
-        return {"eps": torch.tensor(np.asarray(jax.random.normal(z_rng, latent)))}
-    z_rng, m_rng, t_rng, n_rng, _ = jax.random.split(rng, 5)
-    z_shape = jb["motion"].shape if jsystem.diffusion_only else latent
-    draws = {"drop": jax.random.bernoulli(m_rng, jsystem.cfg.guidance_uncondp, (B, 1, 1)),
-             "noise": jax.random.normal(n_rng, z_shape),
-             "timesteps": jax.random.randint(t_rng, (B,), 0, 1000)}
-    if not jsystem.diffusion_only:
-        draws["eps"] = jax.random.normal(z_rng, latent)
-    return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
-
-
-LOSS_CASES = {
-    "vae": ("vae", {}, False),
-    "diffusion-g1": ("diffusion", {"guidance_scale": 1.0}, False),
-    "diffusion-g7.5-tokens": ("diffusion", {}, True),
-    "novae-dec": ("diffusion", {"vae_type": "no", "arch": "trans_dec", "num_layers": 2,
-                                "num_heads": 2}, False),
-    "novae-enc-tokens": ("diffusion", {"vae_type": "no"}, True),
-}
 
 
 @pytest.mark.parametrize("case", list(LOSS_CASES))
@@ -271,19 +172,6 @@ def test_reconstruct_matches_jax(jdm):
     close(system.reconstruct(tb, eps=eps).numpy(), want, MODULE_RTOL * 10)
 
 
-# ------------------------------------------------------------------ sampling
-
-SAMPLE_CASES = {
-    "kernel-g1": ({"guidance_scale": 1.0}, False, True),
-    "kernel-g7.5": ({}, False, True),
-    "scan-tokens": ({}, True, False),
-    "scan-novae-dec": ({"vae_type": "no", "arch": "trans_dec", "num_layers": 2, "num_heads": 2},
-                       False, False),
-    "scan-novae-dec-tokens": ({"vae_type": "no", "arch": "trans_dec", "num_layers": 2}, True,
-                              False),
-}
-
-
 @pytest.mark.parametrize("case", list(SAMPLE_CASES))
 def test_sample_routes_match_jax(case, jdm, monkeypatch):
     """`sample(z_init=...)` against the JAX `sample(z_init=...)` (its scan
@@ -321,8 +209,6 @@ def test_more_than_eight_tokens_take_the_loop(jdm):
     assert out.shape == (2, T, 263) and torch.isfinite(out).all()
 
 
-# -------------------------------------------------------------- text encoder
-
 def test_text_fallback_and_token_mask_match_jax(tmp_path):
     texts = ["a person walks forward slowly", "jump", "the man turns left and raises both hands"]
     for path, hidden, mode in ((None, False, "clip"), (None, True, "clip_hidden"),
@@ -340,8 +226,8 @@ def test_text_fallback_and_token_mask_match_jax(tmp_path):
             assert mask.shape == (3, 6) and mask[1].sum() == 1
     with pytest.raises(ValueError, match="not supported"):
         ClipTextEncoder("deps/t5-base")
-    (tmp_path / "clip").mkdir()
-    with pytest.raises(NotImplementedError):
+    (tmp_path / "clip").mkdir()  # a directory is loaded (tests/test_torch_text_encoder.py)
+    with pytest.raises(FileNotFoundError, match="config.json"):
         ClipTextEncoder(str(tmp_path / "clip"))
 
 
@@ -355,8 +241,6 @@ def test_captions_are_encoded_on_the_host(jdm):
     kept = system.encode_captions({"text": ["x"], "text_emb": np.ones((1, TEXT))})
     assert np.array_equal(kept["text_emb"], np.ones((1, TEXT)))
 
-
-# ------------------------------------------------------------ presets, CLI
 
 @pytest.mark.parametrize("preset,yaml_name", [("vae_humanml3d", "config_vae_humanml3d.yaml"),
                                               ("mld_humanml3d", "config_mld_humanml3d.yaml"),
@@ -395,128 +279,3 @@ def test_presets_match_the_yaml(preset, yaml_name):
     assert (q.mm_num_samples, q.mm_num_repeats, q.mm_num_times) == (
         cfg.TEST.MM_NUM_SAMPLES, cfg.TEST.MM_NUM_REPEATS, cfg.TEST.MM_NUM_TIMES)
     assert not q.mm and q.checkpoint == cfg.TEST.CHECKPOINTS
-
-
-TINY = ["model.latent_dim=(1, 32)", "model.ff_size=16", "model.num_layers=3",
-        f"model.text_encoded_dim={TEXT}", f"model.max_len={T}", "model.min_len=8",
-        "train.val_every_steps=1"]
-
-
-def test_cli_trains_both_stages_and_novae_on_the_cpu(tmp_path):
-    """`main(argv)` at a tiny size: stage 1 checkpoints; stage 2 loads that
-    VAE, keeps it bitwise, trains the denoiser and validates; a resume
-    continues at the saved step; novae trains its diffusion stage and
-    refuses a VAE stage; `dataset=kit` takes 251 features."""
-    common = ["--device", "cpu", "--batch_size", "64", "--epochs", "1", *TINY]
-    s1 = main(["--preset", "vae_humanml3d", "--out", str(tmp_path / "s1"), *common])
-    assert s1.step == 4 and s1.checkpoints == [str(tmp_path / "s1" / "checkpoints" / "4.pt")]
-    assert set(s1.history[0]["val"]) == {"total", "recons_feature", "recons_joints", "kl_motion"}
-    assert all(np.isfinite(s["total"]) for s in s1.history[0]["steps"])
-    s2 = main(["--preset", "mld_humanml3d", "--out", str(tmp_path / "s2"),
-               "--pretrained_vae", str(tmp_path / "s1" / "checkpoints" / "latest"), *common])
-    for k, v in s2.system.vae.state_dict().items():
-        assert torch.equal(v, s1.system.vae.state_dict()[k]), k
-    assert set(s2.history[0]["val"]) == {"total", "inst_loss"} and s2.step == 4
-    again = main(["--preset", "mld_humanml3d", "--out", str(tmp_path / "s2"), "--resume",
-                  str(tmp_path / "s2"), *common[:-len(TINY) - 2], "--epochs", "2", *TINY])
-    assert again.start_epoch == 1 and again.step == 8
-    nv = main(["--preset", "novae_humanml3d", "--out", str(tmp_path / "nv"), *common,
-               "model.num_layers=2", "model.num_heads=2"])
-    assert nv.system.diffusion_only and not hasattr(nv.system, "vae") and nv.step == 4
-    with pytest.raises(ValueError, match="vae stage is undefined"):
-        main(["--preset", "novae_humanml3d", "--out", str(tmp_path / "nv1"), *common,
-              "train.stage='vae'"])
-    kit = main(["--preset", "vae_humanml3d", "--out", str(tmp_path / "kit"), *common,
-                "dataset=kit"])
-    assert kit.system.cfg.nfeats == 251 and kit.datamodule.njoints == 21
-
-
-def test_cli_refuses_without_a_card(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["--preset", "mld_humanml3d", "--out", str(tmp_path)])
-
-
-# --------------------------------------------------------------------- data
-
-def write_release(root, nfeats=263, ids=("000001", "000002", "000003", "M000004", "000005")):
-    rng = np.random.RandomState(3)
-    (root / "new_joint_vecs").mkdir(parents=True)
-    (root / "texts").mkdir()
-    lengths = {"000001": 50, "000002": 63, "000003": 30, "M000004": 210, "000005": 45}
-    for i in ids:
-        np.save(root / "new_joint_vecs" / f"{i}.npy", rng.randn(lengths[i], nfeats).astype(np.float32))
-        (root / "texts" / f"{i}.txt").write_text(
-            f"a person walks number {i}#a/DET person/NOUN#0.0#0.0\nsecond caption#x/NOUN#0.0#0.0\n")
-    for name in ("Mean", "Std", "Mean_eval", "Std_eval"):
-        v = rng.rand(nfeats).astype(np.float32) + (0.5 if "Std" in name else 0.0)
-        np.save(root / f"{name}.npy", v)
-    (root / "train.txt").write_text("\n".join([*ids, "999999"]) + "\n")
-    (root / "val.txt").write_text("000002\n000005\n")
-    (root / "test.txt").write_text("000001\n000003\nM000004\n000005\n")
-    return root
-
-
-def same_batches(ours, theirs):
-    ours, theirs = list(ours), list(theirs)
-    assert len(ours) == len(theirs)
-    for a, b in zip(ours, theirs):
-        assert set(a) == set(b)
-        for k in a:
-            if k == "text":
-                assert a[k] == b[k]
-            else:
-                np.testing.assert_array_equal(a[k], np.asarray(b[k]), err_msg=k)
-
-
-def test_datamodule_matches_jax_on_a_written_release(tmp_path):
-    """The release's batches (shuffled order and unit-length crops from
-    `random.Random(seed)`, the missing and the too-short clips skipped),
-    `renorm4t2m` with the evaluator statistics, `feats2joints`, and
-    `get_datamodule` choosing the release, also for KIT's 251 features."""
-    root = write_release(tmp_path / "HumanML3D")
-    jcfg = Config({"DATASET": {"SAMPLER": {"MAX_LEN": 48, "MIN_LEN": 40}}})
-    ours, theirs = HumanML3DDataModule(str(root), max_len=48), JDataModule(jcfg, str(root))
-    assert not ours.is_synthetic and ours.num_train == theirs.num_train == 6
-    for seed in (0, 3):
-        same_batches(ours.batches("train", 2, seed=seed, drop_last=False),
-                     theirs.batches("train", 2, seed=seed, drop_last=False))
-    same_batches(ours.batches("test", 2, shuffle=False), theirs.batches("test", 2, shuffle=False))
-    b = next(ours.batches("test", 2, shuffle=False))
-    assert b["text"] == ["a person walks number 000001", "a person walks number M000004"]
-    np.testing.assert_allclose(ours.renorm4t2m(b["motion"]), theirs.renorm4t2m(b["motion"]),
-                               rtol=1e-6)
-    joints = ours.feats2joints(torch.as_tensor(b["motion"]))
-    close(joints.numpy(), theirs.feats2joints(b["motion"]), MODULE_RTOL)
-    with pytest.raises(KeyError):
-        ours.split_arrays("train")
-    assert not get_datamodule("humanml3d", root=str(tmp_path), motion_length=48).is_synthetic
-    kit_root = write_release(tmp_path / "KIT-ML", nfeats=251)
-    kit = get_datamodule("kit", root=str(tmp_path), motion_length=48)
-    jkit = JDataModule(jcfg, str(kit_root), nfeats=251)
-    assert kit.nfeats == 251 and kit.njoints == 21
-    same_batches(kit.batches("train", 2, seed=1), jkit.batches("train", 2, seed=1))
-    assert get_datamodule("kit", root=str(tmp_path / "absent")).is_synthetic
-
-
-def test_synthetic_datamodule_matches_jax():
-    """The synthetic splits (256 / 64 / 64) with their captions: batches,
-    split arrays and batch order as the JAX module's, `renorm4t2m` the raw
-    features."""
-    jdm = JDataModule(Config({"DATASET": {"SAMPLER": {"MAX_LEN": T, "MIN_LEN": 8}},
-                              "model": {"denoiser": {"params": {"text_encoded_dim": TEXT}}}}))
-    ours = HumanML3DDataModule(None, max_len=T, min_len=8, text_dim=TEXT)
-    assert ours.is_synthetic and ours.num_train == jdm.num_train == 256
-    same_batches(ours.batches("train", 8, seed=4), jdm.batches("train", 8, seed=4))
-    same_batches(ours.batches("test", 8, shuffle=False, drop_last=False),
-                 jdm.batches("test", 8, shuffle=False, drop_last=False))
-    arrays, ref = ours.split_arrays("val"), jdm.split_arrays("val")
-    assert set(arrays) == set(ref)
-    for k in arrays:
-        np.testing.assert_array_equal(arrays[k], ref[k])
-    for a, b in zip(ours.batch_indices("train", 8, seed=2), jdm.batch_indices("train", 8, seed=2)):
-        np.testing.assert_array_equal(a, b)
-    m = arrays["motion"][:2]
-    np.testing.assert_allclose(ours.renorm4t2m(m), jdm.renorm4t2m(m), rtol=1e-6)
-    assert [len(ours._sets[s]) for s in ("train", "val", "test")] == [256, 64, 64]

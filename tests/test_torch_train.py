@@ -8,6 +8,10 @@ draws from the same keys (`seeme_tpu/models/seeme.py:343`, `:383`, `:399`,
 `:437`) and hand them to the port's losses as `draws`, while the JAX side
 calls its real `vae_loss`/`diffusion_loss`. Gradients come from `jax.grad`
 with `stop_gradient` on the frozen subtrees, as `seeme_tpu/train/loop.py:58-68`.
+
+The losses, gradients, optimizer, schedules, data and presets; the
+trajectories and checkpoints are in `test_torch_train_steps.py`, the CLI in
+`test_torch_train_cli.py`, the helpers in `torch_train_common.py`.
 """
 
 import dataclasses
@@ -23,111 +27,50 @@ import torch
 from seeme_tpu.config import load_config
 from seeme_tpu.config.build import seeme_config_from_yaml
 from seeme_tpu.config.loader import Config
-from seeme_tpu.core.smpl import synthetic_smpl as j_synthetic_smpl
 from seeme_tpu.data import batch as j_batch
 from seeme_tpu.data.egobody import EgoBodyDataModule as JEgoBody
-from seeme_tpu.data.registry import SyntheticDataModule as JSyntheticDataModule
 from seeme_tpu.diffusion.schedulers import DiffusionSchedule as JSchedule
-from seeme_tpu.models.seeme import SeeMeConfig as JConfig
-from seeme_tpu.models.seeme import SeeMeSystem as JSystem
 from seeme_tpu.train import losses as j_losses
-from seeme_tpu.train.loop import _make_step_body
-from seeme_tpu.train.state import STAGE_TRAINABLE as J_STAGE_TRAINABLE
-from seeme_tpu.train.state import create_train_state
-from seeme_tpu.train.state import make_optimizer as j_make_optimizer
-from seeme_tpu.train.state import step_lr_schedule as j_step_lr_schedule
+from seeme_tpu.train.state import (
+    STAGE_TRAINABLE as J_STAGE_TRAINABLE,
+    make_optimizer as j_make_optimizer,
+    step_lr_schedule as j_step_lr_schedule,
+)
 from seeme_tpu_torch.config.egobody import PRESETS
 from seeme_tpu_torch.convert import from_jax_params
-from seeme_tpu_torch.core.smpl import synthetic_smpl
 from seeme_tpu_torch.data import batch as t_batch
 from seeme_tpu_torch.data.egobody import EgoBodyDataModule
 from seeme_tpu_torch.data.registry import SyntheticDataModule, get_datamodule
-from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
+from seeme_tpu_torch.data.synthetic import to_torch
 from seeme_tpu_torch.diffusion.schedulers import DiffusionSchedule
-from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
-from seeme_tpu_torch.nn.init import perturb_parameters_
-from seeme_tpu_torch.train import checkpoint as ckpt
 from seeme_tpu_torch.train import losses
-from seeme_tpu_torch.train.__main__ import main
-from seeme_tpu_torch.train.loop import train_step
-from seeme_tpu_torch.train.state import STAGE_TRAINABLE, make_optimizer, set_stage, step_lr_schedule
+from seeme_tpu_torch.train.state import (
+    STAGE_TRAINABLE,
+    make_optimizer,
+    set_stage,
+    step_lr_schedule,
+)
 from tools.convert_checkpoint import convert_mld_checkpoint
-
-B, W, POINTS, T = 3, 32, 64, 60
-SMALL = dict(latent_dim=(1, W), ff_size=16, num_layers=3, scene_points=POINTS,
-             scene_feat_dim=W, dropout=0.0)
-BOTH = ("interactee", "scene")
-LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
-# a gradient that is zero but for f32 rounding (a bias added to every token
-# before the softmax over tokens cancels) is held to this absolute bound
-GRAD_FLOOR = 1e-8
-
-
-def build(condition=BOTH, guidance=1.0, seed=1, predict_epsilon=True):
-    data = SyntheticEgoDataset(B, T, scene_points=POINTS, seed=0)
-    kw = dict(condition=condition, guidance_scale=guidance, predict_epsilon=predict_epsilon,
-              **SMALL)
-    system = SeeMeSystem(SeeMeConfig(**kw), synthetic_smpl(256), data.mean, data.std,
-                         device="cpu", seed=seed)
-    perturb_parameters_(system, torch.Generator().manual_seed(seed + 1))
-    jsystem = JSystem(JConfig(**kw), j_synthetic_smpl(256), data.mean, data.std)
-    return data, system, jsystem, jax_params(system)
-
-
-def jax_params(system):
-    """The JAX tree of the port's weights, in memory of its own (a CPU
-    `jnp.asarray` may alias the numpy buffer, which the port's in-place
-    updates would then change)."""
-    return jax.tree.map(lambda a: jnp.array(a, copy=True), convert_mld_checkpoint(
-        {k: v.detach().numpy().copy() for k, v in system.state_dict().items()}))
-
-
-def jax_draws(jsystem, stage, batch, rng):
-    """The draws `vae_loss` / `diffusion_loss` make from `rng`, re-derived."""
-    shape = (B, 1, W)
-    if stage == "vae":
-        _, sample_rng = jax.random.split(rng)
-        return {"eps": torch.tensor(np.asarray(jax.random.normal(sample_rng, shape)))}
-    cond_rng, z_rng, t_rng, noise_rng, _ = jax.random.split(rng, 5)
-    draws = {"eps": jax.random.normal(z_rng, shape),
-             "noise": jax.random.normal(noise_rng, shape),
-             "timesteps": jax.random.randint(t_rng, (B,), 0, 1000)}
-    cfg = jsystem.cfg
-    if cfg.guidance_scale > 1.0:
-        if jsystem.use_interactee:
-            cond_rng, mask_rng = jax.random.split(cond_rng)
-            draws["mask_interactee"] = jax.random.uniform(mask_rng, (B, T, 75)) < cfg.guidance_uncondp
-        if jsystem.use_scene:
-            cond_rng, mask_rng = jax.random.split(cond_rng)
-            draws["mask_scene"] = (jax.random.uniform(mask_rng, batch["scene"].shape)
-                                   < cfg.guidance_uncondp)
-    return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
-
-
-def jax_loss_and_grads(jsystem, stage):
-    loss_fn = jsystem.vae_loss if stage == "vae" else jsystem.diffusion_loss
-    trainable = J_STAGE_TRAINABLE[stage]
-
-    def compute(params, batch, rng):
-        params = {k: (v if k in trainable else jax.lax.stop_gradient(v)) for k, v in params.items()}
-        return loss_fn(params, batch, rng)
-
-    return jax.jit(jax.value_and_grad(compute, has_aux=True))
-
-
-def batches(data, system, jsystem, params, cached):
-    nb = data.batch(0, B)
-    if not system.use_scene:
-        nb.pop("scene")
-    if cached:
-        nb["scene_feats"] = np.array(jsystem.scene_features(params, jnp.asarray(nb["scene"])))
-    return to_torch(nb, "cpu"), {k: jnp.asarray(v) for k, v in nb.items()}
-
-
-LOSS_CASES = [("vae", (), 1.0, False, True), ("diffusion", BOTH, 1.0, True, True),
-              ("diffusion", BOTH, 1.0, False, True), ("diffusion", BOTH, 2.5, False, True),
-              ("diffusion", BOTH, 1.0, True, False)]
-LOSS_IDS = ["vae", "diffusion-cached", "diffusion-raw", "diffusion-cfg2.5", "diffusion-x0"]
+from torch_train_common import (
+    B,
+    batches,
+    BOTH,
+    build,
+    GRAD_FLOOR,
+    GRAD_RTOL,
+    jax_datamodule,
+    jax_draws,
+    jax_loss_and_grads,
+    LOSS_CASES,
+    LOSS_IDS,
+    LOSS_RTOL,
+    same_batches,
+    sd_numpy,
+    T,
+    W,
+    write_release,
+)
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("stage,condition,guidance,cached,predict_epsilon", LOSS_CASES,
@@ -159,10 +102,6 @@ def test_loss_and_gradients_match_jax(stage, condition, guidance, cached, predic
                                    atol=max(GRAD_RTOL * float(np.abs(g).max()), GRAD_FLOOR), err_msg=name)
     if stage == "diffusion":  # output_scene trains through the cached and the raw route
         assert float(system.output_scene[1].weight.grad.abs().max()) > 0
-
-
-def sd_numpy(system):
-    return {k: v.detach().numpy().copy() for k, v in system.state_dict().items()}
 
 
 @pytest.mark.parametrize("stage", ["vae", "diffusion"])
@@ -199,110 +138,6 @@ def test_optimizer_matches_optax(stage):
             assert not np.array_equal(v.numpy(), before[k]), k
         else:
             assert np.array_equal(v.numpy(), before[k]), k
-
-
-@pytest.mark.parametrize("stage", ["vae", "diffusion"])
-def test_five_train_steps_match_jax(stage):
-    """Five whole train steps (the JAX step body with its own key splits,
-    the port's `train_step` with those draws): loss trajectories within 1e-4
-    relative."""
-    data, system, jsystem, params = build(() if stage == "vae" else BOTH)
-    tb, jb = batches(data, system, jsystem, params, cached=stage == "diffusion")
-    kw = dict(lr=1e-3, step_size_epochs=2, gamma=0.2, steps_per_epoch=2)
-    optimizer, schedule = make_optimizer(stage, system, **kw)
-    jopt = j_make_optimizer(stage, params, **kw)
-    jstep = jax.jit(_make_step_body(jsystem, stage, jopt))
-    state = create_train_state(params, jopt, jax.random.PRNGKey(3))
-    rng = state.rng
-    ours, theirs = [], []
-    for count in range(5):
-        rng, step_rng = jax.random.split(rng)
-        terms = train_step(system, stage, optimizer, schedule, count, tb,
-                           draws=jax_draws(jsystem, stage, jb, step_rng))
-        state, jterms = jstep(state, jb)
-        ours.append(terms["total"])
-        theirs.append(float(jterms["total"]))
-    np.testing.assert_allclose(ours, theirs, rtol=1e-4)
-
-
-@pytest.mark.parametrize("stage", ["vae", "diffusion"])
-def test_resume_is_bitwise(stage, tmp_path):
-    """4 steps straight, against 2 steps, a checkpoint, a restore into a
-    fresh system and 2 more: parameters and optimizer state bitwise equal
-    (dropout on, so torch's default generator is restored too)."""
-    data = SyntheticEgoDataset(B, T, scene_points=POINTS, seed=0)
-    tb = to_torch(data.batch(0, B), "cpu")
-
-    def fresh():
-        cfg = dataclasses.replace(SeeMeConfig(**SMALL), dropout=0.1)
-        system = SeeMeSystem(cfg, synthetic_smpl(256), data.mean, data.std, device="cpu", seed=1)
-        optimizer, schedule = make_optimizer(stage, system, lr=1e-3, steps_per_epoch=2)
-        return system, optimizer, schedule, torch.Generator().manual_seed(9)
-
-    def run(parts, counts):
-        for count in counts:
-            train_step(*parts[:1], stage, parts[1], parts[2], count, tb, parts[3])
-
-    torch.manual_seed(4)
-    straight = fresh()
-    run(straight, range(4))
-    torch.manual_seed(4)
-    first = fresh()
-    run(first, range(2))
-    path = ckpt.save_state(str(tmp_path), first[0], first[1], 2, 1, first[3])
-    assert os.path.basename(path) == "2.pt"
-    torch.rand(7)  # the restore must undo any later draw
-    second = fresh()
-    assert ckpt.restore_state(str(tmp_path), second[0], second[1], second[3]) == (2, 1)
-    run(second, range(2, 4))
-    for k, v in straight[0].state_dict().items():
-        assert torch.equal(v, second[0].state_dict()[k]), k
-    a, b = straight[1].state_dict()["state"], second[1].state_dict()["state"]
-    assert a.keys() == b.keys()
-    for i in a:
-        for k in a[i]:
-            assert torch.equal(a[i][k], b[i][k]), (i, k)
-
-
-def test_pretrained_vae(tmp_path):
-    """`load_pretrained_vae` grafts only `vae.*` from a stage-1 checkpoint,
-    and raises on a checkpoint without it."""
-    _, donor, _, _ = build(())
-    optimizer, _ = make_optimizer("vae", donor)
-    ckpt.save_state(str(tmp_path / "s1"), donor, optimizer, 7, 1)
-    _, system, _, _ = build(BOTH, seed=5)
-    before = {k: v.clone() for k, v in system.state_dict().items()}
-    n = ckpt.load_pretrained_vae(str(tmp_path / "s1" / "checkpoints" / "latest"), system)
-    assert n == len(donor.vae.state_dict())
-    for k, v in system.state_dict().items():
-        want = donor.state_dict()[k] if k.startswith("vae.") else before[k]
-        assert torch.equal(v, want), k
-    torch.save({"state_dict": {k: v for k, v in before.items() if not k.startswith("vae.")}},
-               tmp_path / "no_vae.pt")
-    with pytest.raises(KeyError, match="vae"):
-        ckpt.load_pretrained_vae(str(tmp_path / "no_vae.pt"), system)
-
-
-def test_checkpoint_paths(tmp_path):
-    exp = tmp_path / "exp"
-    (exp / "checkpoints").mkdir(parents=True)
-    assert ckpt.latest_checkpoint_step(str(exp)) is None
-    for step in (4, 12, 8):
-        (exp / "checkpoints" / f"{step}.pt").write_bytes(b"")
-    (exp / "checkpoints" / "12.pt.tmp").write_bytes(b"")
-    assert ckpt.latest_checkpoint_step(str(exp)) == 12
-    assert ckpt.resolve_latest(str(exp / "checkpoints" / "latest")) == str(exp / "checkpoints" / "12.pt")
-    assert ckpt.resolve_latest(str(exp / "checkpoints" / "4.pt")) == str(exp / "checkpoints" / "4.pt")
-    for spelling in (exp, exp / "checkpoints", exp / "checkpoints" / "8.pt",
-                     exp / "checkpoints" / "latest"):
-        assert ckpt.normalize_resume_dir(str(spelling)) == str(exp)
-    numeric = tmp_path / "17"  # an experiment dir named by a number stays itself
-    assert ckpt.normalize_resume_dir(str(numeric)) == str(numeric)
-    assert ckpt.resume_scan(str(exp)) == (None, 12)
-    (exp / "config.json").write_text("{}")
-    assert ckpt.resume_scan(str(exp)) == (str(exp / "config.json"), 12)
-    assert ckpt.clear_stale_steps(str(exp)) == 3
-    assert ckpt.latest_checkpoint_step(str(exp)) is None
 
 
 def test_step_lr_schedule_matches_jax():
@@ -348,26 +183,6 @@ def test_reconstruct_matches_jax(sample_mean, fact):
                                atol=1e-4 * float(np.abs(want).max()))
 
 
-# ------------------------------------------------------------------ data
-
-def jax_datamodule(condition, scene_points=16):
-    cfg = Config({"DATASET_NAME": "egobody", "MOTION_LENGTH": T,
-                  "model": Config({"condition": list(condition), "scene_points": scene_points})})
-    return JSyntheticDataModule(cfg)
-
-
-def same_batches(ours, theirs):
-    ours, theirs = list(ours), list(theirs)
-    assert len(ours) == len(theirs) > 0
-    for a, b in zip(ours, theirs):
-        if isinstance(a, tuple):  # eval_batches: (batch, n_valid)
-            assert a[1] == b[1]
-            a, b = a[0], b[0]
-        assert a.keys() == b.keys()
-        for k in a:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
 @pytest.mark.parametrize("condition", [(), BOTH], ids=["none", "both"])
 def test_synthetic_datamodule_matches_jax(condition):
     """Same arrays, statistics, batch order and padded eval batches."""
@@ -404,24 +219,6 @@ def test_pad_batch_matches_jax():
     assert t_batch.pad_batch(batch, 2) == (batch, 3)
 
 
-def write_release(root, n=7):
-    proc = root / "EgoBody" / "processed"
-    proc.mkdir(parents=True)
-    rng = np.random.RandomState(3)
-    np.save(proc / "mean.npy", rng.randn(75).astype(np.float32))
-    np.save(proc / "std.npy", rng.rand(75).astype(np.float32) + 0.5)
-    for split in ("train", "val"):
-        np.savez(proc / f"{split}.npz",
-                 feats=rng.randn(n, T, 2, 72).astype(np.float32),
-                 transl=rng.randn(n, 2, T, 3).astype(np.float32),
-                 betas=rng.randn(n, 2, T, 10).astype(np.float32),
-                 cam=rng.randn(n, T, 6).astype(np.float32),
-                 length=np.full(n, T, np.int32),
-                 scene=rng.randn(n, 16, 3).astype(np.float32),
-                 image_crops=rng.randint(0, 255, (n, 2, 4, 4, 3)).astype(np.uint8))
-    return root / "EgoBody"
-
-
 def test_egobody_datamodule_matches_jax(tmp_path):
     """The release's processed shards: the same batches (random crop pick
     included) as the JAX module, cached features superseding the cloud, and
@@ -442,8 +239,6 @@ def test_egobody_datamodule_matches_jax(tmp_path):
     with pytest.raises(KeyError, match="gimo"):  # the error lists the registered datasets
         get_datamodule("babel")
 
-
-# --------------------------------------------------------- presets, CLI
 
 @pytest.mark.parametrize("preset,yaml_name", [("vae_egobody", "config_vae_egobody.yaml"),
                                               ("mld_egobody", "config_mld_egobody.yaml"),
@@ -487,45 +282,3 @@ def test_presets_match_the_yaml(preset, yaml_name):
     assert (q.checkpoint, q.mean, q.fact, q.count_time, q.save_predictions) == (
         cfg.TEST.CHECKPOINTS, cfg.TEST.MEAN, cfg.TEST.FACT, cfg.TEST.COUNT_TIME,
         cfg.TEST.SAVE_PREDICTIONS)
-
-
-TINY = ["model.latent_dim=(1, 32)", "model.ff_size=16", "model.num_layers=3",
-        "model.scene_points=64", "model.scene_feat_dim=32", "train.val_every_steps=1"]
-
-
-def test_cli_trains_both_stages_on_the_cpu(tmp_path):
-    """`main(argv)` for one epoch of each stage at a tiny size: stage 1
-    writes a checkpoint; stage 2 loads its VAE, fills the scene-feature
-    cache, trains the denoiser and `output_scene` with the VAE and PointNet
-    unchanged, validates and checkpoints."""
-    s1 = main(["--preset", "vae_egobody", "--device", "cpu", "--batch_size", "32", "--epochs", "1",
-               "--out", str(tmp_path / "s1"), *TINY])
-    assert s1.step == 8 and s1.checkpoints == [str(tmp_path / "s1" / "checkpoints" / "8.pt")]
-    assert all(np.isfinite(s["total"]) for s in s1.history[0]["steps"])
-    assert set(s1.history[0]["val"]) == {"total", "recons_feature", "recons_joints",
-                                          "recons_transl", "kl_motion"}
-    s2 = main(["--preset", "mld_egobody", "--device", "cpu", "--batch_size", "32", "--epochs", "1",
-               "--out", str(tmp_path / "s2"), "--pretrained_vae",
-               str(tmp_path / "s1" / "checkpoints" / "latest"), "train.feature_cache=True", *TINY])
-    assert s2.datamodule.train_set.extras["scene_feats"].shape == (256, 32)
-    assert s2.datamodule.val_set.extras["scene_feats"].shape == (64, 32)
-    vae = s1.system.vae.state_dict()
-    for k, v in s2.system.vae.state_dict().items():
-        assert torch.equal(v, vae[k]), k
-    fresh = SeeMeSystem(s2.preset.model, synthetic_smpl(32), np.zeros(75), np.ones(75),
-                        device="cpu", seed=s2.seed)
-    for k, v in fresh.proscene.state_dict().items():
-        assert torch.equal(v, s2.system.proscene.state_dict()[k]), k
-    assert not torch.equal(fresh.output_scene[1].weight, s2.system.output_scene[1].weight)
-    assert s2.step == 8 and np.isfinite(s2.history[0]["val"]["total"])
-    assert os.path.exists(tmp_path / "s2" / "checkpoints" / "8.pt")
-    assert os.path.exists(tmp_path / "s2" / "config.json")
-
-
-def test_cli_refuses_to_run_without_a_card(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("this host has a card; the refusal is for hosts without one")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["--preset", "vae_egobody", "--out", str(tmp_path)])
-    with pytest.raises(ValueError, match="FIELD=VALUE"):
-        main(["--preset", "vae_egobody", "--device", "cpu", "--out", str(tmp_path), "lr=1"])

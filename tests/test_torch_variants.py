@@ -10,9 +10,11 @@ and the weight converters for the image encoder.
 The port's weights go to the JAX package through
 `tools/convert_checkpoint.py` (`convert_mld_checkpoint`, and
 `convert_resnet50` for the image encoder), so the same weights feed both.
-"""
 
-import dataclasses
+Here the rotations, SMPL, ResNet50, losses and data; the composed systems
+are in `test_torch_variants_systems.py`, the image cache in
+`test_torch_variants_image.py`, the helpers in `torch_variants_common.py`.
+"""
 
 import jax
 import jax.numpy as jnp
@@ -20,48 +22,30 @@ import numpy as np
 import pytest
 import torch
 
-from seeme_tpu.core import rotations as jrot
-from seeme_tpu.core import smpl as jsmpl
-from seeme_tpu.diffusion.sampling import ddim_sample
-from seeme_tpu.models.seeme import SeeMeConfig as JConfig
-from seeme_tpu.models.seeme import SeeMeSystem as JSystem
-from seeme_tpu.models.vae import MotionVae as JMotionVae
+from seeme_tpu.core import rotations as jrot, smpl as jsmpl
 from seeme_tpu.nn.resnet import resnet50 as j_resnet50
 from seeme_tpu.train.state import STAGE_TRAINABLE as J_STAGE_TRAINABLE
 from seeme_tpu_torch.convert import from_jax_params, resnet_state_dict
-from seeme_tpu_torch.core import rotations as rot
-from seeme_tpu_torch.core import smpl
+from seeme_tpu_torch.core import rotations as rot, smpl
 from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
 from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
-from seeme_tpu_torch.models.vae import MotionVae
-from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
 from seeme_tpu_torch.nn.resnet import resnet50
 from seeme_tpu_torch.train.state import set_stage
-from tools.convert_checkpoint import convert_mld_checkpoint, convert_motion_vae, convert_resnet50
+from tools.convert_checkpoint import convert_resnet50
+from torch_variants_common import (
+    B,
+    BOTH,
+    build,
+    jax_draws,
+    POINTS,
+    port_resnet,
+    random_rotmats,
+    SMALL,
+    T,
+    VARIANTS,
+)
+from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
-B, W, STEPS, POINTS, T, IMAGE = 3, 32, 5, 64, 60, 32
-SMALL = dict(latent_dim=(1, W), ff_size=16, num_layers=3, num_inference_timesteps=STEPS,
-             scene_points=POINTS, scene_feat_dim=W, dropout=0.0)
-BOTH = ("interactee", "scene")
-IMAGE_COND = ("interactee", "scene", "image")
-
-
-def random_rotmats(n, seed):
-    aa = np.random.RandomState(seed).randn(n, 3).astype(np.float32)
-    return np.asarray(jrot.aa_to_rotmat(jnp.asarray(aa)))
-
-
-def randomize_batch_stats_(module, generator):
-    """Running statistics away from (0, 1), so the eval-mode batch norm is
-    held to more than an identity."""
-    with torch.no_grad():
-        for m in module.modules():
-            if hasattr(m, "running_var"):
-                m.running_mean.normal_(0.0, 0.1, generator=generator)
-                m.running_var.uniform_(0.5, 1.5, generator=generator)
-
-
-# ------------------------------------------------------------ rotations, SMPL
 
 def test_rotmat_to_quat_matches_jax():
     """Every pivot of Shepperd's method: random rotations plus rotations of
@@ -114,17 +98,6 @@ def test_smpl_forward_and_rot6d_fk_match_jax(pose2rot):
     np.testing.assert_allclose(j24.numpy(), ours["joints"][:, :24].numpy(), atol=1e-5)
 
 
-# ------------------------------------------------------------------ ResNet50
-
-def port_resnet(seed=0):
-    net = resnet50()
-    g = torch.Generator().manual_seed(seed)
-    init_parameters_(net, g)
-    perturb_parameters_(net, g)
-    randomize_batch_stats_(net, g)
-    return net
-
-
 def test_resnet50_matches_jax():
     """(2, 64, 64, 3) NHWC crops through both backbones with the same
     weights (the port's state dict through `convert_resnet50`), eval-mode
@@ -159,128 +132,6 @@ def test_resnet_weights_round_trip():
     other = resnet50()
     other.load_state_dict({**back, "bn1.num_batches_tracked": torch.tensor(7)})
     assert torch.equal(other.bn1.running_var, sd["bn1.running_var"])
-
-
-# ---------------------------------------------------------------------- VAE
-
-@pytest.mark.parametrize("arch,mlp_dist", [("encoder_decoder", True), ("all_encoder", False),
-                                           ("all_encoder", True)])
-def test_vae_variants_match_jax(arch, mlp_dist):
-    """`mlp_dist` (latent_size tokens through `dist_layer`) and the
-    all-encoder decoder: encode and decode within 1e-5 of the flax VAE on
-    the port's weights (`convert_motion_vae`)."""
-    vae = MotionVae(75, (1, W), 16, 3, dropout=0.0, arch=arch, mlp_dist=mlp_dist)
-    init_parameters_(vae, torch.Generator().manual_seed(0))
-    perturb_parameters_(vae, torch.Generator().manual_seed(1))
-    assert ("dist_layer.weight" in vae.state_dict()) == mlp_dist
-    params = jax.tree.map(jnp.asarray, convert_motion_vae(
-        {k: v.numpy() for k, v in vae.state_dict().items()}, 3, arch=arch))
-    jvae = JMotionVae(75, (1, W), 16, 3, dropout=0.0, arch=arch, mlp_dist=mlp_dist)
-    x = np.random.RandomState(2).randn(B, T, 75).astype(np.float32)
-    lengths = np.array([T, 41, 17])
-    with torch.no_grad():
-        mu, logvar = vae.encode(torch.as_tensor(x), torch.as_tensor(lengths))
-        out = vae.decode(mu, T, torch.as_tensor(lengths))
-    jmu, jlogvar = jvae.apply(params, jnp.asarray(x), jnp.asarray(lengths), method=jvae.encode)
-    jout = jvae.apply(params, jmu, T, jnp.asarray(lengths), method=jvae.decode)
-    for a, b in ((mu, jmu), (logvar, jlogvar), (out, jout)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
-    with pytest.raises(ValueError, match="arch"):
-        MotionVae(75, arch="trans_dec")
-
-
-# ------------------------------------------------------------------- system
-
-VARIANTS = {
-    "image": dict(condition=IMAGE_COND),
-    "gimo": dict(condition=BOTH, dataset_name="gimo"),
-    "rot6d": dict(condition=("interactee",), data_type="rot6d"),
-    "no-transl": dict(condition=BOTH, predict_transl=False),
-    "estimate-interactee": dict(condition=("interactee",), estimate="interactee"),
-}
-
-
-def build(variant_kw, guidance=1.0):
-    cfg = SeeMeConfig(guidance_scale=guidance, image_size=IMAGE, **SMALL, **variant_kw)
-    data = SyntheticEgoDataset(B, T, pose_feats=cfg.pose_feats, scene_points=POINTS,
-                               with_image="image" in cfg.condition, image_size=IMAGE, seed=0)
-    system = SeeMeSystem(cfg, smpl.synthetic_smpl(256), data.mean, data.std, device="cpu", seed=1)
-    perturb_parameters_(system, torch.Generator().manual_seed(2))
-    if system.use_image:
-        randomize_batch_stats_(system.image_encoder, torch.Generator().manual_seed(3))
-    jcfg = JConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-                      if f.name != "image_size"})
-    jsystem = JSystem(jcfg, jsmpl.synthetic_smpl(256), data.mean, data.std)
-    return data, system, jsystem, jax_params(system)
-
-
-def jax_params(system):
-    """The JAX tree of the port's weights, in memory of its own."""
-    sd = {k: v.detach().numpy().copy() for k, v in system.state_dict().items()}
-    tree = convert_mld_checkpoint(sd)
-    if system.use_image:
-        tree["image_encoder"] = convert_resnet50(sd, prefix="image_encoder")
-    return jax.tree.map(lambda a: jnp.array(a, copy=True), tree)
-
-
-@pytest.mark.parametrize("name,guidance", [("image", 1.0), ("image", 2.5), ("gimo", 1.0),
-                                           ("rot6d", 1.0), ("no-transl", 1.0),
-                                           ("estimate-interactee", 1.0)])
-def test_variant_matches_jax_composition(name, guidance):
-    """Condition tokens, sampled features, joints and orientations of each
-    variant against the JAX package (the image's uncond half at guidance
-    2.5 from a zeroed image)."""
-    data, system, jsystem, params = build(VARIANTS[name], guidance)
-    nb = data.batch(0, B)
-    tb, jb = to_torch(nb, "cpu"), {k: jnp.asarray(v) for k, v in nb.items()}
-    z0 = np.random.RandomState(3).randn(B, 1, W).astype(np.float32)
-
-    cond = system.encode_conditioning(tb)
-    jcond = jax.jit(jsystem.encode_conditioning)(params, jb)
-    n_tok = len(system.cfg.condition)
-    assert cond.shape == ((2 if guidance > 1 else 1) * B, n_tok, W)
-    np.testing.assert_allclose(cond.numpy(), np.asarray(jcond), atol=1e-4)
-
-    feats = system.sample_from_cond(cond, z_init=torch.as_tensor(z0))
-    z = ddim_sample(lambda x, t, r: jsystem.denoiser.apply(params["denoiser"], x, t, jcond),
-                    jsystem.schedule, jax.random.PRNGKey(0), z0.shape,
-                    num_inference_steps=STEPS, guidance_scale=guidance, z_init=z0)
-    jfeats = jax.jit(lambda p, z: jsystem.vae.apply(p, z, T, method=jsystem.vae.decode))(
-        params["vae"], z)
-    assert feats.shape == (B, T, system.cfg.nfeats)
-    np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats),
-                               atol=1e-4 * float(np.abs(jfeats).max()))
-
-    out, jout = system.eval_fk(tb, feats), jax.jit(jsystem.eval_fk)(params, jb, jfeats)
-    for k in ("joints_rst", "joints_ref", "joints_int", "quat_rst", "quat_ref"):
-        np.testing.assert_allclose(out[k].numpy(), np.asarray(jout[k]), atol=1e-5, err_msg=k)
-
-
-@pytest.mark.parametrize("name", ["gimo", "rot6d", "no-transl"])
-def test_feats_to_vertices_matches_jax(name):
-    data, system, jsystem, params = build(VARIANTS[name])
-    nb = data.batch(0, B)
-    tb = to_torch(nb, "cpu")
-    raw = system.renorm(system.actor_features(tb, 0))
-    betas, transl = tb["betas"][:, 0], tb["transl"][:, 0]
-    ours = system.feats_to_vertices(raw, betas, transl)
-    ref = jsystem.feats_to_vertices(jnp.asarray(raw.numpy()), jnp.asarray(nb["betas"][:, 0]),
-                                    jnp.asarray(nb["transl"][:, 0]))
-    assert ours.shape == (B, T, 256, 3)
-    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
-
-
-def jax_draws(stage, rng):
-    """The draws `vae_loss` / `diffusion_loss` make from `rng` at guidance 1,
-    re-derived from the JAX package's key splits (`seeme_tpu/models/seeme.py:343`, `:437`)."""
-    shape = (B, 1, W)
-    if stage == "vae":
-        _, sample_rng = jax.random.split(rng)
-        return {"eps": torch.tensor(np.asarray(jax.random.normal(sample_rng, shape)))}
-    _, z_rng, t_rng, noise_rng, _ = jax.random.split(rng, 5)
-    draws = {"eps": jax.random.normal(z_rng, shape), "noise": jax.random.normal(noise_rng, shape),
-             "timesteps": jax.random.randint(t_rng, (B,), 0, 1000)}
-    return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
 
 
 @pytest.mark.parametrize("stage,name", [("vae", "gimo"), ("diffusion", "gimo"),
@@ -333,41 +184,6 @@ def test_losses_match_jax(stage, name):
                                    rtol=1e-6, atol=0)
 
 
-def test_image_cache_keys_leave_the_kernel_copies_alone():
-    """Running the image encoder neither rebuilds the DDIM or PointNet
-    kernel-layout copies nor is touched by them; a load of new weights
-    reaches the image features."""
-    data, system, _, _ = build(VARIANTS["image"])
-    tb = to_torch(data.batch(0, B), "cpu")
-    sd, ddim, scene = system.kernel_operands()
-    feats = system.image_features(tb["image"])
-    system.scene_features(tb["scene"])
-    assert system.kernel_operands()[1] is ddim and system.kernel_operands()[2] is scene
-    other = build(VARIANTS["image"])[1]
-    perturb_parameters_(other, torch.Generator().manual_seed(9))
-    system.load_state_dict(other.state_dict())
-    assert not torch.equal(system.image_features(tb["image"]), feats)
-    assert torch.equal(system.image_features(tb["image"]), other.image_features(tb["image"]))
-
-
-def test_image_weights_carry_across():
-    """A JAX image-config tree (image encoder params and batch stats,
-    `output_images`) -> `from_jax_params` -> a strict `load_state_dict`,
-    and back through the converters to the same tree."""
-    data, system, jsystem, _ = build(VARIANTS["image"])
-    shapes = jax.eval_shape(jsystem.init_params, jax.random.PRNGKey(5))
-    rng = np.random.RandomState(6)
-    tree = jax.tree.map(lambda s: rng.rand(*s.shape).astype(np.float32) + 0.5, shapes)
-    sd = from_jax_params(tree)
-    assert {k.split(".")[0] for k in sd} == {"vae", "denoiser", "proscene", "output_scene",
-                                             "image_encoder", "output_images"}
-    system.load_state_dict(sd, strict=True)
-    back = jax_params(system)
-    for key in ("image_encoder", "output_images"):
-        assert jax.tree.all(jax.tree.map(lambda a, b: np.array_equal(np.asarray(a), np.asarray(b)),
-                                         back[key], tree[key])), key
-
-
 def test_unknown_settings_are_refused():
     data = SyntheticEgoDataset(B, T, scene_points=POINTS, seed=0)
     for kw, match in ((dict(condition=("text",)), "unknown conditions"),
@@ -377,8 +193,6 @@ def test_unknown_settings_are_refused():
             SeeMeSystem(SeeMeConfig(**SMALL, **kw), smpl.synthetic_smpl(32), data.mean, data.std,
                         device="cpu")
 
-
-# --------------------------------------------------------------- data, CLI
 
 def test_image_dataset_matches_jax():
     """The synthetic image crops (and every other array) from the same seed
@@ -422,36 +236,3 @@ def test_gimo_datamodule_matches_jax(tmp_path):
     np.save(proc / "std.npy", np.ones(69, np.float32))
     release = get_datamodule("gimo", root=str(tmp_path))
     assert isinstance(release, EgoBodyDataModule) and release.nfeats == 69
-
-
-def test_trainer_caches_image_features(tmp_path):
-    """Stage 2 of `mld_egobody_image` on the CPU at a tiny size: the cache
-    holds the ResNet50's features of every train and val sample (equal to
-    the encoder's on the raw crops), batches carry them in place of the
-    crops, the steps train `output_images` and leave the encoder bitwise
-    alone."""
-    from seeme_tpu_torch.train.__main__ import Trainer, parse_args
-
-    tiny = ["model.latent_dim=(1, 32)", "model.ff_size=16", "model.num_layers=3",
-            "model.scene_points=64", "model.scene_feat_dim=32", "model.image_size=32",
-            "train.feature_cache=True", "train.val_every_steps=1"]
-    tr = Trainer(parse_args(["--preset", "mld_egobody_image", "--device", "cpu", "--batch_size",
-                             "64", "--epochs", "1", "--out", str(tmp_path), *tiny]))
-    before = {k: v.clone() for k, v in tr.system.state_dict().items()}
-    assert tr.fill_feature_cache() > 0
-    cached = tr.datamodule.train_set.extras["image_feats"]
-    assert cached.shape == (256, 2048) and tr.datamodule.val_set.extras["image_feats"].shape == (64, 2048)
-    raw = torch.as_tensor(tr.datamodule.train_set.image[:3])
-    np.testing.assert_allclose(cached[:3], tr.system.image_features(raw).numpy(), rtol=0,
-                               atol=1e-5 * float(np.abs(cached).max()))
-    batch = next(tr.train_batches(0))
-    assert "image" not in batch and "scene" not in batch and batch["image_feats"].shape == (64, 2048)
-    calls = []
-    tr.system.image_encoder.register_forward_hook(lambda *a: calls.append(1))
-    tr.fit()
-    assert calls == [] and np.isfinite(tr.history[0]["val"]["total"])
-    after = tr.system.state_dict()
-    for k, v in after.items():
-        if k.startswith(("image_encoder.", "vae.", "proscene.")):
-            assert torch.equal(v, before[k]), k
-    assert not torch.equal(after["output_images.1.weight"], before["output_images.1.weight"])
