@@ -149,9 +149,10 @@ Phases, each printing one line with its seconds as soon as it ends:
      ActNorm start's context and none in a D step, the smallest batch-norm
      variance; one G and one D step on the CLI's weights card vs CPU at
      the CLI's B=8, 1024 points with shared draws, the card's ReLU
-     decisions replayed in the CPU's steps (`relu_decisions`: a decision
-     within rounding of 0 that went the other way would move a gradient
-     by a percent or more of its max; the loss within TRAIN_LOSS_RTOL,
+     decisions replayed in the CPU's steps, and in the scene encoder's
+     recompute its max-pools' choices of point too (`relu_decisions`: a
+     decision within rounding of 0, or a near tie, that went the other way
+     would move a gradient by a percent or more of its max; the loss within TRAIN_LOSS_RTOL,
      every gradient within TRAIN_GRAD_RTOL); then a G + D step at B=64,
      20 000 points, 224 x 224 (ms, peak memory, device idle share);
      `test_prohmr_scene --checkpoint` on the saved file (1 / 3);
@@ -230,7 +231,24 @@ Phases, each printing one line with its seconds as soon as it ends:
      its host batch, the terms of 6 steps (after a warm-up step, in halves
      run prefetched / synchronous / synchronous / prefetched) within 1e-6 of
      a synchronous loop's on a twin trainer, ms a step and idle share of
-     both, and one batch's pageable and pinned copies alone.
+     both, and one batch's pageable and pinned copies alone;
+ 48-54. DEBUG on the `--cfg` route, `demo --render`, the exporters, `tsne`,
+     `flops`, `preflight --end-to-end`, the text encoder (`slice13_phases`);
+ 55. data parallelism: stage 2 of `config_mld_egobody.yaml` (full width,
+     B=64, 20 000 points, dropout 0) through `python -m
+     torch.distributed.run --nproc_per_node 2` of this script's
+     `--ddp-worker` mode, which runs the train CLI's `main` with counting
+     hooks, on the one card (gloo; NCCL where there are two cards or more),
+     against the same run in one process:
+     the first step's gradients within 1e-5 of each max |g|, the loss
+     trajectory within 1e-4, the validations, the parameters bitwise alike
+     across the ranks after every epoch, each rank's cache fill 5 / 15, one
+     checkpoint directory; ms a step, peak memory, idle share per rank;
+ 56. the same at `--nproc_per_node` = the card count over NCCL;
+ 57. the ego test CLI on 55's one-process checkpoint at 2 ranks against one
+     process: MPJPE / ROOT / HEAD / ACCL within 1e-6 relative, each rank
+     input block 1, split block 3 and kernel 3 once a batch and
+     replication at 32 rows.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
 path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
 at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
@@ -329,6 +347,54 @@ def compare(name: str, got, want, scale: float, rtol: float) -> float:
           f"(tolerance {rtol:.0e} x {scale:.4g}) {'ok' if ok else 'FAIL'}", flush=True)
     require(ok, f"{name} disagrees with its plain version")
     return err
+
+
+def counter_table(pfu, dfu) -> dict:
+    """Each kernel of the JSON line: its wrapper, and what it counts by: the
+    hidden width of a PointNet instantiation (the wrappers count launches by
+    width too), or a DDIM kernel's latent token count ("tokens", T); None
+    counts every launch of the wrapper."""
+    return {"pointnet_input_block": (pfu.fused_input_block, 512),
+            "pointnet_split_block": (pfu.fused_split_block, 512),
+            "ddim_md_t1": (dfu.ddim_fused, ("tokens", 1)),
+            "ddim_fused_grid": (dfu.ddim_fused_grid, None),
+            "ddim_tok_t1": (dfu.ddim_fused_tok, ("tokens", 1)),
+            "pointnet_input_block_h256": (pfu.fused_input_block, 256),
+            "pointnet_split_block_h256": (pfu.fused_split_block, 256),
+            "ddim_md_t2": (dfu.ddim_fused, ("tokens", 2)),
+            "ddim_md_t10": (dfu.ddim_fused, ("tokens", 10)),
+            "ddim_tok_t2": (dfu.ddim_fused_tok, ("tokens", 2)),
+            "ddim_tok_t10": (dfu.ddim_fused_tok, ("tokens", 10))}
+
+
+def zero_counters(counters: dict, pfu) -> None:
+    """Every launch count of `counter_table` set to 0."""
+    for fn, key in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_tokens"):
+            fn.launches_by_tokens = {}
+        if isinstance(key, int):
+            fn.launches_by_width = dict.fromkeys(pfu.WIDTHS, 0)
+
+
+def read_counters(counters: dict, pfu, dfu) -> dict:
+    """Each kernel's launches since `zero_counters`; fails unless each
+    wrapper's total is the sum of its counts by width or token count."""
+    for fn in (pfu.fused_input_block, pfu.fused_split_block):
+        require(fn.launches == sum(fn.launches_by_width.values()),
+                f"{fn.__name__}: {fn.launches} launches, by width {fn.launches_by_width}")
+    for fn in (dfu.ddim_fused, dfu.ddim_fused_tok):
+        require(fn.launches == sum(fn.launches_by_tokens.values()),
+                f"{fn.__name__}: {fn.launches} launches, by tokens {fn.launches_by_tokens}")
+
+    def read(fn, key):
+        if key is None:
+            return fn.launches
+        if isinstance(key, tuple):
+            return fn.launches_by_tokens.get(key[1], 0)
+        return fn.launches_by_width[key]
+
+    return {name: read(fn, key) for name, (fn, key) in counters.items()}
 
 
 def main() -> int:
@@ -571,47 +637,15 @@ def main() -> int:
           f"{bound_ms(flops, nbytes):.4f} ms", t)
     del z_k, z_p
 
-    # each kernel of the JSON line: its wrapper, and what it counts by: the
-    # hidden width of a PointNet instantiation (the wrappers count launches
-    # by width too), or a DDIM kernel's latent token count ("tokens", T);
-    # None counts every launch of the wrapper
-    counters = {"pointnet_input_block": (pfu.fused_input_block, 512),
-                "pointnet_split_block": (pfu.fused_split_block, 512),
-                "ddim_md_t1": (dfu.ddim_fused, ("tokens", 1)),
-                "ddim_fused_grid": (dfu.ddim_fused_grid, None),
-                "ddim_tok_t1": (dfu.ddim_fused_tok, ("tokens", 1)),
-                "pointnet_input_block_h256": (pfu.fused_input_block, 256),
-                "pointnet_split_block_h256": (pfu.fused_split_block, 256),
-                "ddim_md_t2": (dfu.ddim_fused, ("tokens", 2)),
-                "ddim_md_t10": (dfu.ddim_fused, ("tokens", 10)),
-                "ddim_tok_t2": (dfu.ddim_fused_tok, ("tokens", 2)),
-                "ddim_tok_t10": (dfu.ddim_fused_tok, ("tokens", 10))}
-
-    def read(fn, key):
-        if key is None:
-            return fn.launches
-        if isinstance(key, tuple):
-            return fn.launches_by_tokens.get(key[1], 0)
-        return fn.launches_by_width[key]
+    counters = counter_table(pfu, dfu)
 
     def counted(run):
         """Run with every launch count set to 0 just before; return the
         result and the counts read just after."""
-        for fn, key in counters.values():
-            fn.launches = 0
-            if hasattr(fn, "launches_by_tokens"):
-                fn.launches_by_tokens = {}
-            if isinstance(key, int):
-                fn.launches_by_width = dict.fromkeys(pfu.WIDTHS, 0)
+        zero_counters(counters, pfu)
         out = run()
         torch.cuda.synchronize()
-        for fn in (pfu.fused_input_block, pfu.fused_split_block):
-            require(fn.launches == sum(fn.launches_by_width.values()),
-                    f"{fn.__name__}: {fn.launches} launches, by width {fn.launches_by_width}")
-        for fn in (dfu.ddim_fused, dfu.ddim_fused_tok):
-            require(fn.launches == sum(fn.launches_by_tokens.values()),
-                    f"{fn.__name__}: {fn.launches} launches, by tokens {fn.launches_by_tokens}")
-        return out, {name: read(fn, key) for name, (fn, key) in counters.items()}
+        return out, read_counters(counters, pfu, dfu)
 
     launches = {}
     by_path = {name: {} for name in counters}  # every kernel's launches on every path
@@ -767,6 +801,12 @@ def main() -> int:
         feature_phases(dev)
         prefetch_phases(dev, counted, counters, record, work)
         slice13_phases(dev, counted, counters, record, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="seeme_ddp_")
+    try:
+        ddp_phases(dev, record, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3202,23 +3242,54 @@ def relu_decisions(model, masks: list, record: bool):
     appends its decisions x > 0 to `masks` (`record`), or takes them from
     `masks` in the same order and returns x * mask, so that a decision
     within rounding of 0 goes the same way in a CPU step as it went in the
-    card's. Off inside the scene encoder, whose card forward (the kernels)
-    calls no relu, and in backward (the encoder's recompute)."""
+    card's. The scene encoder's gradients come on both devices from its
+    eager forward recomputed in backward (`ops/pointnet_fused.py`): there
+    the ReLUs are replayed too, and so is each max-pool's choice of point
+    (a near tie picks another point on the other device and routes the
+    pooled gradient there), as the mask of the points that took the max,
+    replayed as their mean, whose gradient splits over them as `amax`'s
+    does over a tie. The encoder's forward through the kernels calls no
+    relu, and the rest of backward none that counts."""
     import torch
 
+    from seeme_tpu_torch.nn.pointnet import ResnetPointnet
+
     relu, grad, backward = torch.relu, torch.autograd.grad, torch.Tensor.backward
-    encode_scene, on, taken = model.encode_scene, [True], iter(masks)
+    amax, eager = torch.Tensor.amax, ResnetPointnet.forward
+    encode_scene, on, in_scene, taken = model.encode_scene, [True], [False], iter(masks)
+
+    def replayed(kind, x):
+        got, mask = next(taken, (None, None))
+        require(got == kind and mask is not None and mask.shape == x.shape,
+                f"decisions out of step: {got} {None if mask is None else tuple(mask.shape)} "
+                f"recorded, {kind} {tuple(x.shape)} here")
+        return mask.to(x)
 
     def decided(x):
-        if not on[0]:
+        if not (on[0] or in_scene[0]):
             return relu(x)
         if record:
-            masks.append((x > 0).cpu())
+            masks.append(("relu", (x > 0).cpu()))
             return relu(x)
-        mask = next(taken)
-        require(mask.shape == x.shape, f"relu decisions out of step: {tuple(mask.shape)} "
-                                       f"recorded, {tuple(x.shape)} here")
-        return x * mask.to(x)
+        return x * replayed("relu", x)
+
+    def pooled(x, dim, keepdim=False):
+        if not in_scene[0]:
+            return amax(x, dim, keepdim)
+        if record:
+            top = amax(x, dim, True)
+            masks.append(("amax", (x == top).cpu()))
+            return top if keepdim else top.squeeze(dim)
+        mask = replayed("amax", x)
+        top = (x * mask).sum(dim, keepdim=True) / mask.sum(dim, keepdim=True)
+        return top if keepdim else top.squeeze(dim)
+
+    def recomputed(self, points):
+        in_scene[0] = True
+        try:
+            return eager(self, points)
+        finally:
+            in_scene[0] = False
 
     def off(fn):
         def wrapped(*a, **kw):
@@ -3230,11 +3301,13 @@ def relu_decisions(model, masks: list, record: bool):
         return wrapped
 
     torch.relu, torch.autograd.grad, torch.Tensor.backward = decided, off(grad), off(backward)
+    torch.Tensor.amax, ResnetPointnet.forward = pooled, recomputed
     model.encode_scene = off(encode_scene)
     try:
         yield
     finally:
         torch.relu, torch.autograd.grad, torch.Tensor.backward = relu, grad, backward
+        torch.Tensor.amax, ResnetPointnet.forward = amax, eager
         model.encode_scene = encode_scene
     require(record or next(taken, None) is None, "relu decisions left over")
 
@@ -3803,7 +3876,311 @@ def tok_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int, tokens: i
     return total
 
 
+def run_group(cmd: list, timeout: float) -> subprocess.CompletedProcess:
+    """`cmd` in a session of its own, its output captured; the whole process
+    group is killed at the time limit (torchrun's ranks with it)."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        out += f"\n(killed at the {timeout} s limit)"
+    return subprocess.CompletedProcess(cmd, proc.returncode, out)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_phases(dev, record, card: str, work: str) -> None:
+    """Phases 55-57: data parallelism (`seeme_tpu_torch/parallel/`). 55: stage
+    2 (`config_mld_egobody.yaml`, full width, B=64, 20 000 points, the
+    synthetic split, dropout 0 so that the ranks' rows draw what one process
+    draws) through `torch.distributed.run --nproc_per_node 2` of the train
+    CLI on the one card (gloo; NCCL with two cards or more), against the
+    same run in one process: the first step's gradients, the loss trajectory, the
+    validations, the parameters across the ranks after every epoch, each
+    rank's cache fill launches, one checkpoint directory; 56: the same at
+    `--nproc_per_node` = the card count over NCCL; 57: the ego test CLI on
+    55's one-process checkpoint at 2 ranks against one process (metrics,
+    launches per rank, kernel 3's rows). Each runs `python3 chip_smoke.py
+    --ddp-worker` (`ddp_worker`), which holds the hooks."""
+    import numpy as np
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "chip_smoke.py")
+    mld_yaml = os.path.join(here, "configs", "config_mld_egobody.yaml")
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.ops import pointnet_fused as pfu
+
+    none = {k: 0 for k in counter_table(pfu, dfu)}
+
+    def launch(name, kind, nproc, cli_args):
+        """`nproc` ranks under torchrun, or (0) the one-process reference in
+        this process; (their out dir, each rank's record, seconds)."""
+        out = os.path.join(work, name)
+        cli_args = [*cli_args, "--out", os.path.join(out, "exp")]
+        t = time.perf_counter()
+        if nproc:
+            proc = run_group([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                              str(nproc), "--master_addr", "localhost", "--master_port",
+                              str(free_port()), script, "--ddp-worker", kind, out, *cli_args],
+                             600)
+            if proc.returncode != 0:
+                print(proc.stdout[-6000:], flush=True)
+            require(proc.returncode == 0, f"{name}: rc {proc.returncode}")
+        else:
+            ddp_worker(kind, out, cli_args)
+            torch.cuda.empty_cache()
+        seconds = time.perf_counter() - t
+        ranks = []
+        for r in range(max(nproc, 1)):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        return out, ranks, seconds
+
+    def rates(ranks) -> str:
+        """Each rank's ms a step (a sampled batch), peak memory, idle share
+        and seconds in the CLI."""
+        def one(x):
+            ms = (f"{np.mean(x['step_ms'][1:]):.3f} ms a step" if "step_ms" in x else
+                  f"{np.mean([c['ms'] for c in x['calls']]):.3f} ms a sampled batch")
+            return (f"{ms}, peak {x['peak_bytes'] / 2**30:.2f} GiB, idle "
+                    f"{1 - x['busy_ms'] / x['wall_ms']:.3f}, {x['seconds']:.1f} s in the CLI")
+
+        return "; ".join(f"rank {r}: {one(x)}" for r, x in enumerate(ranks))
+
+    def checkpoint_dirs(root):
+        return [d for d, sub, _ in os.walk(root) if os.path.basename(d) == "checkpoints"]
+
+    train_args = ["--cfg", mld_yaml, "--epochs", "2", "model.droupout=0.0",
+                  "LOGGER.VAL_EVERY_STEPS=1"]
+    t = time.perf_counter()
+    one_dir, (one,), one_s = launch("train_one", "train", 0, train_args)
+    one_grads = torch.load(os.path.join(one_dir, "grads0.pt"))
+    one_ckpts = checkpoint_dirs(one_dir)
+    require(len(one_ckpts) == 1, f"one process wrote checkpoint dirs {one_ckpts}")
+    fill = {**none, "pointnet_input_block": 5, "pointnet_split_block": 15}
+    require(one["fill"] == fill and one["fit"] == none,
+            f"one process: cache fill {one['fill']}, epochs {one['fit']}")
+    phase(f"data-parallel reference: the train CLI in one process (B=64, {len(one['steps'])} "
+          f"steps, dropout 0): {rates([one])}, {one_s:.1f} s | {card}", t)
+
+    def check_train(label, out, ranks, world, backend):
+        require(all(x["world"] == world and x["backend"] == backend for x in ranks),
+                f"{label}: world / backend {[(x['world'], x['backend']) for x in ranks]}")
+        worst = 0.0
+        for r, x in enumerate(ranks):
+            require(x["fill"] == fill and x["fit"] == none,
+                    f"{label} rank {r}: cache fill {x['fill']}, epochs {x['fit']}")
+            record(f"ddp_{label}_cache_fill_rank{r}", x["fill"])
+            require(x["hashes"] == ranks[0]["hashes"] and len(x["hashes"]) == 2,
+                    f"{label}: parameters differ across the ranks after an epoch")
+            grads = torch.load(os.path.join(out, f"grads{r}.pt"))
+            require(grads.keys() == one_grads.keys(),
+                    f"{label} rank {r}: gradients of {sorted(set(grads) ^ set(one_grads))[:4]}")
+            for n, g in one_grads.items():
+                scale = float(g.abs().max())
+                err = float((grads[n] - g).abs().max())
+                worst = max(worst, err / max(scale, 1e-30))
+                require(err <= max(1e-5 * scale, GRAD_FLOOR),
+                        f"{label} rank {r}: gradient {n} off by {err:.3e} of max {scale:.3e}")
+        steps = np.asarray(ranks[0]["steps"])
+        rel = float(np.max(np.abs(steps - one["steps"]) / np.abs(one["steps"])))
+        vrel = float(np.max(np.abs(np.asarray(ranks[0]["val"]) - one["val"])
+                            / np.abs(one["val"])))
+        require(len(steps) == len(one["steps"]) and rel <= TRAIN_LOSS_RTOL and vrel <= 1e-4,
+                f"{label}: losses {steps} against one process's {one['steps']}")
+        dirs = checkpoint_dirs(out)
+        require(len(dirs) == 1 and sorted(os.listdir(dirs[0])) == sorted(os.listdir(one_ckpts[0])),
+                f"{label}: checkpoint dirs {dirs}")
+        return worst, rel, vrel
+
+    # ---- 55. two ranks, against one process: on one card they share it (gloo)
+    t = time.perf_counter()
+    cards = torch.cuda.device_count()
+    out, ranks, seconds = launch("train_two", "train", 2, train_args)
+    worst, rel, vrel = check_train("train_gloo", out, ranks, 2, "nccl" if cards >= 2 else "gloo")
+    phase(f"DDP stage 2 (config_mld_egobody.yaml, B=64 as 2 x 32, world 2, backend "
+          f"{ranks[0]['backend']}, {cards} card(s)): first-step gradients within {worst:.2e} "
+          f"of each max |g| (gate 1e-05), losses within {rel:.2e} (gate {TRAIN_LOSS_RTOL:.0e}), "
+          f"validations {vrel:.2e}, parameters bitwise alike on both ranks after each epoch, "
+          f"each rank's cache fill 5 / 15, one checkpoint dir; {rates(ranks)}; {seconds:.1f} s "
+          f"| {card}", t)
+
+    # ---- 56. one rank a card over NCCL (world 1 on a one-card machine)
+    t = time.perf_counter()
+    out, ranks, seconds = launch("train_nccl", "train", cards, train_args)
+    worst, rel, vrel = check_train("train_nccl", out, ranks, cards, "nccl")
+    phase(f"DDP stage 2 at --nproc_per_node {cards} (world {ranks[0]['world']}, backend "
+          f"{ranks[0]['backend']}): gradients within {worst:.2e}, losses within {rel:.2e}, "
+          f"validations {vrel:.2e} of one process's; {rates(ranks)}; {seconds:.1f} s | {card}", t)
+
+    # ---- 57. the ego test CLI at two ranks, against one process
+    t = time.perf_counter()
+    ckpt = os.path.join(one_ckpts[0], sorted(os.listdir(one_ckpts[0]))[-1])
+    test_args = ["--cfg", mld_yaml, "--batch_size", str(BATCH), "--replication_times", "2",
+                 "--checkpoint", ckpt]
+    _, (tone,), _ = launch("test_one", "test", 0, test_args)
+    _, ranks, seconds = launch("test_two", "test", 2, test_args)
+    keys = ("MPJPE", "ROOT_ERROR", "HEAD_ORIENTATION_ERROR", "ACCL")
+    worst = 0.0
+    for r, x in enumerate(ranks):
+        require(x["world"] == 2, f"test rank {r}: world {x['world']}")
+        expected = {**none, "pointnet_input_block": 1, "pointnet_split_block": 3,
+                    "ddim_md_t1": 2}
+        require(x["counts"] == expected, f"test rank {r}: launches {x['counts']}")
+        record(f"ddp_test_cli_rank{r}", x["counts"])
+        require([(c["rows"], c["kernel3"]) for c in x["calls"]] == [(BATCH // 2, 1)] * 2,
+                f"test rank {r}: sampling calls {x['calls']}")
+        for got, want in zip(x["replications"], tone["replications"]):
+            require(all(k in got for k in keys) and got.keys() == want.keys(),
+                    f"test rank {r}: metrics {sorted(got)}")
+            for k in keys:
+                err = abs(got[k] - want[k]) / abs(want[k])
+                worst = max(worst, err)
+                require(err <= 1e-6, f"test rank {r}: {k} {got[k]} against one process's "
+                                     f"{want[k]}")
+    phase(f"test CLI (config_mld_egobody.yaml on phase 55's one-process checkpoint, 2 "
+          f"replications of the 64-sample split) at world 2: MPJPE / ROOT / HEAD / ACCL within "
+          f"{worst:.2e} of one process's (gate 1e-06); each rank input block 1, split block 3, "
+          f"kernel 3 once a batch and replication at {BATCH // 2} rows; {rates(ranks)}; "
+          f"{seconds:.1f} s | {card}", t)
+
+
+def ddp_worker(kind: str, out: str, cli_args: list) -> None:
+    """One process of phases 55-57: the train or test CLI's `main(cli_args)`
+    with counting hooks (undone after), then `out/rank<r>.json` (and, for
+    training, `out/grads<r>.pt`, the first step's gradients). Under torchrun
+    it runs as `python3 chip_smoke.py --ddp-worker train|test OUT
+    CLI_ARGS...`; the one-process reference runs it in this process.
+    Training records each rank's launches in the cache fill and in the
+    epochs, a SHA-256 of the whole state dict after every epoch, each
+    step's loss and ms, each validation, the peak memory and the device's
+    busy time over the epochs (`profile_busy`); the test CLI records its
+    replications' metrics, its launches, and each `sample_from_cond` call's
+    rows, kernel-3 launches and ms."""
+    import hashlib
+
+    import torch
+
+    from seeme_tpu_torch.models.seeme import SeeMeSystem
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.ops import pointnet_fused as pfu
+
+    os.makedirs(out, exist_ok=True)
+    counters = counter_table(pfu, dfu)
+    rec = {"kind": kind}
+    undo = []
+
+    def patch(obj, name, new):
+        undo.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    def train():
+        from seeme_tpu_torch.train import __main__ as cli
+        from seeme_tpu_torch.train import loop
+
+        grads, hashes, real_step, real_epoch = {}, [], loop.train_step, cli.run_epoch
+        real_fill, real_fit = cli.Trainer.fill_feature_cache, cli.Trainer.fit
+
+        def step(system, *a, **k):
+            terms = real_step(system, *a, **k)
+            if not grads:  # the first step's (averaged) gradients
+                grads.update({n: p.grad.detach().cpu() for n, p in system.named_parameters()
+                              if p.grad is not None})
+            return terms
+
+        def epoch(system, *a, **k):
+            result = real_epoch(system, *a, **k)
+            h = hashlib.sha256()
+            for name, v in sorted(system.state_dict().items()):
+                h.update(name.encode())
+                h.update(v.detach().cpu().numpy().tobytes())
+            hashes.append(h.hexdigest())
+            return result
+
+        def fill(trainer):
+            zero_counters(counters, pfu)
+            seconds = real_fill(trainer)
+            torch.cuda.synchronize()
+            rec["fill"], rec["fill_s"] = read_counters(counters, pfu, dfu), seconds
+            return seconds
+
+        def fit(trainer):
+            zero_counters(counters, pfu)
+            torch.cuda.reset_peak_memory_stats()
+            history = []
+            rec["busy_ms"], rec["wall_ms"], _ = profile_busy(
+                lambda: history.append(real_fit(trainer)))
+            rec["fit"] = read_counters(counters, pfu, dfu)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            return history[0]
+
+        patch(loop, "train_step", step)
+        patch(cli, "run_epoch", epoch)
+        patch(cli.Trainer, "fill_feature_cache", fill)
+        patch(cli.Trainer, "fit", fit)
+        trainer = cli.main(cli_args)
+        rank = trainer.rank
+        rec.update(world=trainer.world, backend=trainer.backend, device=str(trainer.device),
+                   steps=[s["total"] for r in trainer.history for s in r["steps"]],
+                   step_ms=[m for r in trainer.history for m in r["step_ms"]],
+                   val=[r["val"]["total"] for r in trainer.history if "val" in r],
+                   hashes=hashes, checkpoints=trainer.checkpoints)
+        torch.save(grads, os.path.join(out, f"grads{rank}.pt"))
+        return rank
+
+    def test():
+        from seeme_tpu_torch.test import __main__ as cli
+
+        calls, real_sample = [], SeeMeSystem.sample_from_cond
+
+        def sample(system, cond, generator=None, z_init=None):
+            before = dfu.ddim_fused.launches
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            feats = real_sample(system, cond, generator=generator, z_init=z_init)
+            end.record()
+            torch.cuda.synchronize()
+            calls.append({"rows": int(z_init.shape[0]), "ms": start.elapsed_time(end),
+                          "kernel3": dfu.ddim_fused.launches - before})
+            return feats
+
+        patch(SeeMeSystem, "sample_from_cond", sample)
+        zero_counters(counters, pfu)
+        torch.cuda.reset_peak_memory_stats()
+        result = []
+        rec["busy_ms"], rec["wall_ms"], _ = profile_busy(
+            lambda: result.append(cli.main(cli_args)))
+        rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+        rec.update(world=world, replications=result[0]["replications"], calls=calls,
+                   counts=read_counters(counters, pfu, dfu),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        return rank
+
+    t0 = time.perf_counter()
+    try:
+        rank = train() if kind == "train" else test()
+    finally:
+        for obj, name, old in reversed(undo):
+            setattr(obj, name, old)
+    rec["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SystemExit:

@@ -5,7 +5,8 @@ error, with the reference's start alignment (head joint at frame 0) and
 per-frame pelvis alignment, and the test-split filter that keeps a sequence
 only when head_err < 0.9, root_err < 300 and accl > 0 (`compute.py:489-517`).
 `EgoMetric` accumulates them over batches on the host, as the JAX package's
-does; the port runs on one card, so it has no cross-host `sync`.
+does; `compute(sync=True)` sums the accumulators over the ranks of a
+data-parallel evaluation first (`parallel/mesh.py::allreduce_metric_sums`).
 """
 
 from __future__ import annotations
@@ -16,9 +17,12 @@ from typing import Dict, Optional
 import torch
 
 from ..core.rotations import quat_to_rotmat
+from ..parallel.mesh import allreduce_metric_sums
 
 HEAD_JOINT = 15
 PELVIS = 0
+# the filtered means' keys, which every rank pre-seeds before a sync
+FILTERED_KEYS = ("MPJPE", "ROOT_ERROR", "HEAD_ORIENTATION_ERROR", "ACCL")
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim) -> torch.Tensor:
@@ -113,9 +117,15 @@ class EgoMetric:
         for k, name in names.items():
             self._add(name, per_seq[k][keep].tolist())
 
-    def compute(self) -> Dict[str, float]:
-        """The mean of every key over the sequences counted so far."""
-        return {k: self.sums[k] / max(self.counts[k], 1) for k in self.sums}
+    def compute(self, sync: bool = False) -> Dict[str, float]:
+        """The mean of every key over the sequences counted so far; with
+        `sync`, over every rank's (the (sum, count) pairs all-reduced first,
+        the filtered keys pre-seeded so that a rank whose shard kept no
+        sequence still aligns)."""
+        sums, counts = self.sums, self.counts
+        if sync:
+            sums, counts = allreduce_metric_sums(sums, counts, FILTERED_KEYS)
+        return {k: sums[k] / max(counts[k], 1) for k in sums}
 
     def reset(self) -> None:
         self.sums.clear()

@@ -47,6 +47,7 @@ from ..nn.resnet import resnet50
 from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid, ddim_fused_tok
 from ..ops import tensor_versions
 from ..ops.pointnet_fused import FusedPointnet
+from ..parallel.mesh import rows
 from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
 from .denoiser import Denoiser
 from .vae import MotionVae, reparameterize
@@ -318,19 +319,22 @@ class SeeMeSystem(nn.Module):
         return cond
 
     # -------------------------------------------------------------- training
-    def loss_draws(self, stage: str, batch: Dict,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def loss_draws(self, stage: str, batch: Dict, generator: Optional[torch.Generator] = None,
+                   shard: Tuple[int, int] = (0, 1)) -> Dict[str, torch.Tensor]:
         """The random draws of one loss call from `generator` (on the batch's
         device): `eps` for the reparameterization; in stage 2 also `noise`,
-        `timesteps` and, at guidance > 1, the CFG element masks."""
+        `timesteps` and, at guidance > 1, the CFG element masks. With `shard`
+        (rank, ranks) the batch is a rank's rows: the draws are made at the
+        whole batch's shape and the rank's rows returned, so they equal one
+        process's."""
         cfg = self.cfg
         feats = batch["feats"]
         dev = feats.device
-        B = feats.shape[0]
+        B = feats.shape[0] * shard[1]
         latent = (B, cfg.latent_dim[0], cfg.latent_dim[-1])
         draws = {"eps": torch.randn(latent, generator=generator, device=dev)}
         if stage == "vae":
-            return draws
+            return {k: rows(v, shard) for k, v in draws.items()}
         draws["noise"] = torch.randn(latent, generator=generator, device=dev)
         draws["timesteps"] = torch.randint(0, self.schedule.num_train_timesteps, (B,),
                                            generator=generator, device=dev)
@@ -340,9 +344,9 @@ class SeeMeSystem(nn.Module):
                 shape = (B, feats.shape[1], cfg.nfeats)
                 draws["mask_interactee"] = torch.rand(shape, generator=generator, device=dev) < p
             if self.use_scene:
-                draws["mask_scene"] = torch.rand(batch["scene"].shape, generator=generator,
-                                                 device=dev) < p
-        return draws
+                draws["mask_scene"] = torch.rand((B, *batch["scene"].shape[1:]),
+                                                 generator=generator, device=dev) < p
+        return {k: rows(v, shard) for k, v in draws.items()}
 
     def vae_loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
                  draws: Optional[Dict] = None):

@@ -47,6 +47,7 @@ from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.init import init_parameters_
 from ..ops import tensor_versions
 from ..ops.denoiser_fused import TOK_MAX_COND, KernelWeights, ddim_fused_tok
+from ..parallel.mesh import rows
 from ..train.losses import diffusion_losses, kl_standard_normal, smooth_l1
 from ..train.state import set_stage
 from .denoiser import Denoiser
@@ -148,25 +149,27 @@ class T2MSystem(nn.Module):
         return batch
 
     # --------------------------------------------------------------- training
-    def loss_draws(self, stage: str, batch: Dict,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def loss_draws(self, stage: str, batch: Dict, generator: Optional[torch.Generator] = None,
+                   shard: Tuple[int, int] = (0, 1)) -> Dict[str, torch.Tensor]:
         """The draws of one loss call from `generator`: `eps` of the
         reparameterization (with a VAE); in stage 2 also `drop` (B, 1, 1),
-        the samples whose text is dropped, `noise` and `timesteps`."""
+        the samples whose text is dropped, `noise` and `timesteps`. With
+        `shard` (rank, ranks) they are made at the whole batch's shape and
+        the rank's rows returned (`SeeMeSystem.loss_draws`)."""
         cfg = self.cfg
         motion = batch["motion"]
-        dev, B = motion.device, motion.shape[0]
+        dev, B = motion.device, motion.shape[0] * shard[1]
         latent = (B, *cfg.latent_dim)
         draws = {} if self.diffusion_only else {
             "eps": torch.randn(latent, generator=generator, device=dev)}
         if stage == "vae":
-            return draws
+            return {k: rows(v, shard) for k, v in draws.items()}
         draws["drop"] = torch.rand((B, 1, 1), generator=generator, device=dev) < cfg.guidance_uncondp
-        draws["noise"] = torch.randn(motion.shape if self.diffusion_only else latent,
+        draws["noise"] = torch.randn((B, *motion.shape[1:]) if self.diffusion_only else latent,
                                      generator=generator, device=dev)
         draws["timesteps"] = torch.randint(0, self.schedule.num_train_timesteps, (B,),
                                            generator=generator, device=dev)
-        return draws
+        return {k: rows(v, shard) for k, v in draws.items()}
 
     def vae_loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
                  draws: Optional[Dict] = None):

@@ -5,12 +5,17 @@ the sources for `sm_90a`; one more links the objects into one shared library
 with a plain C interface, which `ctypes` loads. The library goes to
 `seeme_tpu_torch/_build/` (git-ignored), named by a hash of the sources,
 headers and flags, and is built at first use. No PyTorch headers are
-included, so the build takes seconds.
+included, so the build takes seconds. The check-and-build holds an
+exclusive file lock in `_build/`, so processes that start together (the
+ranks of a data-parallel run) build once: the first builds, the others wait
+and load its library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -80,17 +85,31 @@ def library_path() -> Path:
     return BUILD_DIR / f"libseeme_kernels_{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive `flock` on `_build/.lock`, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash, across threads and processes) and load
+    the kernel library."""
     global _lib, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
         path = library_path()
-        if not path.exists():
-            t0 = time.perf_counter()
-            build_log = _build(path)
-            build_seconds = time.perf_counter() - t0
+        with _build_lock():
+            if not path.exists():
+                t0 = time.perf_counter()
+                build_log = _build(path)
+                build_seconds = time.perf_counter() - t0
         _lib = open_library(path)
         return _lib
 

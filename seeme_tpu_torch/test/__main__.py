@@ -66,6 +66,18 @@ in its text-to-motion branch.
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
 float32 (TF32 off).
+
+Under torchrun (`python -m torch.distributed.run --nproc_per_node N -m
+seeme_tpu_torch.test ...`, or in a process group already joined) the ego
+branch shards each test batch over the ranks, as `test.py` samples a
+batch-sharded batch (`make_eval_sample_step(mesh)`): each rank takes its
+contiguous rows, draws its initial noise at the whole batch's shape and
+keeps its rows, counts its valid rows, and `EgoMetric.compute(sync=True)`
+sums the metric accumulators over the ranks, so every rank's means are the
+whole set's. The text- and action-to-motion branches sync no metric in
+`test.py`: there every rank evaluates the whole set. Only rank 0 writes
+(logs, metrics, times, predictions, gathered from every rank). `--cfg`
+refuses `MESH.MODEL_AXIS` other than 1.
 """
 
 from __future__ import annotations
@@ -80,6 +92,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import full_float32, resolve_device
 from ..config.egobody import OUT_ROOT
@@ -100,6 +113,8 @@ from ..eval.t2m_metrics import MMMetrics, MRMetrics, TM2TMetrics
 from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
 from ..nn.init import init_parameters_
+from ..parallel.mesh import (batch_sharding, join_world, leave_world, model_axis_of,
+                             process_rank, rows, shard_batch, valid_rows)
 from ..train.checkpoint import load_weights
 from ..utils.logger import create_experiment_dir, create_logger
 
@@ -155,6 +170,7 @@ class Evaluator:
 
     def __init__(self, args: argparse.Namespace):
         preset, config = cli_config(args.preset, args.cfg, args.cfg_assets, args.overrides)
+        model_axis_of(config)
         tc = preset.test
         for name in ("batch_size", "replication_times", "checkpoint"):
             if getattr(args, name) is not None:
@@ -162,14 +178,21 @@ class Evaluator:
         tc = dataclasses.replace(tc, count_time=tc.count_time or args.count_time,
                                  save_predictions=tc.save_predictions or args.save_predictions)
         self.preset = preset = dataclasses.replace(preset, test=tc)
-        self.device = resolve_device(args.device)
+        self.device, self.backend, self.mesh, self.joined = join_world(
+            resolve_device(args.device))
+        self.rank, self.world = process_rank()
+        self.shard = batch_sharding(self.mesh)
+        self.is_main = self.rank == 0
         full_float32()
         default_dir = (create_experiment_dir(config, phase="test") if config is not None
                        else os.path.join(OUT_ROOT, preset.name))
         self.exp_dir = os.path.abspath(args.out or default_dir)
-        os.makedirs(self.exp_dir, exist_ok=True)
         self._log_path = os.path.join(self.exp_dir, "test_log.txt")
-        self.logger = create_logger(self.exp_dir, phase="test") if config is not None else None
+        self.logger = None
+        if self.is_main:
+            os.makedirs(self.exp_dir, exist_ok=True)
+            if config is not None:
+                self.logger = create_logger(self.exp_dir, phase="test")
         self.stage, self.seed = preset.train.stage, preset.train.seed
         self.datamodule, self.system = build(preset, self.device)
         if self.datamodule.is_synthetic:
@@ -178,10 +201,13 @@ class Evaluator:
             self.log(f"loaded checkpoint {load_weights(tc.checkpoint, self.system)}")
         else:
             self.log("no checkpoint given -> evaluating the seeded random init")
+        world = f" world={self.world} backend={self.backend}" if self.mesh is not None else ""
         self.log(f"stage={self.stage} device={self.device} batch={tc.batch_size} "
-                 f"replications={tc.replication_times} out={self.exp_dir}")
+                 f"replications={tc.replication_times}{world} out={self.exp_dir}")
 
     def log(self, msg: str) -> None:
+        if not self.is_main:
+            return
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
         if self.logger is not None:
             self.logger.info(msg)
@@ -204,6 +230,10 @@ class Evaluator:
         system, tc = self.system, self.preset.test
         T = self.preset.model.motion_length
         fact = None if tc.fact == 1 else float(tc.fact)
+        latent = (tc.batch_size, *self.preset.model.latent_dim)
+        if tc.batch_size % self.world:
+            raise ValueError(f"batch size {tc.batch_size} does not split over "
+                             f"{self.world} ranks")
         cond_cache: Dict[int, torch.Tensor] = {}
         replications: List[Dict[str, float]] = []
         times: List[float] = []
@@ -212,18 +242,24 @@ class Evaluator:
             gen = torch.Generator(device=self.device).manual_seed(self.seed + rep)
             for i, (batch_np, n_valid) in enumerate(
                     eval_batches(self.datamodule, "test", tc.batch_size)):
+                # this rank's rows; the noise drawn at the whole batch's shape
+                batch_np = shard_batch(self.mesh, batch_np)
+                n_valid = valid_rows(n_valid, tc.batch_size, self.shard)
                 batch = to_torch(batch_np, self.device)
                 t0 = time.perf_counter()
                 if self.stage == "vae":
-                    feats = system.reconstruct(batch, generator=gen, sample_mean=tc.mean,
-                                               fact=fact)
+                    eps = None if tc.mean else rows(
+                        torch.randn(latent, generator=gen, device=self.device), self.shard)
+                    feats = system.reconstruct(batch, eps=eps, sample_mean=tc.mean, fact=fact)
                 else:
                     cond = None if tc.count_time else cond_cache.get(i)
                     if cond is None:
                         cond = system.encode_conditioning(batch)
                         if not tc.count_time:
                             cond_cache[i] = cond
-                    feats = system.sample_from_cond(cond, generator=gen)
+                    z_init = rows(torch.randn(latent, generator=gen, device=self.device),
+                                  self.shard)
+                    feats = system.sample_from_cond(cond, z_init=z_init)
                 out = system.eval_fk(batch, feats)
                 self._sync()
                 if tc.count_time:
@@ -234,7 +270,7 @@ class Evaluator:
                               mask[:n_valid])
                 if tc.save_predictions and rep == 0:
                     self._save_predictions(i * tc.batch_size, out, batch_np, n_valid)
-            replications.append(metric.compute())
+            replications.append(metric.compute(sync=self.world > 1))
             self.log(f"replication {rep}: " + " ".join(
                 f"{k}={v:.3f}" for k, v in sorted(replications[-1].items())))
         return self._finish(replications, times)
@@ -332,35 +368,48 @@ class Evaluator:
         return replications, times
 
     def _finish(self, replications: List[Dict[str, float]], times: List[float]) -> Dict:
-        """Statistics over the replications, `metrics_<stamp>.json`, `times.txt`."""
+        """Statistics over the replications, `metrics_<stamp>.json`, `times.txt`
+        (rank 0 writes them; its own batch times)."""
         tc = self.preset.test
         stats = get_metric_statistics(replications)
         for k, s in sorted(stats.items()):
             self.log(f"{k}: {s['mean']:.4f} +- {s['conf_interval']:.4f} "
                      f"[{s['min']:.4f}, {s['max']:.4f}]")
         path = os.path.join(self.exp_dir, f"metrics_{time.strftime('%Y-%m-%dT%H-%M-%S')}.json")
-        with open(path, "w") as f:
-            json.dump(stats, f, indent=2)
+        if self.is_main:
+            with open(path, "w") as f:
+                json.dump(stats, f, indent=2)
         self.log(f"wrote {path}")
-        if times:
+        if times and self.is_main:
             with open(os.path.join(self.exp_dir, "times.txt"), "w") as f:
                 f.writelines(f"{t}\n" for t in times)
             per_sample = (float(np.mean(times[1:])) if len(times) > 1 else times[0]) / tc.batch_size
             self.log(f"mean time per sample (batch {tc.batch_size}): {per_sample:.6f} s "
                      f"({1.0 / per_sample:.1f} samples/s)")
+        leave_world(self.joined)
         return {"stats": stats, "replications": replications, "metrics_path": path,
                 "times": times}
 
     def _save_predictions(self, first: int, out: Dict, batch_np: Dict, n_valid: int) -> None:
         """One npy of joints per sequence, prediction and ground truth (the
-        `save_npy` contract, `modeltype/base.py:215-256`)."""
+        `save_npy` contract, `modeltype/base.py:215-256`); rank 0 writes
+        every rank's valid rows (`first` is the whole batch's first index)."""
+        rst, ref = out["joints_rst"].cpu().numpy(), out["joints_ref"].cpu().numpy()
+        lengths = np.asarray(batch_np["length"])
+        mine = (first + self.shard[0] * len(rst), rst[:n_valid], ref[:n_valid],
+                lengths[:n_valid])
+        parts = [mine]
+        if self.mesh is not None:
+            parts = [None] * self.world
+            dist.all_gather_object(parts, mine)
+        if not self.is_main:
+            return
         pred_dir = os.path.join(self.exp_dir, "predictions")
         os.makedirs(pred_dir, exist_ok=True)
-        rst, ref = out["joints_rst"].cpu().numpy(), out["joints_ref"].cpu().numpy()
-        for b in range(n_valid):
-            L = int(batch_np["length"][b])
-            np.save(os.path.join(pred_dir, f"pred_{first + b}.npy"), rst[b, :L])
-            np.save(os.path.join(pred_dir, f"gt_{first + b}.npy"), ref[b, :L])
+        for start, rst, ref, lengths in parts:
+            for b, L in enumerate(lengths):
+                np.save(os.path.join(pred_dir, f"pred_{start + b}.npy"), rst[b, :int(L)])
+                np.save(os.path.join(pred_dir, f"gt_{start + b}.npy"), ref[b, :int(L)])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:

@@ -52,6 +52,23 @@ and it also writes a timestamped `<stamp>_train.log`, the `config.yaml`
 snapshot and the TensorBoard / Weights & Biases scalars where those packages
 are installed (`utils/logger.py`, as `train.py:83-87`). Every epoch's line
 carries `utils/profiling.py::memory_stats` (`train.py:390-394`).
+
+Data parallelism (`parallel/mesh.py`), as the reference's DDP:
+
+    python -m torch.distributed.run --nproc_per_node N -m seeme_tpu_torch.train --cfg FILE ...
+
+Under torchrun (or in a process group already joined) each rank runs on
+`cuda:{LOCAL_RANK % cards}` (NCCL when every rank has a card of its own,
+gloo when ranks share one), trains the stage's subtrees under
+`DistributedDataParallel` on its contiguous rows of each batch (the batch
+must split evenly over the ranks), draws each loss call's noise at the
+whole batch's shape and keeps its rows, and fills the whole feature cache
+itself. Dropout draws from torch's default generators, seeded with seed +
+rank. Only rank 0 writes the logs, `config.json`, `config.yaml`, the
+TensorBoard / W&B scalars and the checkpoints (with every rank's default
+generators; a resume must use the same world size); the others wait at a
+barrier. Outside torchrun it is one process, as before. `--cfg` refuses
+`MESH.MODEL_AXIS` other than 1 (tensor parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -66,6 +83,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import full_float32, resolve_device
 from ..config.egobody import OUT_ROOT
@@ -74,18 +92,22 @@ from ..config.presets import PRESETS, build, cli_config
 from ..data.batch import eval_batches
 from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
+from ..parallel.mesh import (batch_sharding, join_world, leave_world, model_axis_of,
+                             process_rank, replicated, shard_batch)
 from ..utils.logger import TensorBoardWriter, WandbLogger, create_experiment_dir, create_logger
 from ..utils.profiling import memory_stats
 from .checkpoint import (
     clear_stale_steps,
+    default_rng_states,
     load_pretrained_vae,
     normalize_resume_dir,
     resolve_latest,
     restore_state,
     resume_scan,
     save_state,
+    step_path,
 )
-from .loop import run_epoch, validate
+from .loop import StageLoss, run_epoch, validate
 from .state import make_optimizer
 
 
@@ -115,6 +137,7 @@ class Trainer:
 
     def __init__(self, args: argparse.Namespace):
         preset, config = cli_config(args.preset, args.cfg, args.cfg_assets, args.overrides)
+        model_axis_of(config)
         if args.nodebug:
             preset = dataclasses.replace(preset, debug=False)
             if config is not None:
@@ -127,23 +150,30 @@ class Trainer:
         if args.pretrained_vae is not None:
             tc = dataclasses.replace(tc, pretrained_vae=args.pretrained_vae)
         self.preset = preset = dataclasses.replace(preset, train=tc)
-        self.device = resolve_device(args.device)
+        self.device, self.backend, self.mesh, self.joined = join_world(
+            resolve_device(args.device))
+        self.rank, self.world = process_rank()
+        self.shard = batch_sharding(self.mesh)
+        self.is_main = self.rank == 0
         full_float32()
         default_dir = (create_experiment_dir(config) if config is not None
                        else os.path.join(OUT_ROOT, preset.name))
         self.exp_dir = os.path.abspath(args.out or default_dir)
-        os.makedirs(self.exp_dir, exist_ok=True)
         self._log_path = os.path.join(self.exp_dir, "train_log.txt")
         self.logger = None
         self.tb = self.wb = None
-        if config is not None:
-            self.logger = create_logger(self.exp_dir, "train")
-            save_config(config, os.path.join(self.exp_dir, "config.yaml"))
-            self.tb = TensorBoardWriter(self.exp_dir,
-                                        enabled=bool(config.select("LOGGER.TENSORBOARD", True)))
-            self.wb = WandbLogger(config, self.exp_dir)
+        if self.is_main:
+            os.makedirs(self.exp_dir, exist_ok=True)
+            if config is not None:
+                self.logger = create_logger(self.exp_dir, "train")
+                save_config(config, os.path.join(self.exp_dir, "config.yaml"))
+                self.tb = TensorBoardWriter(
+                    self.exp_dir, enabled=bool(config.select("LOGGER.TENSORBOARD", True)))
+                self.wb = WandbLogger(config, self.exp_dir)
         self.stage, self.seed = tc.stage, tc.seed
         self.datamodule, self.system = build(preset, self.device)
+        if self.world > 1:  # each rank's dropout masks its own rows
+            torch.manual_seed(self.seed + self.rank)
         self.preset = preset = dataclasses.replace(preset, model=self.system.cfg)
         self.is_t2m = isinstance(self.system, T2MSystem)
         self.is_a2m = isinstance(self.system, A2MSystem)
@@ -167,6 +197,9 @@ class Trainer:
             self.log(f"batch size {self.batch_size} exceeds the train split ({n_train}); "
                      f"clamped to {n_train}")
             self.batch_size = n_train
+        if self.batch_size % self.world:
+            raise ValueError(f"batch size {self.batch_size} does not split over "
+                             f"{self.world} ranks")
         self.steps_per_epoch = max(n_train // self.batch_size, 1)
         self.optimizer, self.schedule = make_optimizer(
             self.stage, self.system, lr=tc.lr, step_size_epochs=tc.step_size, gamma=tc.gamma,
@@ -179,22 +212,37 @@ class Trainer:
             if resume_scan(resume)[1] is None:
                 raise FileNotFoundError(
                     f"--resume {resume} has no checkpoint under {resume}/checkpoints")
-            if resume != self.exp_dir:
+            if resume != self.exp_dir and self.is_main:
                 clear_stale_steps(self.exp_dir)
-            self.step, _ = restore_state(resume, self.system, self.optimizer, self.generator)
+            self.step, _ = restore_state(resume, self.system, self.optimizer, self.generator,
+                                         self.rank, self.world)
             self.start_epoch = self.step // self.steps_per_epoch
             self.log(f"resumed from {resume} @ step {self.step} (epoch {self.start_epoch})")
-        elif clear_stale_steps(self.exp_dir):
+        elif self.is_main and clear_stale_steps(self.exp_dir):
             self.log(f"cleared checkpoints an earlier run left in {self.exp_dir}")
-        with open(os.path.join(self.exp_dir, "config.json"), "w") as f:
-            json.dump({"preset": args.preset, "cfg": args.cfg, **dataclasses.asdict(preset)}, f,
-                      indent=1)
+        if self.is_main:
+            with open(os.path.join(self.exp_dir, "config.json"), "w") as f:
+                json.dump({"preset": args.preset, "cfg": args.cfg,
+                           **dataclasses.asdict(preset)}, f, indent=1)
+        # the stage's loss under DDP, which broadcasts rank 0's weights now
+        self.model = (replicated(StageLoss(self.system, self.stage), self.device)
+                      if self.mesh is not None else None)
+        self.barrier()
         self.history: List[Dict] = []
         self.checkpoints: List[str] = []
+        world = f" world={self.world} backend={self.backend}" if self.mesh is not None else ""
         self.log(f"stage={self.stage} device={self.device} batch={self.batch_size} "
-                 f"steps/epoch={self.steps_per_epoch} out={self.exp_dir}")
+                 f"steps/epoch={self.steps_per_epoch}{world} out={self.exp_dir}")
+
+    def barrier(self) -> None:
+        """Every rank waits here for the others (rank 0's writes); nothing
+        outside a process group."""
+        if self.mesh is not None:
+            dist.barrier()
 
     def log(self, msg: str) -> None:
+        if not self.is_main:
+            return
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
         if self.logger is not None:
             self.logger.info(msg)
@@ -207,6 +255,7 @@ class Trainer:
         if self.tb is not None:
             self.tb.close()
             self.wb.finish()
+        leave_world(self.joined)
 
     def fill_feature_cache(self) -> Optional[float]:
         """Stage 2's cache of the frozen encoders' features, once per sample
@@ -273,9 +322,10 @@ class Trainer:
         tc = self.preset.train
         val_every = max(tc.val_every_steps, 1)
         for epoch in range(self.start_epoch, tc.end_epoch):
+            batches = (shard_batch(self.mesh, b) for b in self.train_batches(epoch))
             self.step, means, steps, ms = run_epoch(
-                self.system, self.stage, self.optimizer, self.schedule, self.step,
-                self.train_batches(epoch), self.generator)
+                self.system, self.stage, self.optimizer, self.schedule, self.step, batches,
+                self.generator, model=self.model, shard=self.shard)
             memory = memory_stats(self.device)
             record = {"epoch": epoch, "means": means, "steps": steps, "step_ms": ms,
                       "memory": memory}
@@ -288,15 +338,29 @@ class Trainer:
                 self.tb.scalars(self.step, means, prefix=f"{self.stage}/")
                 self.wb.log(self.step, means, prefix=f"{self.stage}/")
             if (epoch + 1) % val_every == 0:
-                record["val"] = validate(self.system, self.stage, self.val_batches())
+                record["val"] = validate(self.system, self.stage, (
+                    (shard_batch(self.mesh, b), n) for b, n in self.val_batches()), self.shard)
                 self.log(f"val epoch {epoch} " + " ".join(
                     f"{k}={v:.5f}" for k, v in sorted(record["val"].items())))
             if (epoch + 1) % tc.save_checkpoint_epoch == 0 or epoch + 1 == tc.end_epoch:
-                self.checkpoints.append(save_state(self.exp_dir, self.system, self.optimizer,
-                                                   self.step, epoch + 1, self.generator))
+                self.checkpoints.append(self.save(epoch + 1))
                 self.log(f"checkpoint @ step {self.step}: {self.checkpoints[-1]}")
             self.history.append(record)
         return self.history
+
+    def save(self, epoch: int) -> str:
+        """Rank 0 writes the checkpoint, with every rank's default generators
+        in a data-parallel run; the others wait for it."""
+        ranks = None
+        if self.mesh is not None:
+            ranks = [None] * self.world
+            dist.all_gather_object(ranks, default_rng_states())
+        path = step_path(self.exp_dir, self.step)
+        if self.is_main:
+            path = save_state(self.exp_dir, self.system, self.optimizer, self.step, epoch,
+                              self.generator, ranks)
+        self.barrier()
+        return path
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:

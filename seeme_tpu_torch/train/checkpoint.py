@@ -7,13 +7,18 @@ reference keys (`vae.*`, `denoiser.*`, `proscene.scene_enc.*`,
 random generators' states (the loss draws' generator and torch's default
 ones, which drive dropout), so a resumed run continues bit for bit. Stage 2
 takes only the `vae.*` keys of a stage-1 checkpoint (`train.py:155-167`).
+
+A data-parallel run's checkpoint (written by rank 0) also holds its world
+size and every rank's default generators, which differ by rank (dropout
+draws on each rank's rows); a resume at the same world size restores each
+rank's own, and one at another size raises.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,10 +36,16 @@ def _steps(ckpt_dir: str):
     return [int(m.group(1)) for m in map(_STEP.fullmatch, os.listdir(ckpt_dir)) if m]
 
 
-def _rng_states(generator: Optional[torch.Generator]) -> Dict:
+def default_rng_states() -> Dict:
+    """This process's default generators: the CPU's and every card's."""
     states = {"cpu": torch.get_rng_state()}
     if torch.cuda.is_available():
         states["cuda"] = torch.cuda.get_rng_state_all()
+    return states
+
+
+def _rng_states(generator: Optional[torch.Generator]) -> Dict:
+    states = default_rng_states()
     if generator is not None:
         states["generator"] = generator.get_state()
     return states
@@ -52,30 +63,48 @@ def clear_stale_steps(exp_dir: str) -> int:
     return len(stale)
 
 
+def step_path(exp_dir: str, step: int) -> str:
+    return os.path.join(checkpoint_dir(exp_dir), f"{step}.pt")
+
+
 def save_state(exp_dir: str, system: nn.Module, optimizer: torch.optim.Optimizer, step: int,
-               epoch: int, generator: Optional[torch.Generator] = None) -> str:
-    ckpt = checkpoint_dir(exp_dir)
-    os.makedirs(ckpt, exist_ok=True)
-    path = os.path.join(ckpt, f"{step}.pt")
-    torch.save({"state_dict": system.state_dict(), "optimizer": optimizer.state_dict(),
-                "step": int(step), "epoch": int(epoch), "rng": _rng_states(generator)},
-               path + ".tmp")
+               epoch: int, generator: Optional[torch.Generator] = None,
+               rank_states: Optional[List[Dict]] = None) -> str:
+    """Write `<step>.pt`; `rank_states` is every rank's `default_rng_states`,
+    in rank order, of a data-parallel run."""
+    os.makedirs(checkpoint_dir(exp_dir), exist_ok=True)
+    path = step_path(exp_dir, step)
+    state = {"state_dict": system.state_dict(), "optimizer": optimizer.state_dict(),
+             "step": int(step), "epoch": int(epoch), "rng": _rng_states(generator)}
+    if rank_states is not None:
+        state["world"] = len(rank_states)
+        state["rng"]["ranks"] = rank_states
+    torch.save(state, path + ".tmp")
     os.replace(path + ".tmp", path)  # a cut run leaves no half-written step
     return path
 
 
 def restore_state(path: str, system: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None,
-                  generator: Optional[torch.Generator] = None) -> Tuple[int, int]:
+                  generator: Optional[torch.Generator] = None, rank: int = 0,
+                  world: int = 1) -> Tuple[int, int]:
     """Load a checkpoint file, or an experiment dir's latest one, into the
-    system, the optimizer and the generators; returns (step, epoch)."""
-    ckpt = torch.load(checkpoint_file(path), map_location="cpu", weights_only=False)
+    system, the optimizer and the generators (the default ones of `rank`);
+    returns (step, epoch). Raises when the checkpoint was written at another
+    world size."""
+    path = checkpoint_file(path)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    saved = ckpt.get("world", 1)
+    if saved != world:
+        raise ValueError(f"checkpoint {path} was written by a run of world size {saved}; "
+                         f"this run has world size {world}: resume it at world size {saved}")
     system.load_state_dict(ckpt["state_dict"])
     if optimizer is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
     rng = ckpt["rng"]
-    torch.set_rng_state(rng["cpu"])
-    if "cuda" in rng and torch.cuda.is_available():
-        torch.cuda.set_rng_state_all(rng["cuda"])
+    own = rng["ranks"][rank] if "ranks" in rng else rng
+    torch.set_rng_state(own["cpu"])
+    if "cuda" in own and torch.cuda.is_available():
+        torch.cuda.set_rng_state_all(own["cuda"])
     if generator is not None and "generator" in rng:
         generator.set_state(rng["generator"])
     return ckpt["step"], ckpt["epoch"]

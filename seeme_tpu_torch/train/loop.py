@@ -6,9 +6,16 @@ A step is the loss of its stage (`SeeMeSystem.vae_loss` or
 rate, with the loss terms fetched from the device once. `run_epoch` takes
 its batches through `data/prefetch.py::prefetch_to_device`, as the JAX loop
 does (`seeme_tpu/train/loop.py:264-295`): the next batch's copy to the card
-overlaps the step. The JAX package's scan, gather, sharding and
-device-resident variants exist for XLA dispatch and have no counterpart
-here.
+overlaps the step. The JAX package's scan, gather and device-resident
+variants exist for XLA dispatch and have no counterpart here.
+
+Data parallelism (`parallel/mesh.py`): each rank's step takes its rows of
+the batch, through `model`, the stage's loss under
+`DistributedDataParallel` (`StageLoss`), whose backward averages the
+gradients over the ranks; `shard` (rank, ranks) makes each loss call's
+draws at the whole batch's shape and keeps the rank's rows, so they equal
+one process's. The loss terms are averaged over the ranks before their
+one fetch, and validation's sums too, so both read as one process's.
 
 Random draws: each loss call draws its noise from the explicit `generator`
 (or takes injected `draws`). `nn.Dropout` takes no generator, so dropout
@@ -26,30 +33,55 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..data.prefetch import prefetch_to_device
 from ..data.synthetic import to_torch
+from ..parallel.mesh import mean_over_ranks
+
+ONE = (0, 1)  # the shard of a process that holds the whole batch
 
 
 def loss_fn(system, stage: str):
     return system.vae_loss if stage == "vae" else system.diffusion_loss
 
 
+class StageLoss(nn.Module):
+    """A stage's loss as a module's forward, (batch, draws) -> (loss, terms):
+    the module `DistributedDataParallel` wraps, since DDP hooks the
+    gradients of what its forward ran."""
+
+    def __init__(self, system: nn.Module, stage: str):
+        super().__init__()
+        self.system, self.stage = system, stage
+
+    def forward(self, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
+        return loss_fn(self.system, self.stage)(batch, draws=draws)
+
+
 def fetch_terms(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """All loss terms in one device-to-host transfer."""
+    """All loss terms in one device-to-host transfer, averaged over the
+    ranks first."""
     keys = sorted(terms)
-    return dict(zip(keys, torch.stack([terms[k].detach().reshape(()) for k in keys]).tolist()))
+    stacked = torch.stack([terms[k].detach().reshape(()) for k in keys])
+    return dict(zip(keys, mean_over_ranks(stacked).tolist()))
 
 
 def train_step(system, stage: str, optimizer: torch.optim.Optimizer,
                schedule: Callable[[int], float], count: int, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, float]:
-    """One update, the `count`-th (0-based) of the run; returns the loss terms."""
+               draws: Optional[Dict[str, torch.Tensor]] = None,
+               model: Optional[nn.Module] = None,
+               shard: Tuple[int, int] = ONE) -> Dict[str, float]:
+    """One update, the `count`-th (0-based) of the run; returns the loss
+    terms. `model` is the stage's `StageLoss` under DDP, `batch` then the
+    rank's `shard` of the step's batch."""
     lr = schedule(count)
     for group in optimizer.param_groups:
         group["lr"] = lr
-    loss, terms = loss_fn(system, stage)(batch, generator=generator, draws=draws)
+    if draws is None:
+        draws = system.loss_draws(stage, batch, generator, shard=shard)
+    loss, terms = (model if model is not None else loss_fn(system, stage))(batch, draws=draws)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
@@ -83,16 +115,19 @@ class _StepClock:
 def run_epoch(system, stage: str, optimizer: torch.optim.Optimizer,
               schedule: Callable[[int], float], count: int,
               batches: Iterable[Dict[str, np.ndarray]],
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None,
+              model: Optional[nn.Module] = None, shard: Tuple[int, int] = ONE,
               ) -> Tuple[int, Dict[str, float], List[Dict[str, float]], List[float]]:
-    """One pass over host batches, prefetched to the system's device;
+    """One pass over host batches (a rank's rows of each, with `model` and
+    `shard` as `train_step` takes them), prefetched to the system's device;
     returns (the update count after it, the mean of each term, each step's
     terms, each step's milliseconds)."""
     clock = _StepClock(system.device)
     steps = []
     for b in prefetch_to_device(batches, system.device):
         clock.mark()
-        terms = train_step(system, stage, optimizer, schedule, count, b, generator)
+        terms = train_step(system, stage, optimizer, schedule, count, b, generator,
+                           model=model, shard=shard)
         clock.mark()
         count += 1
         steps.append(terms)
@@ -101,17 +136,21 @@ def run_epoch(system, stage: str, optimizer: torch.optim.Optimizer,
 
 
 @torch.no_grad()
-def validate(system, stage: str,
-             batches: Iterable[Tuple[Dict[str, np.ndarray], int]]) -> Dict[str, float]:
+def validate(system, stage: str, batches: Iterable[Tuple[Dict[str, np.ndarray], int]],
+             shard: Tuple[int, int] = ONE) -> Dict[str, float]:
     """Mean loss terms over `eval_batches` (the padded tail batch counts as
     a whole one, as in the JAX package); the draws come from a generator
     seeded with 0 at every call, as the JAX trainer's validation keys come
-    from `PRNGKey(0)`, so two validations of the same weights draw alike."""
+    from `PRNGKey(0)`, so two validations of the same weights draw alike.
+    With `shard`, the batches are a rank's rows, the draws are the whole
+    batch's, and each batch's terms are averaged over the ranks."""
     gen = torch.Generator(device=system.device).manual_seed(0)
     acc: Dict[str, float] = {}
     n = 0
     for b, _ in batches:
-        _, terms = loss_fn(system, stage)(to_torch(b, system.device), generator=gen)
+        batch = to_torch(b, system.device)
+        draws = system.loss_draws(stage, batch, gen, shard=shard)
+        _, terms = loss_fn(system, stage)(batch, draws=draws)
         for k, v in fetch_terms(terms).items():
             acc[k] = acc.get(k, 0.0) + v
         n += 1

@@ -25,6 +25,7 @@ agrees with the eager module's autograd. Host-to-device prefetching gives
 the host batches bitwise.
 """
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -602,3 +603,144 @@ def test_prefetch_to_device_equals_the_host_batches(cuda, size):
         assert torch.equal(seen.cpu(), torch.as_tensor(b["scene"]))
         assert torch.equal(got["scene"].cpu(), torch.as_tensor(b["scene"]))
         assert torch.equal(got["length"].cpu(), torch.as_tensor(b["length"]))
+
+
+def block0_out(enc, points):
+    """(net, x) of the scene encoder's first block, per point: its fc_0
+    output, where its second ReLU decides, and the output the first
+    max-pool takes."""
+    h = enc.fc_pos_0(points)
+    b0 = enc.block_0
+    net = b0.fc_0(torch.relu(h))
+    return net, b0.shortcut(h) + b0.fc_1(torch.relu(net))
+
+
+def plant_near_ties(enc, points, generator, pool_ties: int = 64) -> None:
+    """In place: for every channel of `block_0.fc_0`, its bias moved so that
+    one random point's input to the ReLU is 0 in float64; then for
+    `pool_ties` channels of the first max-pool (sample c % B), a point of the
+    lower half moved along its gradient until its float64 value equals the
+    channel's max, and one coordinate set to the float32 neighbour that
+    comes closest. In float32 each planted value sits within rounding of its
+    ReLU's 0 or of its pool's max."""
+    B, N, _ = points.shape
+    H = enc.hidden_dim
+    twin = ResnetPointnet(enc.fc_c.out_features, H).double()
+    with torch.no_grad():
+        twin.load_state_dict(enc.state_dict())
+        pick = torch.randint(0, B * N, (H,), generator=generator)
+        net = block0_out(twin, points.double())[0].reshape(B * N, H)
+        enc.block_0.fc_0.bias -= net[pick, torch.arange(H)].float()
+        twin.load_state_dict(enc.state_dict())
+    taken = set(pick.tolist())
+
+    def value(p, c):
+        return block0_out(twin, p.double())[1][..., c]
+
+    for c in range(pool_ties):
+        b = c % B
+        with torch.no_grad():
+            col = value(points[b], c)
+        top = float(col.max())
+        for j in torch.argsort(col, descending=True)[N // 2:].tolist():
+            if b * N + j in taken:
+                continue
+            start = points[b, j].double().requires_grad_(True)
+            d, = torch.autograd.grad(value(start, c), start)
+            start, d = start.detach(), d / d.norm()
+            with torch.no_grad():
+                hi = 1e-2
+                while float(value(start + hi * d, c)) < top and hi < 1e2:
+                    hi *= 2
+                if float(value(start + hi * d, c)) < top:
+                    continue
+                lo = 0.0
+                for _ in range(80):
+                    mid = (lo + hi) / 2
+                    lo, hi = (mid, hi) if float(value(start + mid * d, c)) < top else (lo, mid)
+                q = (start + hi * d).float()
+                near = [q.clone() for _ in range(27)]
+                for i, w in enumerate(near):
+                    w[i // 9] = q[i // 9] + (i % 9 - 4) * torch.finfo(torch.float32).eps * \
+                        max(abs(float(q[i // 9])), 1e-3)
+                points[b, j] = min(near, key=lambda w: abs(float(value(w, c)) - top))
+            taken.add(b * N + j)
+            break
+
+
+def test_replayed_scene_decisions_hold_planted_ties(cuda):
+    """`chip_smoke.relu_decisions` under `chip_smoke.compare_step`, the gate
+    of phases 28-29's card-vs-CPU train steps, on EgoHMR's scene encoder
+    (hidden 256, out 512; B = 8, 1024 points, one AdamW step of a seeded
+    projection of its output). Near ties are planted (`plant_near_ties`:
+    256 ReLU inputs of `block_0` at 0, 64 first-pool maxima tied), so the
+    card and the CPU decide some of them apart. Without the replay of the
+    card's decisions in the encoder's recompute in backward (all the
+    encoder's ReLUs and max-pools; it calls no other) the gate fails; with
+    it the step passes; with it and an error of 2e-3 of max |g| planted in
+    one element of `block_0.fc_0.weight`'s gradient the gate fails on that
+    tensor."""
+    import chip_smoke as smoke
+
+    from seeme_tpu_torch.models.egohmr import SCENE_HIDDEN
+
+    class Scene(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.scene_enc = ResnetPointnet(EgoHmrConfig().scene_feat_dim,
+                                            hidden_dim=SCENE_HIDDEN)
+            self._fused = pfu.FusedPointnet()
+
+        def encode_scene(self, pcd):
+            return self._fused(self.scene_enc, pcd)
+
+    g = torch.Generator().manual_seed(7)
+    points = torch.rand(8, 1024, 3, generator=g) * 2 - 1
+    proj = torch.randn(8, EgoHmrConfig().scene_feat_dim, generator=g)
+    start = seeded(Scene(), 8, "cpu")
+    plant_near_ties(start.scene_enc, points, g)
+    sd = start.state_dict()
+
+    def step(device, masks=None, record=False, hook=None):
+        m = Scene().to(device)
+        m.load_state_dict(sd)
+        m.requires_grad_(True)
+        if hook is not None:
+            m.scene_enc.block_0.fc_0.weight.register_hook(hook)
+        opt = torch.optim.AdamW(m.parameters(), lr=smoke.TRAIN_LR)
+        replay = (smoke.relu_decisions(m, masks, record=record) if masks is not None
+                  else contextlib.nullcontext())
+        with replay:
+            loss = (m.encode_scene(points.to(device)) * proj.to(device)).sum()
+            loss.backward()
+        opt.step()
+        return m, float(loss.detach())
+
+    masks = []
+    card, loss_card = step(cuda, masks, record=True)
+    with torch.no_grad():
+        net, x = block0_out(start.scene_enc, points)
+    kinds = [k for k, _ in masks]
+    assert kinds.count("amax") == 4 and kinds.count("relu") == 12, kinds
+    relu_flips = int((masks[1][1] != (net > 0)).sum())
+    first_pool = masks[kinds.index("amax")][1]
+    pool_flips = int((first_pool != (x == x.amax(1, keepdim=True))).sum())
+    print(f"card vs CPU decisions apart: {relu_flips} of block_0's ReLUs, "
+          f"{pool_flips} entries of the first pool's mask")
+    assert relu_flips > 0
+
+    bare, loss_bare = step("cpu")
+    with pytest.raises(SystemExit, match="gradient differs card vs CPU") as failed:
+        smoke.compare_step("unreplayed", bare, card, loss_bare, loss_card, smoke.TRAIN_LR)
+    print(f"    unreplayed: {failed.value}")
+    cpu, loss_cpu = step("cpu", masks)
+    smoke.compare_step("replayed", cpu, card, loss_cpu, loss_card, smoke.TRAIN_LR)
+
+    grad = cpu.scene_enc.block_0.fc_0.weight.grad
+    error = torch.zeros_like(grad)
+    error[3, 5] = 2e-3 * float(grad.abs().max())
+    wrong, loss_wrong = step("cpu", masks, hook=lambda gr: gr + error)
+    with pytest.raises(SystemExit,
+                       match=r"scene_enc\.block_0\.fc_0\.weight gradient differs") as failed:
+        smoke.compare_step("planted error", wrong, card, loss_wrong, loss_card, smoke.TRAIN_LR)
+    print(f"    planted error: {failed.value}")

@@ -61,7 +61,9 @@ def jax_params(system):
 
 
 def jax_draws(jsystem, stage, batch, rng):
-    """The draws `vae_loss` / `diffusion_loss` make from `rng`, re-derived."""
+    """The draws `vae_loss` / `diffusion_loss` make from `rng`, re-derived,
+    at the batch's size."""
+    B = batch["feats"].shape[0]
     shape = (B, 1, W)
     if stage == "vae":
         _, sample_rng = jax.random.split(rng)
