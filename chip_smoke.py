@@ -10,7 +10,8 @@ kernels with a multi-token EgoBody config from the shipped YAML, the
 root entry points `demo`, `scene_encoder` and `fit` through `--cfg`, the
 SMPL model file on those paths, the evaluators trained by
 `tools.train_evaluator` and used by the test CLI, the HumanML3D feature
-pipeline with RIFKE and APE / AVE, and host-to-device prefetching.
+pipeline with RIFKE and APE / AVE, host-to-device prefetching, data
+parallelism, the train CLI's two dispatch routes and the model axis.
 
     python3 chip_smoke.py
 
@@ -248,7 +249,28 @@ Phases, each printing one line with its seconds as soon as it ends:
  57. the ego test CLI on 55's one-process checkpoint at 2 ranks against one
      process: MPJPE / ROOT / HEAD / ACCL within 1e-6 relative, each rank
      input block 1, split block 3 and kernel 3 once a batch and
-     replication at 32 rows.
+     replication at 32 rows;
+ 58. the train CLI's two dispatch routes in one process (`dispatch_phases`):
+     stage 2 of `config_mld_egobody.yaml` (B=64, 20 000 points, dropout 0,
+     2 epochs of 4 steps) with the cache, without it and at guidance 2.5 on
+     the card's defaults (the split on the card, 8 steps a fetch) against
+     the host route at 1: routes and log lines, parameters and losses
+     within 1e-6 of max, 2 fetches an epoch, launches alike (1 / 3 a step
+     without the cache); ms a step and idle share of each route, the
+     split's GB; one epoch each of the HumanML3D and HumanAct12 configs the
+     same way;
+ 59. one torchrun of two ranks (`--ddp-worker slice15`): the train CLI of
+     phase 55 on the device route against 55's one process, with 55's
+     gates and 2 fetches an epoch;
+ 60. in the same ranks, the train CLI at `MESH.MODEL_AXIS=2` (a 1 x 2 mesh)
+     against 55's one process; then `shard_params` on `SeeMeConfig()` at
+     B=64: the loss within 1e-4 and the parameters within 1e-5 of max of
+     the replicated step's, half the storage and half the AdamW moments of
+     the sharded tensors a rank, kernel 3's sample from the gathered
+     operands within 1e-6 of the unsharded one's and following the update.
+Phases 6-8, 13-14, 47 and 55-57 time and gate the host route at one step a
+fetch (`HOST_ROUTE`, `HOST_ROUTE_CFG`); the other training phases take the
+card's default route.
 Then one JSON line of per-kernel numbers (each kernel's launches on every
 path; kernel 3's numbers at 1 and 3 condition tokens; the PointNet kernels
 at H=256 as rows of their own, `pointnet_*_block_h256`, whose main path is
@@ -271,6 +293,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -294,6 +317,12 @@ HMR_POINTS = 20000       # the perception stack's scene points at full width
 EVAL_T2M_EPOCHS = 150    # the TM2T trio's epochs on the --debug split (the JAX test's count)
 FEATURE_RTOL = 1e-5      # card vs CPU features of preprocess_humanml, relative to max |feat|
 PREFETCH_STEPS = 6       # timed stage-2 steps of the prefetching epoch and of the synchronous loop
+# the host route, one fetch a step, which phases 6-8, 13-14, 47 and 55-57 time and gate
+HOST_ROUTE = ["train.device_data=False", "train.steps_per_dispatch=1"]
+HOST_ROUTE_CFG = ["TRAIN.DEVICE_DATA=false", "TRAIN.STEPS_PER_DISPATCH=1"]
+DISPATCH_RTOL = 1e-6     # device route vs host route: parameters and losses, relative to max
+SHARD_LOSS_RTOL = 1e-4   # the model-axis sharded step's loss vs the replicated step's
+SHARD_PARAM_RTOL = 1e-5  # its parameters after one AdamW step, relative to each tensor's max
 
 _t0 = time.perf_counter()
 
@@ -804,6 +833,12 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="seeme_dispatch_")
+    try:
+        dispatch_phases(dev, counted, counters, record, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="seeme_ddp_")
     try:
         ddp_phases(dev, record, card, work)
@@ -867,7 +902,7 @@ def train_phases(dev, counted, counters, record, work: str) -> str:
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     s1, counts = counted(lambda: main(["--preset", "vae_egobody", "--epochs", "2",
-                                       "--out", os.path.join(work, "s1")]))
+                                       "--out", os.path.join(work, "s1"), *HOST_ROUTE]))
     peak = torch.cuda.max_memory_allocated()
     require(counts == none, f"stage 1 launch counts {counts}")
     record("train_stage1", counts)
@@ -883,7 +918,7 @@ def train_phases(dev, counted, counters, record, work: str) -> str:
     # ---- 7. stage 2: set-up, cache fill, epochs, validation
     t = time.perf_counter()
     argv = ["--preset", "mld_egobody", "--epochs", "2", "--out", os.path.join(work, "s2"),
-            "--pretrained_vae", s1.checkpoints[-1], "train.val_every_steps=2"]
+            "--pretrained_vae", s1.checkpoints[-1], "train.val_every_steps=2", *HOST_ROUTE]
     s2 = Trainer(parse_args(argv))
     sd1 = s1.system.state_dict()
     loaded = {k: v.clone() for k, v in s2.system.state_dict().items()}
@@ -937,7 +972,8 @@ def train_phases(dev, counted, counters, record, work: str) -> str:
     t = time.perf_counter()
     cfg_run = Trainer(parse_args(["--preset", "mld_egobody", "--out",
                                   os.path.join(work, "s2_cfg"), "--pretrained_vae",
-                                  s1.checkpoints[-1], "model.guidance_scale=2.5"]))
+                                  s1.checkpoints[-1], "model.guidance_scale=2.5",
+                                  *HOST_ROUTE]))
     require(cfg_run.fill_feature_cache() is None, "the cache filled at guidance 2.5")
     batches = cfg_run.train_batches(0)
     for i in range(2):
@@ -1223,7 +1259,7 @@ def variant_phases(dev, counted, counters, record, s1_checkpoint: str, work: str
     t = time.perf_counter()
     trainer = Trainer(train_args(["--preset", "mld_egobody_image", "--epochs", "1",
                                   "--out", os.path.join(work, "s2_image"), "--pretrained_vae",
-                                  s1_checkpoint, "train.val_every_steps=1"]))
+                                  s1_checkpoint, "train.val_every_steps=1", *HOST_ROUTE]))
     system = trainer.system
     frozen = {k: v.clone() for k, v in system.state_dict().items()
               if k.startswith(("image_encoder.", "vae.", "proscene."))}
@@ -3122,7 +3158,7 @@ def prefetch_phases(dev, counted, counters, record, work: str) -> None:
     t = time.perf_counter()
     none = {k: 0 for k in counters}
     argv = ["--preset", "mld_egobody", "--epochs", "1", "train.feature_cache=False",
-            "--out", os.path.join(work, "prefetch")]
+            *HOST_ROUTE, "--out", os.path.join(work, "prefetch")]
     a, b = Trainer(parse_args(argv)), Trainer(parse_args(argv))
     b.system.load_state_dict(a.system.state_dict())
     host = list(itertools.islice(itertools.chain.from_iterable(
@@ -3876,6 +3912,149 @@ def tok_flops(sd, num_layers: int, rows: int, n_cond: int, steps: int, tokens: i
     return total
 
 
+def dispatch_phases(dev, counted, counters, record, card: str, work: str) -> None:
+    """Phase 58: the train CLI's two routes in one process. Stage 2
+    of `config_mld_egobody.yaml` (full width, B=64, 20 000 points, dropout
+    0, validation every epoch, 2 epochs of 4 steps) with the cache, without
+    it, and at guidance 2.5, each on the card's defaults (the split on the
+    card, 8 steps a fetch) against the host route at 1 (`HOST_ROUTE_CFG`),
+    then one epoch each of `config_mld_humanml3d.yaml` and
+    `config_mld_humanact12.yaml` the same way. Gates: the routes and their
+    log lines, parameters and every step's loss within 1e-6 of max (bitwise
+    reported), the device route's fetches (one a group and one a
+    validation: 2 an epoch at 4 steps), launches alike on both routes (1 /
+    3 a step and a validation without the cache). Then, past the checks,
+    each trainer runs one more epoch on its route, timed (ms a step on the
+    host clock, ending in a synchronise; the median step by CUDA events),
+    and one under `torch.profiler` (the device's idle share); and the
+    split's GB on the card."""
+    import numpy as np
+    import torch
+
+    from seeme_tpu_torch.train import __main__ as cli
+    from seeme_tpu_torch.train import loop
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    none = {k: 0 for k in counters}
+
+    def run(name, args, epochs):
+        """One trainer, its cache filled and fitted with counts and the
+        fetches recorded; then, past the checks, one more epoch on its route
+        timed on the host clock and one under `torch.profiler`."""
+        fetches = []
+        patch = _Patches()
+        real_fetch = loop.fetch_steps
+
+        def fetch(keys, rows):
+            fetches.append(len(rows))
+            return real_fetch(keys, rows)
+
+        patch(loop, "fetch_steps", fetch)
+        try:
+            trainer = cli.Trainer(cli.parse_args([*args, "--epochs", str(epochs), "--out",
+                                                  os.path.join(work, name)]))
+            _, fill = counted(trainer.fill_feature_cache)
+            _, fit = counted(trainer.fit)
+        finally:
+            patch.undo()
+        rec = {"fill": fill, "fit": fit, "fetches": fetches, "route": trainer.route,
+               "steps": [s["total"] for r in trainer.history for s in r["steps"]],
+               "state": {k: v.detach().clone() for k, v in trainer.system.state_dict().items()},
+               "steps_per_epoch": trainer.steps_per_epoch,
+               "log": open(os.path.join(trainer.exp_dir, "train_log.txt")).read()}
+        data, k = trainer.dispatch()
+
+        def epoch():
+            seed = trainer.seed + epochs
+            common = dict(generator=trainer.generator, steps_per_dispatch=k)
+            if data is not None:
+                index = trainer.datamodule.batch_indices("train", trainer.batch_size, seed=seed)
+                return loop.run_epoch_device(trainer.system, trainer.stage, trainer.optimizer,
+                                             trainer.schedule, trainer.step, data, index, **common)
+            return loop.run_epoch(trainer.system, trainer.stage, trainer.optimizer,
+                                  trainer.schedule, trainer.step, trainer.train_batches(epochs),
+                                  **common)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = epoch()
+        torch.cuda.synchronize()
+        rec["wall_ms"] = 1e3 * (time.perf_counter() - t0) / len(result[2])
+        rec["event_ms"] = sorted(result[3])[len(result[3]) // 2]
+        busy, wall, _ = profile_busy(epoch)
+        rec["idle"] = 1 - busy / wall
+        del trainer, data
+        torch.cuda.empty_cache()
+        return rec
+
+    def pair(label, args, epochs):
+        """Device route, then host route, on the same args; their agreement."""
+        d, h = (run(f"{label}_{route}", [*args, *extra], epochs)
+                for route, extra in (("device", []), ("host", HOST_ROUTE_CFG)))
+        require(d["route"] == ("device", 8) and h["route"] == ("host", 1),
+                f"{label}: routes {d['route']} / {h['route']}")
+        require("steps/dispatch" in d["log"] and ", 8 steps/dispatch" in d["log"]
+                and "device-resident train split: " in d["log"], f"{label}: device log")
+        require("host batches (TRAIN.DEVICE_DATA off), 1 steps/dispatch" in h["log"],
+                f"{label}: host log")
+        worst = max(float((v - h["state"][k]).abs().max()) / max(float(h["state"][k].abs().max()),
+                                                                  1e-30)
+                    for k, v in d["state"].items())
+        bitwise = all(torch.equal(v, h["state"][k]) for k, v in d["state"].items())
+        loss_rel = float(np.max(np.abs(np.subtract(d["steps"], h["steps"]))
+                                / np.abs(h["steps"])))
+        require(len(d["steps"]) == len(h["steps"]) == epochs * d["steps_per_epoch"],
+                f"{label}: steps {len(d['steps'])} / {len(h['steps'])}")
+        require(worst <= DISPATCH_RTOL and loss_rel <= DISPATCH_RTOL,
+                f"{label}: device vs host parameters {worst:.3e}, losses {loss_rel:.3e}")
+        require(d["fit"] == h["fit"] and d["fill"] == h["fill"],
+                f"{label}: launches device {d['fill']} {d['fit']}, host {h['fill']} {h['fit']}")
+        gb = re.search(r"device-resident train split: ([0-9.]+) GB", d["log"]).group(1)
+        return d, h, worst, bitwise, loss_rel, gb
+
+    mld = [os.path.join(here, "configs", "config_mld_egobody.yaml"), "model.droupout=0.0",
+           "LOGGER.VAL_EVERY_STEPS=1"]
+    t = time.perf_counter()
+    results = {}
+    for label, extra in (("cached", []), ("raw", ["TRAIN.FEATURE_CACHE=false"]),
+                         ("guidance_2.5", ["model.guidance_scale=2.5"])):
+        d, h, worst, bitwise, loss_rel, gb = pair(label, ["--cfg", *mld, *extra], 2)
+        if label == "cached":
+            require(d["fetches"] == [4, 1, 4, 1] and h["fetches"] == [1] * 10,
+                    f"cached: fetches device {d['fetches']}, host {h['fetches']}")
+            require(d["fit"] == none and d["fill"] == {**none, "pointnet_input_block": 5,
+                                                        "pointnet_split_block": 15},
+                    f"cached: launches {d['fill']} {d['fit']}")
+        else:  # 8 steps and 2 validations, each encoding the raw scene once
+            require(d["fit"] == {**none, "pointnet_input_block": 10, "pointnet_split_block": 30},
+                    f"{label}: launches {d['fit']}")
+        record(f"dispatch_{label}_device_route", d["fit"])
+        results[label] = (d, h)
+        print(f"    {label}: device route {d['wall_ms']:.3f} ms a step on the host clock "
+              f"({d['event_ms']:.3f} by CUDA events), idle {d['idle']:.3f}, split {gb} GB, "
+              f"fetches {d['fetches']}; host route {h['wall_ms']:.3f} ms ({h['event_ms']:.3f}), "
+              f"idle {h['idle']:.3f}, fetches {h['fetches']}; parameters "
+              f"{'bitwise' if bitwise else f'{worst:.2e} of max'}, losses {loss_rel:.2e}; "
+              f"launches {d['fit']}", flush=True)
+    phase(f"dispatch routes, stage 2 of config_mld_egobody.yaml at B={BATCH} (2 epochs of 4 "
+          f"steps, dropout 0): device (the card's defaults) against host (1 step a fetch) "
+          f"with the cache, without it and at guidance 2.5, within {DISPATCH_RTOL:.0e} | "
+          f"{card}", t)
+    t = time.perf_counter()
+    for name in ("mld_humanml3d", "mld_humanact12"):
+        d, h, worst, bitwise, loss_rel, gb = pair(
+            name, ["--cfg", os.path.join(here, "configs", f"config_{name}.yaml")], 1)
+        require(d["fit"] == none and len(d["fetches"]) >= 1, f"{name}: {d['fit']} {d['fetches']}")
+        print(f"    {name}: {d['steps_per_epoch']} steps, device route {d['wall_ms']:.3f} ms a "
+              f"step, idle {d['idle']:.3f}, split {gb} GB, fetches {d['fetches']}; host "
+              f"{h['wall_ms']:.3f} ms, idle {h['idle']:.3f}, fetches "
+              f"{h['fetches']}; parameters {'bitwise' if bitwise else f'{worst:.2e} of max'}, "
+              f"losses {loss_rel:.2e}", flush=True)
+    phase(f"dispatch routes, one epoch of config_mld_humanml3d.yaml and "
+          f"config_mld_humanact12.yaml: device against host within {DISPATCH_RTOL:.0e} | {card}",
+          t)
+
+
 def run_group(cmd: list, timeout: float) -> subprocess.CompletedProcess:
     """`cmd` in a session of its own, its output captured; the whole process
     group is killed at the time limit (torchrun's ranks with it)."""
@@ -3960,8 +4139,9 @@ def ddp_phases(dev, record, card: str, work: str) -> None:
     def checkpoint_dirs(root):
         return [d for d, sub, _ in os.walk(root) if os.path.basename(d) == "checkpoints"]
 
-    train_args = ["--cfg", mld_yaml, "--epochs", "2", "model.droupout=0.0",
-                  "LOGGER.VAL_EVERY_STEPS=1"]
+    base_args = ["--cfg", mld_yaml, "--epochs", "2", "model.droupout=0.0",
+                 "LOGGER.VAL_EVERY_STEPS=1"]
+    train_args = [*base_args, *HOST_ROUTE_CFG]
     t = time.perf_counter()
     one_dir, (one,), one_s = launch("train_one", "train", 0, train_args)
     one_grads = torch.load(os.path.join(one_dir, "grads0.pt"))
@@ -4054,127 +4234,352 @@ def ddp_phases(dev, record, card: str, work: str) -> None:
           f"kernel 3 once a batch and replication at {BATCH // 2} rows; {rates(ranks)}; "
           f"{seconds:.1f} s | {card}", t)
 
+    # ---- 59-60. one torchrun of two ranks: the device route, the model axis, shard_params
+    t = time.perf_counter()
+    out = os.path.join(work, "slice15")
+    proc = run_group([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+                      "--master_addr", "localhost", "--master_port", str(free_port()), script,
+                      "--ddp-worker", "slice15", out, *base_args], 900)
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], flush=True)
+    require(proc.returncode == 0, f"phases 59-60: rc {proc.returncode}")
+    seconds = time.perf_counter() - t
 
-def ddp_worker(kind: str, out: str, cli_args: list) -> None:
-    """One process of phases 55-57: the train or test CLI's `main(cli_args)`
-    with counting hooks (undone after), then `out/rank<r>.json` (and, for
-    training, `out/grads<r>.pt`, the first step's gradients). Under torchrun
-    it runs as `python3 chip_smoke.py --ddp-worker train|test OUT
-    CLI_ARGS...`; the one-process reference runs it in this process.
-    Training records each rank's launches in the cache fill and in the
-    epochs, a SHA-256 of the whole state dict after every epoch, each
-    step's loss and ms, each validation, the peak memory and the device's
-    busy time over the epochs (`profile_busy`); the test CLI records its
-    replications' metrics, its launches, and each `sample_from_cond` call's
-    rows, kernel-3 launches and ms."""
+    def ranks_of(name):
+        return [json.load(open(os.path.join(out, name, f"rank{r}.json"))) for r in range(2)]
+
+    backend = "nccl" if cards >= 2 else "gloo"
+    ranks = ranks_of("59")
+    worst, rel, vrel = check_train("device_route", os.path.join(out, "59"), ranks, 2, backend)
+    for r, x in enumerate(ranks):
+        require(x["route"] == ["device", 8] and x["fetches"] == [4, 1, 4, 1],
+                f"phase 59 rank {r}: route {x['route']}, fetches {x['fetches']}")
+    phase(f"DDP on the device route (the card's defaults: the split on the card, 8 steps a "
+          f"fetch; world 2, backend {ranks[0]['backend']}) against phase 55's one process on "
+          f"the host route: first-step gradients within {worst:.2e} of each max |g|, losses "
+          f"within {rel:.2e}, validations {vrel:.2e}, parameters bitwise alike on both ranks "
+          f"after each epoch, fill 5 / 15 a rank, 2 fetches an epoch (4 steps + validation); "
+          f"{rates(ranks)} | {card}", t)
+    t = time.perf_counter()
+    ranks = ranks_of("60")
+    worst, rel, vrel = check_train("model_axis", os.path.join(out, "60"), ranks, 2, backend)
+    require(all(x["shard"] == [0, 1] for x in ranks),
+            f"phase 60: data shards {[x['shard'] for x in ranks]}")
+    shards = ranks_of("shard")
+    for r, x in enumerate(shards):
+        require(abs(x["loss"] - x["twin_loss"]) <= SHARD_LOSS_RTOL * abs(x["twin_loss"]),
+                f"phase 60 rank {r}: sharded loss {x['loss']} against {x['twin_loss']}")
+        require(x["param_rel"] <= SHARD_PARAM_RTOL,
+                f"phase 60 rank {r}: parameters {x['param_rel']:.3e} of max off")
+        require(x["sharded"] > 0 and 2 * x["stored"] == x["whole"]
+                and x["trained"] > 0 and 2 * x["moments"] == x["trained"],
+                f"phase 60 rank {r}: storage {x['stored']} of {x['whole']}, moments "
+                f"{x['moments']} of {x['trained']}")
+        require(x["gathered_rel"] <= DISPATCH_RTOL and x["after_rel"] <= DDIM_RTOL
+                and x["moved"] > 0, f"phase 60 rank {r}: samples {x}")
+        require(x["counts"] == {**none, "pointnet_input_block": 1, "pointnet_split_block": 3,
+                                "ddim_md_t1": 1}, f"phase 60 rank {r}: launches {x['counts']}")
+        record(f"model_axis_sharded_sample_rank{r}", x["counts"])
+    x = shards[0]
+    phase(f"MESH.MODEL_AXIS=2 at world 2 (a 1 x 2 mesh): the train CLI against phase 55's one "
+          f"process, gradients within {worst:.2e}, losses {rel:.2e}, validations {vrel:.2e}; "
+          f"shard_params on SeeMeConfig() at B={BATCH} (20 000 points): {x['sharded']} of "
+          f"{x['params']} parameters sharded, each rank storing {x['stored']} of their "
+          f"{x['whole']} elements and {x['moments']} of {x['trained']} AdamW moments; the "
+          f"step's loss within {abs(x['loss'] - x['twin_loss']) / abs(x['twin_loss']):.2e} "
+          f"of the replicated step's, parameters {x['param_rel']:.2e} of max; kernel 3 from "
+          f"gathered operands {'bitwise' if x['gathered_bitwise'] else x['gathered_rel']} the "
+          f"unsharded sample, after the step {x['after_rel']:.2e} of the replicated one's; "
+          f"launches {x['counts']}; step {x['ms']:.3f} ms sharded, {x['twin_ms']:.3f} "
+          f"replicated (gloo gathers, a record); {rates(ranks)}; phases 59-60 {seconds:.1f} s "
+          f"| {card}", t)
+
+
+class _Patches:
+    """Attributes replaced for a while and put back by `undo`."""
+
+    def __init__(self):
+        self.saved = []
+
+    def __call__(self, obj, name, new):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    def undo(self):
+        for obj, name, old in reversed(self.saved):
+            setattr(obj, name, old)
+        self.saved = []
+
+
+def train_record(out: str, cli_args: list):
+    """The train CLI's `main(cli_args)` with counting hooks (undone after):
+    (its trainer, a record of the rank's launches in the cache fill and in
+    the epochs, a SHA-256 of the whole state dict after every epoch, each
+    step's loss and ms, each validation, the route, the device-to-host
+    fetches of loss terms, the peak memory and the device's busy time over
+    the epochs (`profile_busy`)); writes `out/grads<r>.pt`, the first
+    step's (averaged) gradients."""
     import hashlib
 
     import torch
 
-    from seeme_tpu_torch.models.seeme import SeeMeSystem
     from seeme_tpu_torch.ops import denoiser_fused as dfu
     from seeme_tpu_torch.ops import pointnet_fused as pfu
+    from seeme_tpu_torch.train import __main__ as cli
+    from seeme_tpu_torch.train import loop
 
     os.makedirs(out, exist_ok=True)
     counters = counter_table(pfu, dfu)
-    rec = {"kind": kind}
-    undo = []
+    rec, grads, hashes, fetches = {"kind": "train"}, {}, [], []
+    real_step, real_fetch = loop.device_step, loop.fetch_steps
+    real_fill, real_fit = cli.Trainer.fill_feature_cache, cli.Trainer.fit
+    patch = _Patches()
 
-    def patch(obj, name, new):
-        undo.append((obj, name, getattr(obj, name)))
-        setattr(obj, name, new)
+    def step(system, *a, **k):
+        result = real_step(system, *a, **k)
+        if not grads:  # the first step's (averaged) gradients
+            grads.update({n: p.grad.detach().cpu() for n, p in system.named_parameters()
+                          if p.grad is not None})
+        return result
 
-    def train():
-        from seeme_tpu_torch.train import __main__ as cli
-        from seeme_tpu_torch.train import loop
+    def fetch(keys, rows):
+        fetches.append(len(rows))
+        return real_fetch(keys, rows)
 
-        grads, hashes, real_step, real_epoch = {}, [], loop.train_step, cli.run_epoch
-        real_fill, real_fit = cli.Trainer.fill_feature_cache, cli.Trainer.fit
-
-        def step(system, *a, **k):
-            terms = real_step(system, *a, **k)
-            if not grads:  # the first step's (averaged) gradients
-                grads.update({n: p.grad.detach().cpu() for n, p in system.named_parameters()
-                              if p.grad is not None})
-            return terms
-
+    def hashed(real):
         def epoch(system, *a, **k):
-            result = real_epoch(system, *a, **k)
+            result = real(system, *a, **k)
             h = hashlib.sha256()
             for name, v in sorted(system.state_dict().items()):
                 h.update(name.encode())
                 h.update(v.detach().cpu().numpy().tobytes())
             hashes.append(h.hexdigest())
             return result
+        return epoch
 
-        def fill(trainer):
-            zero_counters(counters, pfu)
-            seconds = real_fill(trainer)
-            torch.cuda.synchronize()
-            rec["fill"], rec["fill_s"] = read_counters(counters, pfu, dfu), seconds
-            return seconds
+    def fill(trainer):
+        zero_counters(counters, pfu)
+        seconds = real_fill(trainer)
+        torch.cuda.synchronize()
+        rec["fill"], rec["fill_s"] = read_counters(counters, pfu, dfu), seconds
+        return seconds
 
-        def fit(trainer):
-            zero_counters(counters, pfu)
-            torch.cuda.reset_peak_memory_stats()
-            history = []
-            rec["busy_ms"], rec["wall_ms"], _ = profile_busy(
-                lambda: history.append(real_fit(trainer)))
-            rec["fit"] = read_counters(counters, pfu, dfu)
-            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-            return history[0]
-
-        patch(loop, "train_step", step)
-        patch(cli, "run_epoch", epoch)
-        patch(cli.Trainer, "fill_feature_cache", fill)
-        patch(cli.Trainer, "fit", fit)
-        trainer = cli.main(cli_args)
-        rank = trainer.rank
-        rec.update(world=trainer.world, backend=trainer.backend, device=str(trainer.device),
-                   steps=[s["total"] for r in trainer.history for s in r["steps"]],
-                   step_ms=[m for r in trainer.history for m in r["step_ms"]],
-                   val=[r["val"]["total"] for r in trainer.history if "val" in r],
-                   hashes=hashes, checkpoints=trainer.checkpoints)
-        torch.save(grads, os.path.join(out, f"grads{rank}.pt"))
-        return rank
-
-    def test():
-        from seeme_tpu_torch.test import __main__ as cli
-
-        calls, real_sample = [], SeeMeSystem.sample_from_cond
-
-        def sample(system, cond, generator=None, z_init=None):
-            before = dfu.ddim_fused.launches
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            feats = real_sample(system, cond, generator=generator, z_init=z_init)
-            end.record()
-            torch.cuda.synchronize()
-            calls.append({"rows": int(z_init.shape[0]), "ms": start.elapsed_time(end),
-                          "kernel3": dfu.ddim_fused.launches - before})
-            return feats
-
-        patch(SeeMeSystem, "sample_from_cond", sample)
+    def fit(trainer):
         zero_counters(counters, pfu)
         torch.cuda.reset_peak_memory_stats()
-        result = []
+        history = []
         rec["busy_ms"], rec["wall_ms"], _ = profile_busy(
-            lambda: result.append(cli.main(cli_args)))
-        rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
-        rec.update(world=world, replications=result[0]["replications"], calls=calls,
-                   counts=read_counters(counters, pfu, dfu),
-                   peak_bytes=torch.cuda.max_memory_allocated())
-        return rank
+            lambda: history.append(real_fit(trainer)))
+        rec["fit"] = read_counters(counters, pfu, dfu)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return history[0]
 
+    patch(loop, "device_step", step)
+    patch(loop, "fetch_steps", fetch)
+    patch(cli, "run_epoch", hashed(cli.run_epoch))
+    patch(cli, "run_epoch_device", hashed(cli.run_epoch_device))
+    patch(cli.Trainer, "fill_feature_cache", fill)
+    patch(cli.Trainer, "fit", fit)
     t0 = time.perf_counter()
     try:
-        rank = train() if kind == "train" else test()
+        trainer = cli.main(cli_args)
     finally:
-        for obj, name, old in reversed(undo):
-            setattr(obj, name, old)
-    rec["seconds"] = time.perf_counter() - t0
+        patch.undo()
+    rec.update(world=trainer.world, backend=trainer.backend, device=str(trainer.device),
+               steps=[s["total"] for r in trainer.history for s in r["steps"]],
+               step_ms=[m for r in trainer.history for m in r["step_ms"]],
+               val=[r["val"]["total"] for r in trainer.history if "val" in r],
+               hashes=hashes, checkpoints=trainer.checkpoints, route=list(trainer.route),
+               shard=list(trainer.shard), fetches=fetches,
+               seconds=time.perf_counter() - t0)
+    torch.save(grads, os.path.join(out, f"grads{trainer.rank}.pt"))
+    return trainer, rec
+
+
+def test_record(cli_args: list) -> dict:
+    """The test CLI's `main(cli_args)` with counting hooks (undone after):
+    its replications' metrics, its launches, and each `sample_from_cond`
+    call's rows, kernel-3 launches and ms."""
+    import torch
+
+    from seeme_tpu_torch.models.seeme import SeeMeSystem
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.ops import pointnet_fused as pfu
+    from seeme_tpu_torch.test import __main__ as cli
+
+    counters = counter_table(pfu, dfu)
+    calls, real_sample = [], SeeMeSystem.sample_from_cond
+    patch = _Patches()
+
+    def sample(system, cond, generator=None, z_init=None):
+        before = dfu.ddim_fused.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        feats = real_sample(system, cond, generator=generator, z_init=z_init)
+        end.record()
+        torch.cuda.synchronize()
+        calls.append({"rows": int(z_init.shape[0]), "ms": start.elapsed_time(end),
+                      "kernel3": dfu.ddim_fused.launches - before})
+        return feats
+
+    patch(SeeMeSystem, "sample_from_cond", sample)
+    zero_counters(counters, pfu)
+    torch.cuda.reset_peak_memory_stats()
+    result = []
+    t0 = time.perf_counter()
+    try:
+        busy, wall, _ = profile_busy(lambda: result.append(cli.main(cli_args)))
+    finally:
+        patch.undo()
+    return {"kind": "test", "busy_ms": busy, "wall_ms": wall,
+            "world": int(os.environ.get("WORLD_SIZE", 1)),
+            "replications": result[0]["replications"], "calls": calls,
+            "counts": read_counters(counters, pfu, dfu),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t0}
+
+
+def ddp_worker(kind: str, out: str, cli_args: list) -> None:
+    """One process of phases 55-57: `train_record` or `test_record` of the
+    CLI's `cli_args`, then `out/rank<r>.json`; of phases 59-60,
+    `slice15_worker`. Under torchrun it runs as `python3 chip_smoke.py
+    --ddp-worker train|test|slice15 OUT CLI_ARGS...`; the one-process
+    reference runs it in this process."""
+    os.makedirs(out, exist_ok=True)
+    if kind == "slice15":
+        slice15_worker(out, cli_args)
+        return
+    if kind == "train":
+        trainer, rec = train_record(out, cli_args)
+        rank = trainer.rank
+    else:
+        rec = test_record(cli_args)
+        rank = int(os.environ.get("RANK", 0))
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
+
+
+def slice15_worker(out: str, base_args: list) -> None:
+    """One rank of phases 59-60, which joins the process group itself (the
+    CLIs then find it and leave it be): `train_record` of the train CLI on
+    `base_args` with the card's default route (59: the device route, 8
+    steps a fetch) into `out/59`, then at `MESH.MODEL_AXIS=2` (60, a (1, 2)
+    mesh) into `out/60`, then `shard_record` into `out/shard`; each writes
+    `rank<r>.json`."""
+    import torch
+    import torch.distributed as dist
+
+    from seeme_tpu_torch.parallel import initialize_multihost
+
+    dev, _ = initialize_multihost(device="cuda")
+    try:
+        for name, extra in (("59", []), ("60", ["MESH.MODEL_AXIS=2"])):
+            sub = os.path.join(out, name)
+            trainer, rec = train_record(sub, [*base_args, *extra, "--out",
+                                              os.path.join(sub, "exp")])
+            with open(os.path.join(sub, f"rank{trainer.rank}.json"), "w") as f:
+                json.dump(rec, f)
+            del trainer
+            torch.cuda.empty_cache()
+        rec = shard_record(dev)
+        os.makedirs(os.path.join(out, "shard"), exist_ok=True)
+        with open(os.path.join(out, "shard", f"rank{dist.get_rank()}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def shard_record(dev) -> dict:
+    """Phase 60's `shard_params` step on a (1, 2) mesh, on this rank:
+    `SeeMeConfig()` at full width (dropout 0), a batch of 64 with 20 000
+    points (the raw scene, so the PointNet kernels run on gathered
+    weights), one stage-2 AdamW step under DDP over the data-axis group,
+    against the same step with the parameters replicated; kernel 3's
+    sample before sharding, from the gathered operands, and after the
+    step. Returns the agreements, storage and moment counts, launches and
+    ms."""
+    import torch
+
+    from seeme_tpu_torch.core.smpl import synthetic_smpl
+    from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
+    from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+    from seeme_tpu_torch.ops import module_state
+    from seeme_tpu_torch.ops import pointnet_fused as pfu
+    from seeme_tpu_torch.parallel import infer_param_shardings, make_mesh, shard_params
+    from seeme_tpu_torch.parallel.mesh import batch_sharding, replicated, rows
+    from seeme_tpu_torch.train.loop import StageLoss, train_step
+    from seeme_tpu_torch.train.state import make_optimizer
+
+    counters = counter_table(pfu, dfu)
+    mesh = make_mesh(model_axis=2, device_type="cuda")
+    shard = batch_sharding(mesh)
+    cfg = dataclasses.replace(SeeMeConfig(), dropout=0.0)
+    data = SyntheticEgoDataset(BATCH, cfg.motion_length, scene_points=cfg.scene_points, seed=SEED)
+    smpl = synthetic_smpl(n_verts=6890, seed=SEED)
+    batch = {k: rows(v, shard) for k, v in to_torch(data.batch(0, BATCH), dev).items()}
+    z0 = rows(torch.randn(BATCH, 1, cfg.latent_dim[-1],
+                          generator=torch.Generator().manual_seed(SEED + 60)), shard).to(dev)
+
+    def fresh():
+        system = SeeMeSystem(cfg, smpl, data.mean, data.std, device=dev, seed=SEED)
+        perturb_parameters_(system, torch.Generator().manual_seed(SEED + 61))
+        return system
+
+    def step(system):
+        optimizer, schedule = make_optimizer("diffusion", system, lr=TRAIN_LR)
+        model = replicated(StageLoss(system, "diffusion"), dev, group=mesh.get_group("data"))
+        draws = system.loss_draws("diffusion", batch,
+                                  torch.Generator(device=dev).manual_seed(SEED + 62), shard=shard)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        terms = train_step(system, "diffusion", optimizer, schedule, 0, batch, draws=draws,
+                           model=model)
+        end.record()
+        end.synchronize()
+        return optimizer, terms["total"], start.elapsed_time(end)
+
+    def sample(system):
+        zero_counters(counters, pfu)
+        z = system.sample_from_cond(system.encode_conditioning(batch), z_init=z0)
+        torch.cuda.synchronize()
+        return z, read_counters(counters, pfu, dfu)
+
+    twin = fresh()
+    _, twin_loss, twin_ms = step(twin)
+    twin_after, _ = sample(twin)
+    system = fresh()
+    before, _ = sample(system)
+    sharded = sorted(n for n, d in infer_param_shardings(system, mesh).items() if d is not None)
+    whole = dict(system.named_parameters())
+    whole_numel = {n: whole[n].numel() for n in sharded}
+    shard_params(system, mesh)
+    gathered, counts = sample(system)
+    stored = sum(p.numel() for n, p in system.named_parameters() if ".parametrizations." in n)
+    optimizer, loss, ms = step(system)
+    after, _ = sample(system)
+    moments = trained = 0
+    for n, p in system.named_parameters():
+        state = optimizer.state.get(p, {})
+        if ".parametrizations." in n and "exp_avg" in state:
+            moments += state["exp_avg"].numel()
+            trained += whole_numel[n.replace(".parametrizations.", ".").replace(".original", "")]
+    worst = 0.0
+    twin_sd = twin.state_dict()
+    for k, v in module_state(system).items():
+        want = twin_sd[k]
+        worst = max(worst, float((v - want).abs().max()) / max(float(want.abs().max()), 1e-30))
+    scale = float(twin_after.abs().max())
+    return {"shard": list(shard), "sharded": len(sharded), "params": len(whole),
+            "stored": stored, "whole": sum(whole_numel.values()), "moments": moments,
+            "trained": trained, "loss": loss, "twin_loss": twin_loss, "param_rel": worst,
+            "gathered_bitwise": bool(torch.equal(gathered, before)),
+            "gathered_rel": float((gathered - before).abs().max()) / float(before.abs().max()),
+            "after_rel": float((after - twin_after).abs().max()) / scale,
+            "moved": float((after - gathered).abs().max()) / scale, "counts": counts,
+            "ms": ms, "twin_ms": twin_ms}
 
 
 if __name__ == "__main__":

@@ -174,6 +174,10 @@ def preset_from_yaml(cfg: Config) -> Preset:
         val_every_steps=int(logger.get("VAL_EVERY_STEPS", 200)),
         save_checkpoint_epoch=int(logger.get("SACE_CHECKPOINT_EPOCH", 200)),
         feature_cache=None if cache is None else bool(cache),
+        device_data=None if tr.get("DEVICE_DATA") is None else bool(tr.DEVICE_DATA),
+        steps_per_dispatch=(None if tr.get("STEPS_PER_DISPATCH") is None
+                            else int(tr.STEPS_PER_DISPATCH)),
+        device_data_max_gb=float(tr.get("DEVICE_DATA_MAX_GB", 4.0)),
         seed=int(cfg.get("SEED_VALUE", 1234)))
     te = cfg.get("TEST") or {}
     fact = te.get("FACT", 1.0)

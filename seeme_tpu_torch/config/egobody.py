@@ -44,6 +44,14 @@ class TrainConfig:
     # TRAIN.FEATURE_CACHE (train.py:185-236): cache the frozen PointNet's
     # features once per sample in stage 2; None = on the card only
     feature_cache: Optional[bool] = None
+    # TRAIN.DEVICE_DATA (train.py:283-285): keep the train split on the
+    # device and gather each batch there; None = on the card only
+    device_data: Optional[bool] = None
+    # TRAIN.STEPS_PER_DISPATCH (train.py:252-255): steps between two fetches
+    # of the loss terms; None = 8 on the card, 1 elsewhere
+    steps_per_dispatch: Optional[int] = None
+    # TRAIN.DEVICE_DATA_MAX_GB (train.py:313): the largest split kept on the device
+    device_data_max_gb: float = 4.0
     seed: int = 1234            # SEED_VALUE (base.yaml:3)
 
 

@@ -45,7 +45,7 @@ from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
 from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid, ddim_fused_tok
-from ..ops import tensor_versions
+from ..ops import module_state, tensor_versions
 from ..ops.pointnet_fused import FusedPointnet
 from ..parallel.mesh import rows
 from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
@@ -182,7 +182,7 @@ class SeeMeSystem(nn.Module):
         module's own weights."""
         key = tensor_versions(self.denoiser)
         if self._ddim_operands is None or self._ddim_operands[0] != key:
-            sd = self.denoiser.state_dict()
+            sd = module_state(self.denoiser)
             self._ddim_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers,
                                                            self.cfg.md_trans)))
         return (*self._ddim_operands[1], self._pointnet_operands())

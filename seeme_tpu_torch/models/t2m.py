@@ -45,7 +45,7 @@ from ..data.humanml import feats2joints
 from ..diffusion.sampling import ddim_sample
 from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.init import init_parameters_
-from ..ops import tensor_versions
+from ..ops import module_state, tensor_versions
 from ..ops.denoiser_fused import TOK_MAX_COND, KernelWeights, ddim_fused_tok
 from ..parallel.mesh import rows
 from ..train.losses import diffusion_losses, kl_standard_normal, smooth_l1
@@ -124,7 +124,7 @@ class T2MSystem(nn.Module):
         denoiser tensor changed since they were made."""
         key = tensor_versions(self.denoiser)
         if self._kernel_operands is None or self._kernel_operands[0] != key:
-            sd = self.denoiser.state_dict()
+            sd = module_state(self.denoiser)
             self._kernel_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers, False)))
         return self._kernel_operands[1]
 

@@ -1,4 +1,5 @@
-"""Data parallelism over processes (`seeme_tpu/parallel/mesh.py`).
+"""Data parallelism over processes and the (data, model) mesh
+(`seeme_tpu/parallel/mesh.py`).
 
 The reference trains with PyTorch Lightning's DDP over NCCL
 (`train.py:127-139`, SURVEY.md §2.4); the JAX package jits one step over a
@@ -10,17 +11,25 @@ the JAX module's, so each has its counterpart:
 - `initialize_multihost` joins the process group (torchrun's environment,
   or an explicit address), as `jax.distributed.initialize` does;
 - `make_mesh` is `init_device_mesh` over the world with dims ("data",
-  "model"); the model axis stays 1 (tensor parallelism is not ported,
-  `shardings.py`);
+  "model"), the ranks laid out row-major as the JAX mesh reshapes its
+  device list (`:35`): rank r sits at data coordinate r // m and model
+  coordinate r % m; a model axis that does not divide the world is refused
+  by name (`:32-34`);
 - `batch_sharding` / `shard_batch` give a rank its contiguous rows of a
-  host batch, the counterpart of `jax.make_array_from_process_local_data`;
-- `replicated` is DDP's broadcast of rank 0's module state at
-  construction, then the gradient all-reduce of every step;
+  host batch on its data coordinate (the model-axis ranks of one data
+  coordinate take the same rows), the counterpart of
+  `jax.make_array_from_process_local_data`; `rows` of an index row is the
+  device route's `stacked_batch_sharding` (`train/loop.py::run_epoch_device`);
+- `replicated` is DDP's broadcast of the group's first rank's module
+  state at construction, then the gradient all-reduce of every step, over
+  the world or over a rank's data-axis group (`shardings.shard_params`);
 - `allreduce_metric_sums` sums metric accumulators over the ranks.
 
-`stacked_batch_sharding` has no counterpart: the JAX package's k-step scan
-and its device-resident gather exist for XLA dispatch and are not ported
-(`train/loop.py`).
+The train CLI builds the mesh from `MESH.MODEL_AXIS` and keeps every
+parameter replicated under DDP over the world, as `train.py:238` does with
+`make_train_step(mesh)`: on a model axis of m, m ranks compute the same
+rows, so the result is one process's. Sharding parameters over the model
+axis is `shardings.shard_params`, which no CLI calls, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,13 +45,13 @@ from torch import nn
 MODEL_AXIS_KEY = "MESH.MODEL_AXIS"
 
 
-def check_model_axis(model_axis) -> int:
-    """The model axis as an int; raises for any size but 1."""
+def check_model_axis(model_axis, world: int) -> int:
+    """The model axis as an int; raises, naming `MESH.MODEL_AXIS`, unless it
+    divides the `world` ranks (`seeme_tpu/parallel/mesh.py:32-34`)."""
     model_axis = int(model_axis)
-    if model_axis != 1:
-        raise NotImplementedError(
-            f"{MODEL_AXIS_KEY}={model_axis}: tensor parallelism is not ported; the port "
-            f"shards the batch only ({MODEL_AXIS_KEY}=1)")
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(f"{MODEL_AXIS_KEY}={model_axis} does not divide the {world} rank(s) "
+                         "into a (data, model) mesh")
     return model_axis
 
 
@@ -114,11 +123,11 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 
 def make_mesh(data_axis: Optional[int] = None, model_axis: int = 1,
               device_type: str = "cuda"):
-    """A ("data", "model") `DeviceMesh` over the world."""
+    """A ("data", "model") `DeviceMesh` over the world, ranks row-major."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    check_model_axis(model_axis)
-    world = dist.get_world_size()
+    world = process_rank()[1]
+    model_axis = check_model_axis(model_axis, world)
     if data_axis is None:
         data_axis = world // model_axis
     if data_axis * model_axis != world:
@@ -126,20 +135,23 @@ def make_mesh(data_axis: Optional[int] = None, model_axis: int = 1,
     return init_device_mesh(device_type, (data_axis, model_axis), mesh_dim_names=("data", "model"))
 
 
-def join_world(device: torch.device):
+def join_world(device: torch.device, model_axis: int = 1):
     """(device, backend, mesh, joined) of this process: under torchrun it
     joins the process group first (joined: True, and `leave_world` leaves
-    it); in a group the rank's device and the ("data", "model") mesh; else
-    the device as given, no backend, no mesh."""
+    it); in a group the rank's device and the ("data", "model") mesh with
+    `model_axis`; else the device as given, no backend, no mesh (and a model
+    axis above 1 is refused: one rank does not split)."""
     joined = not dist.is_initialized() and under_torchrun()
     if joined:
         initialize_multihost(device=device)
     if not dist.is_initialized():
+        check_model_axis(model_axis, 1)
         return device, None, None, False
     device = local_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return device, dist.get_backend(), make_mesh(device_type=device.type), joined
+    return device, dist.get_backend(), make_mesh(model_axis=model_axis,
+                                                 device_type=device.type), joined
 
 
 def leave_world(joined: bool) -> None:
@@ -150,12 +162,13 @@ def leave_world(joined: bool) -> None:
 
 
 def model_axis_of(config) -> int:
-    """`MESH.MODEL_AXIS` of a `--cfg` config (1 without one); raises above 1."""
-    return check_model_axis(1 if config is None else config.select(MODEL_AXIS_KEY, 1))
+    """`MESH.MODEL_AXIS` of a `--cfg` config (1 without one)."""
+    return int(1 if config is None else config.select(MODEL_AXIS_KEY, 1))
 
 
 def batch_sharding(mesh) -> Tuple[int, int]:
-    """(this rank's index on the data axis, the axis' size); (0, 1) without a mesh."""
+    """(this rank's coordinate on the data axis, rank // model axis; the
+    axis' size); (0, 1) without a mesh."""
     if mesh is None:
         return 0, 1
     return mesh.get_local_rank("data"), mesh.size(0)
@@ -191,19 +204,22 @@ def valid_rows(n_valid: int, batch_size: int, shard: Tuple[int, int]) -> int:
     return max(0, min(n_valid - rank * per, per))
 
 
-def replicated(module: nn.Module, device: torch.device) -> nn.Module:
-    """`module` under `DistributedDataParallel`: its construction broadcasts
-    rank 0's parameters and buffers to every rank, and each backward
-    all-reduces (averages) the gradients of the parameters that require
-    them. Buffers are not broadcast again each step: none of the systems'
-    buffers changes in training. Every trainable parameter gets a gradient
-    in every step (frozen subtrees have `requires_grad=False`, which DDP
-    leaves out), so DDP does not search the graph for unused ones."""
+def replicated(module: nn.Module, device: torch.device, group=None) -> nn.Module:
+    """`module` under `DistributedDataParallel` over `group` (the world by
+    default; a rank's data-axis group once its parameters are sharded over
+    the model axis, whose ranks hold different slices): its construction
+    broadcasts the group's first rank's parameters and buffers to the
+    group, and each backward all-reduces (averages) the gradients of the
+    parameters that require them. Buffers are not broadcast again each
+    step: none of the systems' buffers changes in training. Every trainable
+    parameter gets a gradient in every step (frozen subtrees have
+    `requires_grad=False`, which DDP leaves out), so DDP does not search
+    the graph for unused ones."""
     from torch.nn.parallel import DistributedDataParallel
 
     return DistributedDataParallel(
         module, device_ids=[device] if device.type == "cuda" else None,
-        broadcast_buffers=False, find_unused_parameters=False)
+        broadcast_buffers=False, find_unused_parameters=False, process_group=group)
 
 
 def _collective_device() -> torch.device:

@@ -76,8 +76,8 @@ keeps its rows, counts its valid rows, and `EgoMetric.compute(sync=True)`
 sums the metric accumulators over the ranks, so every rank's means are the
 whole set's. The text- and action-to-motion branches sync no metric in
 `test.py`: there every rank evaluates the whole set. Only rank 0 writes
-(logs, metrics, times, predictions, gathered from every rank). `--cfg`
-refuses `MESH.MODEL_AXIS` other than 1.
+(logs, metrics, times, predictions, gathered from every rank).
+`MESH.MODEL_AXIS` is not read, as `test.py` does not read it.
 """
 
 from __future__ import annotations
@@ -113,8 +113,8 @@ from ..eval.t2m_metrics import MMMetrics, MRMetrics, TM2TMetrics
 from ..models.a2m import A2MSystem
 from ..models.t2m import T2MSystem
 from ..nn.init import init_parameters_
-from ..parallel.mesh import (batch_sharding, join_world, leave_world, model_axis_of,
-                             process_rank, rows, shard_batch, valid_rows)
+from ..parallel.mesh import (batch_sharding, join_world, leave_world, process_rank, rows,
+                             shard_batch, valid_rows)
 from ..train.checkpoint import load_weights
 from ..utils.logger import create_experiment_dir, create_logger
 
@@ -170,7 +170,6 @@ class Evaluator:
 
     def __init__(self, args: argparse.Namespace):
         preset, config = cli_config(args.preset, args.cfg, args.cfg_assets, args.overrides)
-        model_axis_of(config)
         tc = preset.test
         for name in ("batch_size", "replication_times", "checkpoint"):
             if getattr(args, name) is not None:

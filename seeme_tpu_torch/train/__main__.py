@@ -64,11 +64,28 @@ gloo when ranks share one), trains the stage's subtrees under
 must split evenly over the ranks), draws each loss call's noise at the
 whole batch's shape and keeps its rows, and fills the whole feature cache
 itself. Dropout draws from torch's default generators, seeded with seed +
-rank. Only rank 0 writes the logs, `config.json`, `config.yaml`, the
-TensorBoard / W&B scalars and the checkpoints (with every rank's default
-generators; a resume must use the same world size); the others wait at a
-barrier. Outside torchrun it is one process, as before. `--cfg` refuses
-`MESH.MODEL_AXIS` other than 1 (tensor parallelism is not ported).
+the rank's data coordinate. Only rank 0 writes the logs, `config.json`,
+`config.yaml`, the TensorBoard / W&B scalars and the checkpoints (with
+every rank's default generators; a resume must use the same world size);
+the others wait at a barrier. Outside torchrun it is one process, as before. `--cfg ...
+MESH.MODEL_AXIS=m` lays the world out as a (W / m, m) mesh, as
+`train.py:238` does: the m model-axis ranks of one data coordinate take the
+same rows, every parameter stays replicated under DDP over the world, and
+the result is that of a world of W / m; an m that does not divide the
+world (any m > 1 in one process) is refused by name.
+
+Dispatch (`train.py:246-327`): on the card the train split goes to the
+device once and each step gathers its batch there (`TRAIN.DEVICE_DATA`,
+default on for the card, off for the CPU; `train.device_data=` with
+`--preset`), when the datamodule has per-sample arrays (a HumanML3D or KIT
+release encodes its captions on the host: no), an image config has its
+`image_feats` cached (raw crops are host work), and the split, without the
+keys the stage never reads, is at most `TRAIN.DEVICE_DATA_MAX_GB` (4.0);
+otherwise the log says why, and the host batches are prefetched as before.
+Either way the loss terms are fetched once every `TRAIN.STEPS_PER_DISPATCH`
+steps (default 8 on the card, 1 on the CPU). Both routes train the same
+batches with the same draws; a checkpoint of one resumes on the other. Under
+DDP every rank holds the whole split and gathers its own rows.
 """
 
 from __future__ import annotations
@@ -79,7 +96,7 @@ import json
 import os
 import sys
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,7 +124,7 @@ from .checkpoint import (
     save_state,
     step_path,
 )
-from .loop import StageLoss, run_epoch, validate
+from .loop import StageLoss, make_device_data, run_epoch, run_epoch_device, validate
 from .state import make_optimizer
 
 
@@ -131,13 +148,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def dispatch_settings(tc, on_card: bool) -> Tuple[bool, int]:
+    """(whether the device route is asked for, the steps between two
+    fetches) of a `TrainConfig`: `TRAIN.DEVICE_DATA` (default on for the
+    card only) and `TRAIN.STEPS_PER_DISPATCH` (default 8 on the card, 1
+    elsewhere), as `train.py:252-255, :283-285` default them."""
+    k = tc.steps_per_dispatch if tc.steps_per_dispatch is not None else 8 if on_card else 1
+    return (tc.device_data if tc.device_data is not None else on_card), max(int(k), 1)
+
+
 class Trainer:
     """One training run, set up as `train.py` sets it up. `main` calls
     `fill_feature_cache` and then `fit`."""
 
     def __init__(self, args: argparse.Namespace):
         preset, config = cli_config(args.preset, args.cfg, args.cfg_assets, args.overrides)
-        model_axis_of(config)
         if args.nodebug:
             preset = dataclasses.replace(preset, debug=False)
             if config is not None:
@@ -151,7 +176,7 @@ class Trainer:
             tc = dataclasses.replace(tc, pretrained_vae=args.pretrained_vae)
         self.preset = preset = dataclasses.replace(preset, train=tc)
         self.device, self.backend, self.mesh, self.joined = join_world(
-            resolve_device(args.device))
+            resolve_device(args.device), model_axis_of(config))
         self.rank, self.world = process_rank()
         self.shard = batch_sharding(self.mesh)
         self.is_main = self.rank == 0
@@ -172,8 +197,8 @@ class Trainer:
                 self.wb = WandbLogger(config, self.exp_dir)
         self.stage, self.seed = tc.stage, tc.seed
         self.datamodule, self.system = build(preset, self.device)
-        if self.world > 1:  # each rank's dropout masks its own rows
-            torch.manual_seed(self.seed + self.rank)
+        if self.shard[1] > 1:  # each data coordinate's dropout masks its own rows
+            torch.manual_seed(self.seed + self.shard[0])
         self.preset = preset = dataclasses.replace(preset, model=self.system.cfg)
         self.is_t2m = isinstance(self.system, T2MSystem)
         self.is_a2m = isinstance(self.system, A2MSystem)
@@ -229,8 +254,10 @@ class Trainer:
                       if self.mesh is not None else None)
         self.barrier()
         self.history: List[Dict] = []
+        self.route: Optional[Tuple[str, int]] = None  # ("device" | "host", k), set by `fit`
         self.checkpoints: List[str] = []
-        world = f" world={self.world} backend={self.backend}" if self.mesh is not None else ""
+        world = (f" world={self.world} backend={self.backend} mesh={self.shard[1]}x"
+                 f"{self.world // self.shard[1]}" if self.mesh is not None else "")
         self.log(f"stage={self.stage} device={self.device} batch={self.batch_size} "
                  f"steps/epoch={self.steps_per_epoch}{world} out={self.exp_dir}")
 
@@ -297,6 +324,55 @@ class Trainer:
             self.log(f"{raw_key} features cached in {time.perf_counter() - t_enc:.3f} s")
         return time.perf_counter() - t0
 
+    def dropped_keys(self) -> set:
+        """The ego batch keys the stage never reads (`train.py:266-270`)."""
+        if self.is_t2m or self.is_a2m:
+            return set()
+        drop = {"scene", "image"} if self.stage == "vae" else set()
+        if not self.system.use_image:
+            drop.add("image")
+        return drop
+
+    def device_split(self) -> Tuple[Optional[Dict[str, np.ndarray]], str]:
+        """(the train split's arrays the stage reads, "") when the device
+        route applies to this datamodule and config, else (None, why not)
+        (`train.py:289-310`)."""
+        dm = self.datamodule
+        if not (hasattr(dm, "split_arrays") and hasattr(dm, "batch_indices")):
+            return None, "the datamodule has no per-sample arrays"
+        if self.is_t2m and not dm.is_synthetic:
+            return None, "the release's captions are encoded on the host (data/humanml.py:132)"
+        arrays = dict(dm.split_arrays("train"))
+        for k in self.dropped_keys() | {"image_crops", "image"}:
+            arrays.pop(k, None)
+        if "scene_feats" in arrays:
+            arrays.pop("scene", None)
+        if not self.is_t2m and not self.is_a2m and self.system.use_image \
+                and "image_feats" not in arrays:
+            return None, "raw image crops are host work (no image_feats cache)"
+        return arrays, ""
+
+    def dispatch(self) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
+        """(the train split on the device, or None for host batches; the
+        steps between two fetches), chosen and logged as `train.py:246-327`
+        chooses: called by `fit` once the feature cache is filled."""
+        tc = self.preset.train
+        wanted, k = dispatch_settings(tc, self.device.type == "cuda")
+        if not wanted:
+            self.log(f"host batches (TRAIN.DEVICE_DATA off), {k} steps/dispatch")
+            return None, k
+        arrays, why = self.device_split()
+        gb = 0.0 if arrays is None else sum(v.nbytes for v in arrays.values()) / 1e9
+        if arrays is not None and gb > tc.device_data_max_gb:
+            why = f"{gb:.4g} GB > TRAIN.DEVICE_DATA_MAX_GB={tc.device_data_max_gb:.4g}"
+        if why:
+            self.log(f"device-resident split skipped: {why}; host batches, {k} steps/dispatch")
+            return None, k
+        data = make_device_data(arrays, self.device)
+        self.log(f"device-resident train split: {gb:.3f} GB on {self.device}, "
+                 f"{k} steps/dispatch")
+        return data, k
+
     def train_batches(self, epoch: int):
         """The train split's batches of `epoch`, without the keys the stage
         never reads, captions encoded."""
@@ -307,9 +383,7 @@ class Trainer:
         if self.is_a2m:
             yield from self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch)
             return
-        drop = {"scene", "image"} if self.stage == "vae" else set()
-        if not self.system.use_image:
-            drop.add("image")
+        drop = self.dropped_keys()
         for b in self.datamodule.batches("train", self.batch_size, seed=self.seed + epoch):
             yield {k: v for k, v in b.items() if k not in drop}
 
@@ -321,11 +395,20 @@ class Trainer:
     def fit(self) -> List[Dict]:
         tc = self.preset.train
         val_every = max(tc.val_every_steps, 1)
+        data, k = self.dispatch()
+        self.route = ("host" if data is None else "device", k)
+        common = dict(generator=self.generator, model=self.model, shard=self.shard,
+                      steps_per_dispatch=k)
         for epoch in range(self.start_epoch, tc.end_epoch):
-            batches = (shard_batch(self.mesh, b) for b in self.train_batches(epoch))
-            self.step, means, steps, ms = run_epoch(
-                self.system, self.stage, self.optimizer, self.schedule, self.step, batches,
-                self.generator, model=self.model, shard=self.shard)
+            if data is not None:
+                self.step, means, steps, ms = run_epoch_device(
+                    self.system, self.stage, self.optimizer, self.schedule, self.step, data,
+                    self.datamodule.batch_indices("train", self.batch_size, seed=self.seed + epoch),
+                    **common)
+            else:
+                self.step, means, steps, ms = run_epoch(
+                    self.system, self.stage, self.optimizer, self.schedule, self.step,
+                    (shard_batch(self.mesh, b) for b in self.train_batches(epoch)), **common)
             memory = memory_stats(self.device)
             record = {"epoch": epoch, "means": means, "steps": steps, "step_ms": ms,
                       "memory": memory}

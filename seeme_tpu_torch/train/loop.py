@@ -1,21 +1,43 @@
-"""The train step, the epoch loop and the validation pass
-(`seeme_tpu/train/loop.py:41-77`, `:246-`; `train.py:347-375`).
+"""The train step, the two epoch routes and the validation pass
+(`seeme_tpu/train/loop.py`; `train.py:246-375`).
 
-A step is the loss of its stage (`SeeMeSystem.vae_loss` or
-`diffusion_loss`), backward, and one AdamW update at the step's learning
-rate, with the loss terms fetched from the device once. `run_epoch` takes
-its batches through `data/prefetch.py::prefetch_to_device`, as the JAX loop
-does (`seeme_tpu/train/loop.py:264-295`): the next batch's copy to the card
-overlaps the step. The JAX package's scan, gather and device-resident
-variants exist for XLA dispatch and have no counterpart here.
+A step (`device_step`) is the loss of its stage (`SeeMeSystem.vae_loss`
+or `diffusion_loss`), backward, and one AdamW update at the step's
+learning rate; it leaves its loss terms on the device, stacked in one
+tensor. A fetch (`fetch_steps`) moves the terms of a group of steps to the
+host in one transfer, averaged over the ranks first. `train_step` is one
+step and its fetch.
+
+The JAX package's two dispatch routes have their counterparts here, with
+`lax.scan` over a group of k steps as a Python loop whose k steps share one
+fetch:
+
+- `run_epoch(..., steps_per_dispatch=k)` is `run_epoch(scan_step=...)`
+  over `make_scan_train_step` (`seeme_tpu/train/loop.py:109-142`,
+  `:246-304`): host batches, prefetched to the device by
+  `data/prefetch.py::prefetch_to_device` (the next batch's copy overlaps
+  the step), k steps, then one fetch of the group's k x terms; the tail
+  group, with fewer than k batches, is fetched alone, so every batch is
+  trained on once whatever k is;
+- `run_epoch_device` is `run_epoch_device` over
+  `make_gather_scan_train_step` (`:144-230`): the train split on the
+  device (`make_device_data`), each group's k index rows copied there in
+  one transfer, each step's batch gathered with `index_select`.
+
+Both routes train the same batches in the same order (the datamodule's
+`batch_indices`, which its `batches` slice too) with the same draws, so
+their results are equal.
 
 Data parallelism (`parallel/mesh.py`): each rank's step takes its rows of
 the batch, through `model`, the stage's loss under
 `DistributedDataParallel` (`StageLoss`), whose backward averages the
-gradients over the ranks; `shard` (rank, ranks) makes each loss call's
-draws at the whole batch's shape and keeps the rank's rows, so they equal
-one process's. The loss terms are averaged over the ranks before their
-one fetch, and validation's sums too, so both read as one process's.
+gradients over the ranks; `shard` (the rank's coordinate on the data
+axis, the axis' size) makes each loss call's draws at the whole batch's
+shape and keeps the rank's rows, so they equal one process's. On the
+device route each rank gathers only its rows of each index row
+(`stacked_batch_sharding`'s counterpart). The loss terms are averaged over
+the ranks before their fetch, and validation's sums too, so both read as
+one process's.
 
 Random draws: each loss call draws its noise from the explicit `generator`
 (or takes injected `draws`). `nn.Dropout` takes no generator, so dropout
@@ -29,7 +51,7 @@ dropout is on as in the JAX package's validation, which passes
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +59,7 @@ from torch import nn
 
 from ..data.prefetch import prefetch_to_device
 from ..data.synthetic import to_torch
-from ..parallel.mesh import mean_over_ranks
+from ..parallel.mesh import mean_over_ranks, rows as rank_rows
 
 ONE = (0, 1)  # the shard of a process that holds the whole batch
 
@@ -59,23 +81,36 @@ class StageLoss(nn.Module):
         return loss_fn(self.system, self.stage)(batch, draws=draws)
 
 
+def stack_terms(terms: Dict[str, torch.Tensor]) -> Tuple[Tuple[str, ...], torch.Tensor]:
+    """(the sorted term names, the terms stacked in that order, detached)."""
+    keys = tuple(sorted(terms))
+    return keys, torch.stack([terms[k].detach().reshape(()) for k in keys])
+
+
+def fetch_steps(keys: Sequence[str], rows: Sequence[torch.Tensor]) -> List[Dict[str, float]]:
+    """Each step's terms of a group (`stack_terms` rows) in one
+    device-to-host transfer, averaged over the ranks first."""
+    values = mean_over_ranks(torch.stack(list(rows))).tolist()
+    return [dict(zip(keys, v)) for v in values]
+
+
 def fetch_terms(terms: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """All loss terms in one device-to-host transfer, averaged over the
-    ranks first."""
-    keys = sorted(terms)
-    stacked = torch.stack([terms[k].detach().reshape(()) for k in keys])
-    return dict(zip(keys, mean_over_ranks(stacked).tolist()))
+    """All loss terms of one call in one device-to-host transfer, averaged
+    over the ranks first."""
+    keys, row = stack_terms(terms)
+    return fetch_steps(keys, [row])[0]
 
 
-def train_step(system, stage: str, optimizer: torch.optim.Optimizer,
-               schedule: Callable[[int], float], count: int, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None,
-               draws: Optional[Dict[str, torch.Tensor]] = None,
-               model: Optional[nn.Module] = None,
-               shard: Tuple[int, int] = ONE) -> Dict[str, float]:
-    """One update, the `count`-th (0-based) of the run; returns the loss
-    terms. `model` is the stage's `StageLoss` under DDP, `batch` then the
-    rank's `shard` of the step's batch."""
+def device_step(system, stage: str, optimizer: torch.optim.Optimizer,
+                schedule: Callable[[int], float], count: int, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None,
+                model: Optional[nn.Module] = None,
+                shard: Tuple[int, int] = ONE) -> Tuple[Tuple[str, ...], torch.Tensor]:
+    """One update, the `count`-th (0-based) of the run; returns its loss
+    terms on the device (`stack_terms`), unfetched. `model` is the stage's
+    `StageLoss` under DDP, `batch` then the rank's `shard` of the step's
+    batch."""
     lr = schedule(count)
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -85,13 +120,27 @@ def train_step(system, stage: str, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
-    return fetch_terms(terms)
+    return stack_terms(terms)
+
+
+def train_step(system, stage: str, optimizer: torch.optim.Optimizer,
+               schedule: Callable[[int], float], count: int, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[Dict[str, torch.Tensor]] = None,
+               model: Optional[nn.Module] = None,
+               shard: Tuple[int, int] = ONE) -> Dict[str, float]:
+    """`device_step` and the fetch of its terms."""
+    keys, row = device_step(system, stage, optimizer, schedule, count, batch, generator, draws,
+                            model, shard)
+    return fetch_steps(keys, [row])[0]
 
 
 class _StepClock:
-    """Per-step milliseconds: CUDA events on the card, the host clock
-    elsewhere; every step ends in the terms' fetch, which waits for it. The
-    batch is on the device before the step's first mark (prefetched)."""
+    """Per-step milliseconds: CUDA events on the card (the device's time
+    from one step's start to its end, the host running ahead of it between
+    fetches), the host clock elsewhere. On the host route the batch is on
+    the device before the step's first mark (prefetched); on the device
+    route the step's gather lies inside its marks."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -112,27 +161,89 @@ class _StepClock:
         return [1e3 * (b - a) for a, b in zip(self.marks[::2], self.marks[1::2])]
 
 
+def groups(items: Iterable, k: int) -> Iterator[list]:
+    """`items` in lists of `k`, the last one shorter when k does not divide them."""
+    group: list = []
+    for item in items:
+        group.append(item)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def _means(steps: List[Dict[str, float]]) -> Dict[str, float]:
+    return {k: sum(s[k] for s in steps) / len(steps) for k in steps[0]} if steps else {}
+
+
+EpochResult = Tuple[int, Dict[str, float], List[Dict[str, float]], List[float]]
+
+
 def run_epoch(system, stage: str, optimizer: torch.optim.Optimizer,
               schedule: Callable[[int], float], count: int,
               batches: Iterable[Dict[str, np.ndarray]],
               generator: Optional[torch.Generator] = None,
               model: Optional[nn.Module] = None, shard: Tuple[int, int] = ONE,
-              ) -> Tuple[int, Dict[str, float], List[Dict[str, float]], List[float]]:
+              steps_per_dispatch: int = 1) -> EpochResult:
     """One pass over host batches (a rank's rows of each, with `model` and
-    `shard` as `train_step` takes them), prefetched to the system's device;
-    returns (the update count after it, the mean of each term, each step's
-    terms, each step's milliseconds)."""
+    `shard` as `train_step` takes them), prefetched to the system's device,
+    their terms fetched once every `steps_per_dispatch` steps; returns (the
+    update count after it, the mean of each term, each step's terms, each
+    step's milliseconds)."""
     clock = _StepClock(system.device)
-    steps = []
-    for b in prefetch_to_device(batches, system.device):
-        clock.mark()
-        terms = train_step(system, stage, optimizer, schedule, count, b, generator,
-                           model=model, shard=shard)
-        clock.mark()
-        count += 1
-        steps.append(terms)
-    means = {k: sum(s[k] for s in steps) / len(steps) for k in steps[0]} if steps else {}
-    return count, means, steps, clock.intervals_ms()
+    steps: List[Dict[str, float]] = []
+    prefetched = prefetch_to_device(batches, system.device)
+    for group in groups(prefetched, max(int(steps_per_dispatch), 1)):
+        rows = []
+        for b in group:
+            clock.mark()
+            keys, row = device_step(system, stage, optimizer, schedule, count, b, generator,
+                                    model=model, shard=shard)
+            clock.mark()
+            count += 1
+            rows.append(row)
+        steps += fetch_steps(keys, rows)
+    return count, _means(steps), steps, clock.intervals_ms()
+
+
+def make_device_data(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The split's per-sample arrays (row i <-> sample i) as tensors on
+    `device`, each copied once."""
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in arrays.items()}
+
+
+def run_epoch_device(system, stage: str, optimizer: torch.optim.Optimizer,
+                     schedule: Callable[[int], float], count: int,
+                     data: Dict[str, torch.Tensor], index_batches: Iterable[np.ndarray],
+                     generator: Optional[torch.Generator] = None,
+                     model: Optional[nn.Module] = None, shard: Tuple[int, int] = ONE,
+                     steps_per_dispatch: int = 8) -> EpochResult:
+    """One pass over the index stream (`datamodule.batch_indices`) of a
+    split held on the device (`make_device_data`): each group of
+    `steps_per_dispatch` index rows goes to the device in one copy, each
+    step gathers its batch there (the rank's `shard` of the row), and the
+    group's terms are fetched once; returns what `run_epoch` returns."""
+    device = system.device
+    clock = _StepClock(device)
+    steps: List[Dict[str, float]] = []
+    for group in groups(index_batches, max(int(steps_per_dispatch), 1)):
+        idx = torch.as_tensor(np.stack(group).astype(np.int64))
+        if device.type == "cuda":
+            idx = idx.pin_memory()
+        idx = idx.to(device, non_blocking=True)
+        rows = []
+        for sel in idx:
+            clock.mark()
+            mine = rank_rows(sel, shard)
+            batch = {k: v.index_select(0, mine) for k, v in data.items()}
+            keys, row = device_step(system, stage, optimizer, schedule, count, batch, generator,
+                                    model=model, shard=shard)
+            clock.mark()
+            count += 1
+            rows.append(row)
+        steps += fetch_steps(keys, rows)
+    return count, _means(steps), steps, clock.intervals_ms()
 
 
 @torch.no_grad()

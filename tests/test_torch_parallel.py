@@ -35,7 +35,6 @@ from seeme_tpu_torch.models.seeme import SeeMeConfig, SeeMeSystem
 from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
 from seeme_tpu_torch.parallel import infer_param_shardings, make_mesh, shard_params
 from seeme_tpu_torch.parallel.mesh import check_model_axis, rows, valid_rows
-from seeme_tpu_torch.parallel.shardings import REPLICATED
 from seeme_tpu_torch.nn.init import perturb_parameters_
 from torch_parallel_worker import build_library, ddp_steps, metric_sums, run_world, spawn
 from torch_train_common import BOTH, GRAD_FLOOR, JSystem, JConfig, SMALL, T, jax_draws, \
@@ -260,16 +259,22 @@ def test_rows_and_valid_rows():
 
 
 def test_model_axis_above_one_is_refused_by_name():
-    """`make_mesh`, `check_model_axis` and the parameter rules refuse a model
-    axis above 1, naming MESH.MODEL_AXIS; at 1 every parameter is replicated."""
-    with pytest.raises(NotImplementedError, match="MESH.MODEL_AXIS=2"):
-        check_model_axis(2)
-    with pytest.raises(NotImplementedError, match="MESH.MODEL_AXIS=4"):
+    """In one process (one rank) `make_mesh` and `check_model_axis` refuse a
+    model axis above 1, naming MESH.MODEL_AXIS, as the JAX `make_mesh`
+    asserts on one device; a model axis that divides the world is taken.
+    The parameter rules replicate everything at model size 1 and shard a
+    Linear 512 wide on its output dim at 2."""
+    with pytest.raises(ValueError, match="MESH.MODEL_AXIS=2 does not divide the 1 rank"):
+        check_model_axis(2, 1)
+    with pytest.raises(ValueError, match="MESH.MODEL_AXIS=4"):
         make_mesh(model_axis=4)
+    with pytest.raises(ValueError, match="MESH.MODEL_AXIS=3"):
+        check_model_axis(3, 4)
+    assert check_model_axis("2", 4) == 2 and check_model_axis("1", 1) == 1
     module = torch.nn.Linear(3, 512)
-    assert infer_param_shardings(module, None) == {"weight": REPLICATED, "bias": REPLICATED}
+    assert infer_param_shardings(module, None) == {"weight": None, "bias": None}
+    assert infer_param_shardings(module, 2) == {"weight": 0, "bias": None}
     assert shard_params(module, None) is module
-    assert check_model_axis("1") == 1
 
 
 def test_ranks_started_together_build_the_kernels_once(tmp_path):

@@ -179,3 +179,73 @@ def eval_cli(rank: int, world: int, out: str, argv: list) -> None:
     result = main(argv)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump({"replications": result["replications"]}, f)
+
+
+def model_axis_steps(rank: int, world: int, out: str, model_axis: int) -> None:
+    """`shard_params` over a (world / m, m) mesh on `inputs.npz`, against
+    the same system replicated: each from the inputs' weights, each takes
+    one stage-2 update through `StageLoss` under DDP over the rank's
+    data-axis group, on the rank's rows of the batch and of the global
+    draws; the sharded one also samples (DDIM) before and after sharding
+    and after its step. Writes `rank<r>.npz`: both losses, the samples, the
+    whole parameters after each step (the sharded ones gathered), and the
+    element counts of the stored parameters and of AdamW's moments, sharded
+    and whole."""
+    from seeme_tpu_torch.data.synthetic import to_torch
+    from seeme_tpu_torch.ops import module_state
+    from seeme_tpu_torch.parallel import infer_param_shardings, make_mesh, shard_params
+    from seeme_tpu_torch.parallel.mesh import batch_sharding, replicated, rows
+    from seeme_tpu_torch.train.loop import StageLoss, train_step
+    from seeme_tpu_torch.train.state import make_optimizer
+
+    inputs = np.load(os.path.join(out, "inputs.npz"))
+    spec = json.loads(str(inputs["spec"]))
+    mesh = make_mesh(model_axis=model_axis, device_type="cpu")
+    shard = batch_sharding(mesh)
+    assert shard == (rank // model_axis, world // model_axis), shard
+    batch = {k: rows(v, shard) for k, v in to_torch(
+        {k[2:]: inputs[k] for k in inputs.files if k.startswith("b_")}, "cpu").items()}
+    draws = {k[3:]: rows(torch.as_tensor(inputs[k]), shard) for k in inputs.files
+             if k.startswith("d0_")}
+    z_init = rows(torch.as_tensor(inputs["z_init"]), shard)
+
+    def fresh():
+        system = small_system(spec["config"], inputs["mean"], inputs["std"])
+        system.load_state_dict({k[3:]: torch.as_tensor(inputs[k]) for k in inputs.files
+                                if k.startswith("sd_")})
+        return system
+
+    def step(system):
+        optimizer, schedule = make_optimizer("diffusion", system, **spec["optimizer"])
+        model = replicated(StageLoss(system, "diffusion"), torch.device("cpu"),
+                           group=mesh.get_group("data"))
+        return optimizer, train_step(system, "diffusion", optimizer, schedule, 0, batch,
+                                     draws=draws, model=model)["total"]
+
+    twin = fresh()
+    _, twin_loss = step(twin)
+    system = fresh()
+
+    def sample():
+        return system.sample_from_cond(system.encode_conditioning(batch), z_init=z_init).numpy()
+
+    whole = sample()
+    sharded = {n for n, d in infer_param_shardings(system, mesh).items() if d is not None}
+    shard_params(system, mesh)
+    gathered = sample()
+    optimizer, loss = step(system)
+    stepped = sample()
+    stored = {"sharded": 0, "whole": 0}
+    moments = {"sharded": 0, "whole": 0}
+    for n, p in system.named_parameters():
+        kind = "sharded" if ".parametrizations." in n else "whole"
+        stored[kind] += p.numel()
+        state = optimizer.state.get(p, {})
+        if "exp_avg" in state:
+            moments[kind] += state["exp_avg"].numel()
+    np.savez(os.path.join(out, f"rank{rank}.npz"), loss=loss, twin_loss=twin_loss, whole=whole,
+             gathered=gathered, stepped=stepped, sharded=np.asarray(sorted(sharded)),
+             stored=np.asarray([stored["sharded"], stored["whole"]]),
+             moments=np.asarray([moments["sharded"], moments["whole"]]),
+             **{f"p_{k}": v.numpy() for k, v in module_state(system).items()},
+             **{f"r_{k}": v.detach().numpy() for k, v in twin.state_dict().items()})
