@@ -11,7 +11,9 @@ root entry points `demo`, `scene_encoder` and `fit` through `--cfg`, the
 SMPL model file on those paths, the evaluators trained by
 `tools.train_evaluator` and used by the test CLI, the HumanML3D feature
 pipeline with RIFKE and APE / AVE, host-to-device prefetching, data
-parallelism, the train CLI's two dispatch routes and the model axis.
+parallelism, the train CLI's two dispatch routes and the model axis, and
+the configuration switches of the sixteenth slice (the `ddim_sample` loop
+routes, the perception models' camera switches, `TRAIN.RESUME`).
 
     python3 chip_smoke.py
 
@@ -267,7 +269,26 @@ Phases, each printing one line with its seconds as soon as it ends:
      B=64: the loss within 1e-4 and the parameters within 1e-5 of max of
      the replicated step's, half the storage and half the AdamW moments of
      the sharded tensors a rank, kernel 3's sample from the gathered
-     operands within 1e-6 of the unsharded one's and following the update.
+     operands within 1e-6 of the unsharded one's and following the update;
+ 61. `config_mld_egobody.yaml` at B=64 with 20 000 points as shipped (kernel
+     3 once) and with `model.scheduler.eta=0.5`, `model.use_fused=false`
+     and `model.num_head=4`, which sample through the `ddim_sample` loop
+     (PointNet 1 / 3, no DDIM kernel): each route's `sample_from_cond` ms
+     (CUDA events), finite outputs, and each loop route card vs CPU at B=2
+     with 512 points and its initial and per-step noise injected (latents
+     within 1e-3 of max|z|, features within 1e-3 of max);
+ 62. ProHMR-Scene `forward_step` with every camera switch off and the glow
+     without batch norm at B=64: kernels 1-2 at H=256 (1 / 3), ms, peak
+     memory, card vs CPU as phase 18;
+ 63. an EgoHMR training step with every camera switch off and
+     `only_mask_img_cond=False`: card vs CPU at the CLI's B=8 with 1024
+     points, one sample's whole condition dropped, with phase 29's gates
+     and ReLU-decision replay; then at B=64 with 20 000 points, 1 / 3 a
+     step, ms a step and peak memory;
+ 64. `--cfg config_vae_egobody.yaml TRAIN.RESUME=<exp dir>`: the run
+     continues from the saved step and epoch and deletes no step file; a
+     mistyped TRAIN.RESUME raises FileNotFoundError with the directory as
+     it was.
 Phases 6-8, 13-14, 47 and 55-57 time and gate the host route at one step a
 fetch (`HOST_ROUTE`, `HOST_ROUTE_CFG`); the other training phases take the
 card's default route.
@@ -842,6 +863,12 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="seeme_ddp_")
     try:
         ddp_phases(dev, record, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="seeme_slice16_")
+    try:
+        slice16_phases(dev, counted, counters, record, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4411,11 +4438,11 @@ def test_record(cli_args: list) -> dict:
     calls, real_sample = [], SeeMeSystem.sample_from_cond
     patch = _Patches()
 
-    def sample(system, cond, generator=None, z_init=None):
+    def sample(system, cond, generator=None, z_init=None, noise=None):
         before = dfu.ddim_fused.launches
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        feats = real_sample(system, cond, generator=generator, z_init=z_init)
+        feats = real_sample(system, cond, generator=generator, z_init=z_init, noise=noise)
         end.record()
         torch.cuda.synchronize()
         calls.append({"rows": int(z_init.shape[0]), "ms": start.elapsed_time(end),
@@ -4488,6 +4515,235 @@ def slice15_worker(out: str, base_args: list) -> None:
     finally:
         dist.barrier()
         dist.destroy_process_group()
+
+
+def slice16_phases(dev, counted, counters, record, work: str) -> None:
+    """Phases 61-64: the sixteenth slice. 61: the EgoBody config of
+    `config_mld_egobody.yaml` at full width (B=64, 20 000 points) as shipped
+    (kernel 3 once) and with `model.scheduler.eta=0.5`, `model.use_fused=false`
+    and `model.num_head=4`, each sampling through the `ddim_sample` loop
+    (PointNet 1 / 3, no DDIM kernel), each route's `sample_from_cond` ms,
+    and each loop route card vs CPU on a small input with its initial and
+    per-step noise injected (latents 1e-3 of max|z|, features 1e-3 of max).
+    62: ProHMR-Scene `forward_step` with every camera switch off and the glow
+    without batch norm, at B=64 (kernels 1-2 at H=256 1 / 3), ms and peak
+    memory, card vs CPU as phase 18. 63: an EgoHMR training step with every
+    camera switch off and `only_mask_img_cond=False`: card vs CPU at the
+    CLI's batch with phase 29's ReLU-decision replay (one sample's whole
+    condition dropped), then timed at B=64 with 20 000 points (1 / 3 a step).
+    64: `--cfg config_vae_egobody.yaml TRAIN.RESUME=<exp dir>` on the card:
+    the run resumes at the saved step and epoch and deletes no step file; a
+    mistyped RESUME raises before anything is deleted."""
+    import torch
+
+    from seeme_tpu_torch import train_egohmr
+    from seeme_tpu_torch import train_prohmr_scene as train_prohmr
+    from seeme_tpu_torch.config import build as config_build
+    from seeme_tpu_torch.config import loader
+    from seeme_tpu_torch.core.smpl import synthetic_smpl
+    from seeme_tpu_torch.data import egohmr_images as images
+    from seeme_tpu_torch.data.synthetic import SyntheticEgoDataset, to_torch
+    from seeme_tpu_torch.models.egohmr import EgoHmr, EgoHmrConfig
+    from seeme_tpu_torch.models.prohmr import ProHMRConfig, ProHMRScene
+    from seeme_tpu_torch.models.seeme import SeeMeSystem
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.train.__main__ import main as train_main
+
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    none = {k: 0 for k in counters}
+    pointnet_512 = {**none, "pointnet_input_block": 1, "pointnet_split_block": 3}
+    pointnet_256 = {**none, "pointnet_input_block_h256": 1, "pointnet_split_block_h256": 3}
+    smpl = synthetic_smpl(n_verts=6890, seed=SEED)
+
+    # ---- 61. the EgoBody sampling routes of config_mld_egobody.yaml
+    data = SyntheticEgoDataset(BATCH, 60, scene_points=HMR_POINTS, seed=SEED)
+    batch = to_torch(data.batch(0, BATCH), dev)
+    small = {k: v[:2].cpu() for k, v in batch.items()}
+    small["scene"] = small["scene"][:, :512].contiguous()
+    routes = {}
+    for label, overrides in (("shipped", []), ("eta 0.5", ["model.scheduler.eta=0.5"]),
+                             ("use_fused false", ["model.use_fused=false"]),
+                             ("num_head 4", ["model.num_head=4"])):
+        t = time.perf_counter()
+        cfg = config_build.preset_from_yaml(loader.load_config(
+            os.path.join(configs, "config_mld_egobody.yaml"),
+            overrides=loader.parse_dotted_overrides(overrides))).model
+        require(cfg.scene_points == HMR_POINTS and cfg.latent_dim == (1, 256),
+                f"{label}: config {cfg}")
+        system = SeeMeSystem(cfg, smpl, data.mean, data.std, device=dev, seed=SEED)
+        perturb_parameters_(system, torch.Generator().manual_seed(SEED + 80))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+        loop = not system.takes_kernel(2)
+        require(loop == bool(overrides), f"{label}: takes the kernel {not loop}")
+
+        def ego_slice():
+            feats = system.sample_from_cond(system.encode_conditioning(batch), generator=gen)
+            return feats, system.eval_fk(batch, feats)
+
+        (feats, out), counts = counted(ego_slice)
+        require(counts == (pointnet_512 if loop else {**pointnet_512, "ddim_md_t1": 1}),
+                f"{label}: launch counts {counts}")
+        record(f"egobody_{label.replace(' ', '_')}", counts)
+        for k, v in {"feats": feats, **out}.items():
+            require(bool(torch.isfinite(v).all()), f"{label}: {k} not finite")
+        cond = system.encode_conditioning(batch)
+        routes[label] = time_ms(lambda: system.sample_from_cond(cond, generator=gen), 2)
+        checked = ""
+        if loop:  # card vs CPU, the latents caught on their way to the decoder
+            steps = cfg.num_inference_timesteps
+            g = torch.Generator().manual_seed(SEED + 82)
+            z0 = torch.randn(2, *cfg.latent_dim, generator=g)
+            noise = torch.randn(steps, 2, *cfg.latent_dim, generator=g)
+            cpu = SeeMeSystem(cfg, smpl, data.mean, data.std, device="cpu", seed=SEED)
+            cpu.load_state_dict({k: v.cpu() for k, v in system.state_dict().items()})
+            got, want = {}, {}
+            for where, m, inputs in ((got, system, {k: v.to(dev) for k, v in small.items()}),
+                                     (want, cpu, small)):
+                decode = m.vae.decode
+                m.vae.decode = lambda z, *a, _d=decode, _w=where, **k: (
+                    _w.__setitem__("z", z), _d(z, *a, **k))[1]
+                try:
+                    where["feats"] = m.sample_from_cond(
+                        m.encode_conditioning(inputs), z_init=z0.to(m.device),
+                        noise=noise.to(m.device))
+                finally:
+                    del m.vae.decode
+            compare(f"{label} loop latents, card vs CPU", got["z"].cpu(), want["z"],
+                    float(want["z"].abs().max()), DDIM_RTOL)
+            compare(f"{label} loop features, card vs CPU", got["feats"].cpu(), want["feats"],
+                    float(want["feats"].abs().max()), SLICE_RTOL)
+            checked = ", card vs CPU (B=2, 512 points, noise injected) agrees"
+            del cpu
+        del system, feats, out, cond
+        torch.cuda.empty_cache()
+        phase(f"EgoBody {label} (config_mld_egobody.yaml, B={BATCH}, {HMR_POINTS} points): "
+              f"{'the ddim_sample loop' if loop else 'kernel 3'}, launches {counts}, "
+              f"sample_from_cond {routes[label]:.3f} ms{checked}", t)
+    phase(f"EgoBody sampling routes, sample_from_cond ms at B={BATCH} (CUDA events, same "
+          f"phase): {json.dumps({k: round(v, 3) for k, v in routes.items()})}",
+          time.perf_counter())
+
+    # ---- 62. ProHMR-Scene with the camera switches off, the glow without batch norm
+    t = time.perf_counter()
+    off = dict(with_focal_length=False, with_bbox_info=False, with_cam_center=False)
+    p_cfg = ProHMRConfig(**off, use_batch_norm=False)
+    model = ProHMRScene(p_cfg, smpl, device=dev, seed=SEED)
+    perturb_parameters_(model, torch.Generator().manual_seed(SEED + 83))
+    randomize_batch_stats_(model, torch.Generator().manual_seed(SEED + 84))
+    require(not any("batch_norm_layers" in k for k in model.state_dict())
+            and p_cfg.total_context == 2048 + 512, f"ProHMR switches: context {p_cfg.total_context}")
+    dm = images.EgoHmrImageDataModule(n_pts=HMR_POINTS, img_size=224, smpl=smpl)
+    big_np = next(dm.batches("train", BATCH, shuffle=False))
+    hmr_batch = to_torch(big_np, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 85)
+    with torch.no_grad():
+        out, counts = counted(lambda: model.forward_step(hmr_batch, generator=gen))
+        require(counts == pointnet_256, f"ProHMR switches launch counts {counts}")
+        record("prohmr_switches_eval", counts)
+        for k, v in out.items():
+            require(bool(torch.isfinite(v.float()).all()), f"ProHMR switches {k} not finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: model.forward_step(hmr_batch, generator=gen), 3)
+        peak = torch.cuda.max_memory_allocated()
+        cpu = ProHMRScene(p_cfg, smpl, device="cpu", seed=SEED)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        small_np = next(images.EgoHmrImageDataModule(n_pts=512, img_size=224, smpl=smpl)
+                        .batches("test", 2, shuffle=False))
+        noise = torch.randn(2, p_cfg.num_test_samples - 1, p_cfg.flow_dim,
+                            generator=torch.Generator().manual_seed(SEED + 86))
+        ref = cpu.forward_step(to_torch(small_np, "cpu"), noise=noise)
+        got = model.forward_step(to_torch(small_np, dev), noise=noise.to(dev))
+    for k in ("pose_6d", "log_prob", "betas", "cam", "pred_keypoints_3d", "pred_vertices",
+              "pred_cam_t_full", "pred_keypoints_2d_full", "conditioning_feats"):
+        compare(f"ProHMR switches {k}, card vs CPU", got[k].cpu(), ref[k],
+                float(ref[k].abs().max()), SLICE_RTOL)
+    del model, cpu, out, got, ref
+    torch.cuda.empty_cache()
+    phase(f"ProHMR-Scene with the camera switches off and no glow batch norm (context "
+          f"{p_cfg.total_context}): forward_step B={BATCH}, {HMR_POINTS} points: launches "
+          f"{counts}, {ms:.3f} ms, peak {peak} B; card vs CPU (B=2, 512 points) agrees", t)
+
+    # ---- 63. an EgoHMR training step with the switches off and the whole condition masked
+    t = time.perf_counter()
+    e_cfg = EgoHmrConfig(**off, only_mask_img_cond=False)
+    model = EgoHmr(e_cfg, smpl, device=dev, seed=SEED)
+    perturb_parameters_(model, torch.Generator().manual_seed(SEED + 87))
+    randomize_batch_stats_(model, torch.Generator().manual_seed(SEED + 88))
+    args = train_prohmr.parse_args(["--lr", str(TRAIN_LR)])
+    cli_np = next(images.EgoHmrImageDataModule(n_pts=args.scene_points, img_size=224, smpl=smpl)
+                  .batches("train", args.batch_size, shuffle=False, augment=True))
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    runs = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        m = EgoHmr(e_cfg, smpl, device=device)
+        m.load_state_dict({k: v.to(device) for k, v in sd.items()})
+        m.requires_grad_(True)
+        runs[where] = (m, train_egohmr.adamw(m.parameters(), args))
+    draws = runs["cpu"][0].train_draws(args.batch_size, torch.Generator().manual_seed(SEED + 89))
+    draws["drop"][0] = True  # one sample's whole condition dropped
+    losses, masks = {}, []
+    for where, (m, opt) in runs.items():
+        b = train_egohmr.add_body_rep(m, to_torch(cli_np, m.device))
+        with relu_decisions(m, masks, record=where == "card"):
+            losses[where] = float(train_egohmr.train_step(
+                m, opt, b, {k: v.to(m.device) for k, v in draws.items()})["total"])
+    compare_step("EgoHMR switches step", runs["cpu"][0], runs["card"][0], losses["cpu"],
+                 losses["card"], TRAIN_LR)
+    del runs
+    model.requires_grad_(True)
+    opt = train_egohmr.adamw(model.parameters(), args)
+    ego_batch = train_egohmr.add_body_rep(model, hmr_batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+
+    def steps(n):
+        for _ in range(n):
+            train_egohmr.train_step(model, opt, ego_batch, model.train_draws(BATCH, gen))
+        torch.cuda.synchronize()
+
+    _, counts = counted(lambda: steps(1))
+    require(counts == pointnet_256, f"EgoHMR switches step launch counts {counts}")
+    record("egohmr_switches_train", counts)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps(3)
+    ms = 1e3 * (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, ego_batch, hmr_batch
+    torch.cuda.empty_cache()
+    phase(f"EgoHMR training with the camera switches off and only_mask_img_cond=False (context "
+          f"{e_cfg.context_dim}): card vs CPU at B={args.batch_size}, {args.scene_points} points "
+          f"agrees; at B={BATCH}, {HMR_POINTS} points: launches {counts} a step, {ms:.3f} ms a "
+          f"step (host clock), peak {peak} B", t)
+
+    # ---- 64. TRAIN.RESUME on the --cfg route
+    t = time.perf_counter()
+    exp = os.path.join(work, "resume")
+    vae_yaml = os.path.join(configs, "config_vae_egobody.yaml")
+    keys = ["DEBUG=true", "LOGGER.SACE_CHECKPOINT_EPOCH=1"]
+    first = train_main(["--cfg", vae_yaml, "--out", exp, "--epochs", "1", *keys])
+    ckpt = os.path.join(exp, "checkpoints")
+    saved = sorted(os.listdir(ckpt))
+    require(saved == [f"{first.step}.pt"], f"resume: the first run saved {saved}")
+    try:
+        train_main(["--cfg", vae_yaml, "--out", exp, "--epochs", "3", *keys,
+                    f"TRAIN.RESUME={exp}_mistyped"])
+        raised = False
+    except FileNotFoundError as e:
+        raised = "TRAIN.RESUME" in str(e)
+    require(raised and sorted(os.listdir(ckpt)) == saved,
+            f"resume: a mistyped TRAIN.RESUME left {sorted(os.listdir(ckpt))}")
+    resumed = train_main(["--cfg", vae_yaml, "--out", exp, "--epochs", "3", *keys,
+                          f"TRAIN.RESUME={exp}"])
+    after = sorted(os.listdir(ckpt))
+    require(resumed.start_epoch == 1 and resumed.history[0]["epoch"] == 1
+            and resumed.step == 3 * first.step and set(saved) < set(after),
+            f"resume: start epoch {resumed.start_epoch}, step {resumed.step}, files {after}")
+    require(all(math.isfinite(v) for r in resumed.history for v in r["means"].values()),
+            "resume: losses not finite")
+    phase(f"--cfg config_vae_egobody.yaml TRAIN.RESUME=<exp dir> on the card: resumed at step "
+          f"{first.step} (epoch 1) to step {resumed.step}, step files {saved} -> {after} (none "
+          f"deleted); a mistyped TRAIN.RESUME raised FileNotFoundError and left {saved}", t)
 
 
 def shard_record(dev) -> dict:

@@ -7,9 +7,13 @@ the reference's `droupout` spelling and `TRAIN.ABLATION`), with the same
 defaults. `preset_from_yaml` adds the training and test settings the CLIs
 read (`train.py`, `test.py`) and gives a `Preset`, the form the port's CLIs
 and `config/presets.py::build` take, so `--cfg` and `--preset` run one
-code path. A key the JAX builder reads whose value the port cannot run
-raises (`model.num_head` other than 1 on an ego config, `eta` other than 0,
-`model.use_fused: false`); none is dropped.
+code path. Every key the JAX builder and CLIs read takes effect: the ego
+config's `model.num_head`, `model.scheduler.eta` and `model.use_fused`
+route its sampling (`models/seeme.py::SeeMeSystem.takes_kernel`), as
+`model.use_fused` and `TEST.USE_FUSED` route the text- and
+action-to-motion models'; `TRAIN.RESUME` and `LOGGER.LOG_EVERY_STEPS` reach
+the train CLI, `TEST.EVALUATOR_HIDDEN` / `EVALUATOR_LAYERS` the action
+evaluator. None is dropped.
 """
 
 from __future__ import annotations
@@ -47,22 +51,10 @@ def loss_weights_from_config(cfg: Config) -> LossWeights:
                        lambda_kl=float(loss.get("LAMBDA_KL", 1e-4)))
 
 
-def _refuse(path: str, value: Any, ok: bool, why: str) -> None:
-    if not ok:
-        raise ValueError(f"{path}: {value!r} has no counterpart in the port ({why})")
-
-
 def seeme_config_from_yaml(cfg: Config) -> SeeMeConfig:
     """The ego system's config (`seeme_tpu/config/build.py:29-59`)."""
     model, abl = cfg.model, cfg.TRAIN.ABLATION
     sched = model.get("scheduler") or {}
-    heads = int(_model_get(model, "num_head", "num_heads", default=1))
-    _refuse("model.num_head", heads, heads == 1, "the ego denoiser has one attention head")
-    eta = float(sched.get("eta", 0.0))
-    _refuse("model.scheduler.eta", eta, eta == 0.0, "the DDIM kernels sample at eta 0")
-    fused = model.get("use_fused", True)
-    _refuse("model.use_fused", fused, bool(fused),
-            "the port samples through its kernels on the card")
     return SeeMeConfig(
         dataset_name=cfg.get("DATASET_NAME", "egobody"),
         estimate=cfg.get("ESTIMATE", "wearer"),
@@ -73,6 +65,7 @@ def seeme_config_from_yaml(cfg: Config) -> SeeMeConfig:
         latent_dim=tuple(model.get("latent_dim", [1, 256])),
         ff_size=int(model.get("ff_size", 128)),
         num_layers=int(model.get("num_layers", 5)),
+        num_heads=int(_model_get(model, "num_head", "num_heads", default=1)),
         # 'droupout' is the reference's yaml key spelling (config_mld_egobody.yaml:119)
         dropout=float(_model_get(model, "droupout", "dropout", default=0.1)),
         guidance_scale=float(model.get("guidance_scale", 1.0)),
@@ -81,8 +74,10 @@ def seeme_config_from_yaml(cfg: Config) -> SeeMeConfig:
         md_trans=bool(abl.get("MD_TRANS", False)),
         mlp_dist=bool(abl.get("MLP_DIST", False)),
         num_inference_timesteps=int(sched.get("num_inference_timesteps", 50)),
+        eta=float(sched.get("eta", 0.0)),
         scene_points=int(model.get("scene_points", 20000)),
         scene_feat_dim=int(model.get("scene_feat_dim", 512)),
+        use_fused=bool(model.get("use_fused", True)),
         fused_variant=str(model.get("fused_variant", "loop")),
         loss=loss_weights_from_config(cfg),
     )
@@ -117,6 +112,7 @@ def t2m_config_from_yaml(cfg: Config, nfeats: Optional[int] = None) -> T2MConfig
         arch=str(cfg.select("model.denoiser.params.arch", "trans_enc") or "trans_enc"),
         text_encoder_path=str(te.get("modelpath") or cfg.select("model.clip_path", "") or ""),
         last_hidden_state=bool(te.get("last_hidden_state", False)),
+        use_fused=bool(model.get("use_fused", True)),
     )
 
 
@@ -141,6 +137,7 @@ def a2m_config_from_yaml(cfg: Config, nfeats: Optional[int] = None,
         num_inference_timesteps=int(sched.get("num_inference_timesteps", 50)),
         lambda_kl=float(loss.get("LAMBDA_KL", 1e-4)),
         lambda_rec=float(loss.get("LAMBDA_REC", 1.0)),
+        use_fused=bool(model.get("use_fused", True)),
     )
 
 
@@ -178,6 +175,8 @@ def preset_from_yaml(cfg: Config) -> Preset:
         steps_per_dispatch=(None if tr.get("STEPS_PER_DISPATCH") is None
                             else int(tr.STEPS_PER_DISPATCH)),
         device_data_max_gb=float(tr.get("DEVICE_DATA_MAX_GB", 4.0)),
+        resume=str(tr.get("RESUME") or ""),
+        log_every_steps=int(logger.get("LOG_EVERY_STEPS", 1)),
         seed=int(cfg.get("SEED_VALUE", 1234)))
     te = cfg.get("TEST") or {}
     fact = te.get("FACT", 1.0)
@@ -193,7 +192,10 @@ def preset_from_yaml(cfg: Config) -> Preset:
         mm_num_times=int(te.get("MM_NUM_TIMES", 10)),
         evaluator_dir=str(te.get("T2M_EVALUATOR_DIR") or ""),
         word_vectorizer_path=str(cfg.select("DATASET.WORD_VERTILIZER_PATH", "") or ""),
-        evaluator_checkpoint=str(te.get("EVALUATOR_CHECKPOINT") or ""))
+        evaluator_checkpoint=str(te.get("EVALUATOR_CHECKPOINT") or ""),
+        use_fused=None if te.get("USE_FUSED") is None else bool(te.get("USE_FUSED")),
+        evaluator_hidden=int(te.get("EVALUATOR_HIDDEN", 128)),
+        evaluator_layers=int(te.get("EVALUATOR_LAYERS", 2)))
     return Preset(name=str(cfg.get("NAME", name)), model=model, train=train, dataset=name,
                   test=test, smpl_path=smpl_path_of(cfg), debug=bool(cfg.get("DEBUG", False)))
 

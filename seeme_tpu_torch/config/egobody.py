@@ -52,6 +52,13 @@ class TrainConfig:
     steps_per_dispatch: Optional[int] = None
     # TRAIN.DEVICE_DATA_MAX_GB (train.py:313): the largest split kept on the device
     device_data_max_gb: float = 4.0
+    # TRAIN.RESUME (config_*_egobody.yaml:17, train.py:155-178): an experiment
+    # dir (or its checkpoints/ dir, a step or `latest` in it) to resume
+    # from; empty = a fresh run. The CLI's --resume overrides it
+    resume: str = ""
+    # LOGGER.LOG_EVERY_STEPS (:80): every N-th epoch's line, counted in
+    # epochs as train.py:389 reads it
+    log_every_steps: int = 1
     seed: int = 1234            # SEED_VALUE (base.yaml:3)
 
 
@@ -82,6 +89,15 @@ class TestConfig:
     # model's weights under the reference's keys (TEST.EVALUATOR_CHECKPOINT),
     # empty = its seeded random init
     evaluator_checkpoint: str = ""
+    # TEST.USE_FUSED (`test.py:73-87`): true samples through the fused DDIM
+    # kernel, false through the `ddim_sample` loop; None (the key absent)
+    # keeps the model's `use_fused`, the kernel as shipped. test.py's own
+    # default is false
+    use_fused: Optional[bool] = None
+    # TEST.EVALUATOR_HIDDEN / EVALUATOR_LAYERS (`test.py:397-401`): the
+    # HumanAct12 recognition GRU's width and depth
+    evaluator_hidden: int = 128
+    evaluator_layers: int = 2
 
 
 @dataclass(frozen=True)

@@ -206,8 +206,8 @@ def resnet_state_dict(tree: Tree, prefix: str = "image_encoder") -> Dict:
 
 def glow_state_dict(tree: Tree, prefix: str = "flow.flow") -> Dict:
     """`seeme_tpu/flows/glow.py` params {"layers": [...]} -> the nflows keys
-    of `flows/glow.py::ConditionalGlow` (slots 3i, 3i + 1, 3i + 2), the
-    inverse of `convert_glow`."""
+    of `flows/glow.py::ConditionalGlow` (slots 3i, 3i + 1, 3i + 2), with
+    or without the blocks' batch norm, the inverse of `convert_glow`."""
     sd: Dict = {}
 
     def wb(key: str, p: Tree) -> None:
@@ -226,6 +226,8 @@ def glow_state_dict(tree: Tree, prefix: str = "flow.flow") -> Dict:
         for j, block in enumerate(p["blocks"]):
             for k in (0, 1):
                 wb(f"{net}.blocks.{j}.linear_layers.{k}", block[f"linear{k}"])
+                if f"bn{k}" not in block:  # use_batch_norm=False
+                    continue
                 bn, key = block[f"bn{k}"], f"{net}.blocks.{j}.batch_norm_layers.{k}"
                 _norm(sd, key, bn)
                 _put(sd, f"{key}.running_mean", bn["mean"])

@@ -163,11 +163,12 @@ def _strided_frame_ix(nframes: int, num_frames: int) -> np.ndarray:
 
 
 class UestcDataModule(A2MSplits):
-    """The release under `root`, every view; the val split is the test split.
-    (The JAX module's `view="frontview"`, side 1 only, has no caller and is
-    not ported.)"""
+    """The release under `root`, every view, or with `view="frontview"` the
+    side-1 videos only (`seeme_tpu/data/a2m.py:172, :208`); the val split is
+    the test split."""
 
-    def __init__(self, root: str, num_frames: int = 60, debug: bool = False):
+    def __init__(self, root: str, num_frames: int = 60, debug: bool = False,
+                 view: str = "all"):
         with open(os.path.join(root, "info", "names.txt")) as f:
             videos = f.read().splitlines()
         with open(os.path.join(root, "info", "num_frames_min.txt")) as f:
@@ -193,6 +194,8 @@ class UestcDataModule(A2MSplits):
             # a{action}_d{view}_p{subject}_c{side}_color.avi (`uestc.py:230-242`)
             spl = name.split("_")
             action, vview, subject, side = (int(spl[k][1:]) for k in range(4))
+            if view == "frontview" and side != 1:
+                continue
             T = int(nframes[i])
             if T < 2:
                 continue

@@ -2,7 +2,8 @@
 
 The defaults are MLD's shipped `configs/modules/scheduler.yaml`:
 'scaled_linear' betas over 1000 steps, set_alpha_to_one=false,
-steps_offset=1, epsilon prediction, clip_sample=false. EgoHMR's
+steps_offset=1, epsilon prediction, clip_sample=false. `ddim_step` takes
+eta > 0 with its per-step noise and either prediction type. EgoHMR's
 x0-predicting cosine schedule ('squaredcos_cap_v2', prediction_type
 'sample') samples by ancestral DDPM steps over a respaced subsequence
 (`space_timesteps`, `respaced_schedule`).
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ class DiffusionSchedule:
     beta_end: float = 0.012
     beta_schedule: str = "scaled_linear"
     prediction_type: str = "epsilon"  # or "sample" (x0)
+    clip_sample: bool = False         # x0 clipped to [-1, 1]
     set_alpha_to_one: bool = False
     steps_offset: int = 1
     init_noise_sigma: float = 1.0
@@ -68,14 +70,16 @@ class DiffusionSchedule:
 
     def predict_x0(self, model_output: torch.Tensor, t, sample: torch.Tensor) -> torch.Tensor:
         """x0 from the model's output at timestep t (an int, or indices that
-        broadcast against sample) (`seeme_tpu/diffusion/schedulers.py:97-110`;
-        clip_sample=false in both configs)."""
+        broadcast against sample), clipped to [-1, 1] under `clip_sample`
+        (`seeme_tpu/diffusion/schedulers.py:97-110`; false in every config)."""
         if self.prediction_type == "sample":
-            return model_output
-        if self.prediction_type != "epsilon":
+            x0 = model_output
+        elif self.prediction_type == "epsilon":
+            acp_t = torch.as_tensor(self.alphas_cumprod, device=sample.device)[t]
+            x0 = (sample - torch.sqrt(1.0 - acp_t) * model_output) / torch.sqrt(acp_t)
+        else:
             raise ValueError(f"unknown prediction type {self.prediction_type}")
-        acp_t = torch.as_tensor(self.alphas_cumprod, device=sample.device)[t]
-        return (sample - torch.sqrt(1.0 - acp_t) * model_output) / torch.sqrt(acp_t)
+        return x0.clamp(-1.0, 1.0) if self.clip_sample else x0
 
     def ddim_timesteps(self, num_inference_steps: int) -> np.ndarray:
         """Descending inference timesteps, diffusers 'leading' spacing."""
@@ -90,13 +94,25 @@ class DiffusionSchedule:
         return 1.0 if self.set_alpha_to_one else float(self.alphas_cumprod[0])
 
     def ddim_step(self, model_output: torch.Tensor, t: int, sample: torch.Tensor,
-                  num_inference_steps: int) -> torch.Tensor:
-        """One eta=0 x_t -> x_{t-k} DDIM update (diffusers DDIMScheduler.step)
-        for an epsilon prediction."""
+                  num_inference_steps: int, eta: float = 0.0,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One x_t -> x_{t-k} DDIM update (diffusers DDIMScheduler.step,
+        `seeme_tpu/diffusion/schedulers.py:122-150`): at eta > 0 the step
+        adds eta * sigma_t * `noise`, which it then needs."""
         acp_t = sample.new_tensor(float(self.alphas_cumprod[t]))
         acp_prev = sample.new_tensor(self.alpha_prev(int(t), num_inference_steps))
-        x0 = (sample - torch.sqrt(1.0 - acp_t) * model_output) / torch.sqrt(acp_t)
-        return torch.sqrt(acp_prev) * x0 + torch.sqrt(1.0 - acp_prev) * model_output
+        x0 = self.predict_x0(model_output, int(t), sample)
+        if self.prediction_type == "epsilon":
+            eps = model_output
+        else:
+            eps = (sample - torch.sqrt(acp_t) * x0) / torch.sqrt(1.0 - acp_t)
+        std = eta * torch.sqrt((1.0 - acp_prev) / (1.0 - acp_t) * (1.0 - acp_t / acp_prev))
+        prev = torch.sqrt(acp_prev) * x0 + torch.sqrt(1.0 - acp_prev - std ** 2) * eps
+        if eta > 0:
+            if noise is None:
+                raise ValueError("ddim_step: eta > 0 needs noise")
+            prev = prev + std * noise
+        return prev
 
     def ddpm_step(self, model_output: torch.Tensor, t: int, sample: torch.Tensor,
                   noise: torch.Tensor) -> torch.Tensor:
@@ -161,3 +177,18 @@ def respaced_schedule(base: DiffusionSchedule,
     object.__setattr__(sched, "num_train_timesteps", len(use))
     sched._set(1.0 - new_acp / prev)
     return sched, use
+
+
+def snr(schedule: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Signal-to-noise ratio acp / (1 - acp) at timesteps t
+    (`seeme_tpu/diffusion/schedulers.py:232-236`)."""
+    t = torch.as_tensor(t)
+    acp = torch.as_tensor(schedule.alphas_cumprod, device=t.device)[t]
+    return acp / (1.0 - acp)
+
+
+def ddim_timesteps_static(schedule: DiffusionSchedule, n: int) -> Tuple[torch.Tensor, int]:
+    """(the n descending DDIM timesteps as a tensor, their count)
+    (`seeme_tpu/diffusion/schedulers.py:239-241`)."""
+    ts = schedule.ddim_timesteps(n)
+    return torch.as_tensor(ts), len(ts)

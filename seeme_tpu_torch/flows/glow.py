@@ -5,9 +5,10 @@ Per layer ActNorm -> LULinear -> AdditiveCoupling(ResidualNet(context)),
 alternating coupling masks, standard-normal base, in a `_transform.
 _transforms` list at slots 3i, 3i + 1, 3i + 2 (`tools/convert_checkpoint.py
 ::convert_glow`). The residual nets run their batch norm with running
-statistics (the evaluation path; dropout is off there too).
-`initialize_actnorm`, the data-dependent ActNorm start of training, is not
-ported yet.
+statistics (dropout is off); with `use_batch_norm=False` a block has no
+batch norm and no `batch_norm_layers` keys (`seeme_tpu/flows/glow.py:49,
+:102-104, :156-163`). `initialize_actnorm` is the data-dependent ActNorm
+start of training.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class GlowConfig:
     num_layers: int = 4
     num_blocks_per_layer: int = 2
     context_features: Optional[int] = None
+    use_batch_norm: bool = True  # the residual blocks' batch norm
 
     def masks(self) -> np.ndarray:
         """Per-layer coupling masks: -1 at even indices in layer 0, flipped
@@ -105,18 +107,20 @@ class LULinear(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Pre-activation block: bn -> relu -> linear -> bn -> relu -> linear, added."""
+    """Pre-activation block: bn -> relu -> linear -> bn -> relu -> linear,
+    added; without batch norm relu -> linear -> relu -> linear."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, use_batch_norm: bool = True):
         super().__init__()
-        # FrozenBatchNorm2d normalizes (N, C) as well
-        self.batch_norm_layers = nn.ModuleList(
-            [FrozenBatchNorm2d(features, eps=BN_EPS) for _ in range(2)])
+        if use_batch_norm:  # FrozenBatchNorm2d normalizes (N, C) as well
+            self.batch_norm_layers = nn.ModuleList(
+                [FrozenBatchNorm2d(features, eps=BN_EPS) for _ in range(2)])
         self.linear_layers = nn.ModuleList([nn.Linear(features, features) for _ in range(2)])
 
     def forward(self, x):
         t = x
-        for bn, linear in zip(self.batch_norm_layers, self.linear_layers):
+        norms = getattr(self, "batch_norm_layers", (nn.Identity(), nn.Identity()))
+        for bn, linear in zip(norms, self.linear_layers):
             t = linear(F.relu(bn(t)))
         return x + t
 
@@ -128,7 +132,8 @@ class ResidualNet(nn.Module):
         super().__init__()
         h = cfg.hidden_features
         self.initial_layer = nn.Linear(in_features + (cfg.context_features or 0), h)
-        self.blocks = nn.ModuleList([ResidualBlock(h) for _ in range(cfg.num_blocks_per_layer)])
+        self.blocks = nn.ModuleList([ResidualBlock(h, cfg.use_batch_norm)
+                                     for _ in range(cfg.num_blocks_per_layer)])
         self.final_layer = nn.Linear(h, out_features)
 
     def forward(self, x, context=None):

@@ -16,11 +16,9 @@ text: `MotionVae` over 60 frames of 150 rot6d features, a token-concat
   * `sample` (`:117-156`): classifier-free guidance doubles the condition
     as [zeros; token] when guidance > 1; the whole reverse process is one
     launch of `csrc/ddim_tok.cu` (`ops/denoiser_fused.py::ddim_fused_tok`,
-    kernel 5; its plain version on the CPU), then the decode. A
-    configuration with more than one head, which the kernel does not take,
-    runs the `ddim_sample` loop over the eager denoiser. The JAX package
-    samples through its scan unless `use_fused` and a TPU; the port has no
-    such switch and routes by shape, as `T2MSystem` does;
+    kernel 5; its plain version on the CPU), then the decode. With
+    `use_fused` off (`:125`), or more than one head, which the kernel does
+    not take, it runs the `ddim_sample` loop over the eager denoiser;
   * `feats_to_joints` (`:158-164`): `core/rotation2xyz.py` over the
     system's SMPL body.
 
@@ -56,8 +54,7 @@ from .vae import MotionVae, reparameterize
 
 @dataclass(frozen=True)
 class A2MConfig:
-    """`seeme_tpu/models/a2m.py::A2MConfig`'s fields and defaults, but
-    `use_fused` (see the module's docstring)."""
+    """`seeme_tpu/models/a2m.py::A2MConfig`'s fields and defaults."""
 
     nfeats: int = 150   # 24 joints x rot6d + root trajectory, padded to 25 x 6
     num_frames: int = 60
@@ -72,6 +69,7 @@ class A2MConfig:
     num_inference_timesteps: int = 50
     lambda_kl: float = 1e-4
     lambda_rec: float = 1.0
+    use_fused: bool = True  # model.use_fused / TEST.USE_FUSED: false takes the loop
 
 
 class A2MSystem(nn.Module):
@@ -164,7 +162,7 @@ class A2MSystem(nn.Module):
             z_init = torch.randn(shape, generator=generator, device=self.device)
         z_init = z_init.to(self.device, torch.float32).contiguous()
         steps = cfg.num_inference_timesteps
-        if cfg.num_heads == 1:  # kernel 5 at any number of latent tokens, as a2m.py:129-136
+        if cfg.use_fused and cfg.num_heads == 1:  # kernel 5 at any latent token count (:125-136)
             sd, weights = self.kernel_operands()
             z = ddim_fused_tok(sd, cond.contiguous(), z_init, self.schedule, steps,
                                cfg.num_layers, cfg.guidance_scale, weights=weights)

@@ -19,8 +19,8 @@ in the reference:
 are zeroed on the way out; with trans_enc the sequence is [time; cond;
 sample]. `cond_mask` (B, n_cond), True = valid, keeps padded condition
 tokens out of every attention, the time token and the sample tokens always
-valid (`seeme_tpu/models/denoiser.py:186-253`); the MD stack, which no
-masked caller reaches, refuses it.
+valid (`seeme_tpu/models/denoiser.py:172-253`); on the MD stack it also
+leaves them out of the cross-attention's softmax over tokens.
 
 `dropout` reaches every layer and acts in train mode only: the training
 forward is this module; the fused DDIM kernels read its state dict and
@@ -119,9 +119,8 @@ class Denoiser(nn.Module):
                 key_valid = torch.cat([one, valid, frames], dim=1)
             out = self.encoder(xseq, key_valid_mask=key_valid)[:, n_prefix:]
         elif self.md_trans:
-            if valid is not None:
-                raise ValueError("Denoiser: cond_mask is not ported for md_trans=True")
-            return self.encoder(self.query_pos(sample), xf=cond_emb, emb=time_emb)
+            return self.encoder(self.query_pos(sample), xf=cond_emb, emb=time_emb,
+                                xf_valid_mask=valid)
         else:
             xseq = self.query_pos(torch.cat([sample, time_emb, cond_emb], dim=1))
             key_valid = None

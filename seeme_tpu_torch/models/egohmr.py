@@ -2,12 +2,14 @@
 evaluation path (`seeme_tpu/models/egohmr.py`).
 
 Each of the 24 SMPL joints is conditioned on [image features masked by the
-joint's visibility (2048) | scene (512) | translation (128) | camera (6)],
+joint's visibility (2048) | scene (512) | translation (128) | camera (the
+parts the `with_*` switches keep, 6 as shipped)],
 beside the embedded noisy rot6d and the timestep embedding; a modulated GCN
 over the skeleton predicts x0 in the normalized 'diffusion'-layout rot6d
 space. Sampling runs respaced ancestral DDPM steps over the cosine
-schedule; at each step the image-conditioned and the scene-only (image block
-zeroed) predictions are fused by visibility: visible joints keep the
+schedule; at each step the image-conditioned and the unconditioned (image
+block zeroed, or with `only_mask_img_cond=False` the whole condition)
+predictions are fused by visibility: visible joints keep the
 former, the others the latter (`egohmr.py:263-278`). A final `forward` at
 t = 0 gives the pose, the betas (from the unmasked features) and SMPL.
 
@@ -22,8 +24,8 @@ names follow the reference checkpoint (`backbone.*`, `scene_enc.*`,
 Training (`python -m seeme_tpu_torch.train_egohmr`): `training_loss`, the
 x0-prediction MSE in the normalized rot6d space plus `compute_loss`'s
 geometric terms, through `forward(drop=...)`, whose `mask_cond` zeroes the
-image block of the samples `drop` marks (each with probability
-`COND_MASK_PROB`). Its draws
+image block (or the whole condition) of the samples `drop` marks (each
+with probability `cfg.cond_mask_prob`). Its draws
 (timesteps, noise, drop mask; `train_draws`) can be handed in, so a test
 replays the JAX package's.
 """
@@ -48,7 +50,7 @@ from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
 from ..ops.pointnet_fused import FusedPointnet
-from .prohmr import CAM_FEATURES, JOINTS_TO_IGN, SCENE_HIDDEN, SMPL_TO_OPENPOSE, cam_features
+from .prohmr import JOINTS_TO_IGN, SCENE_HIDDEN, SMPL_TO_OPENPOSE, cam_features
 
 # OpenPose-25 joint whose confidence gives each SMPL joint's visibility
 # (`egohmr.py:119`, pelvis_vis_loosen=False)
@@ -64,7 +66,8 @@ LOSS_WEIGHTS = {
 
 @dataclass(frozen=True)
 class EgoHmrConfig:
-    """`seeme_tpu/models/egohmr.py:44`, the fields the shipped configs use;
+    """`seeme_tpu/models/egohmr.py:44-71`'s fields and defaults but
+    `start_coap_epoch`, which nothing in the JAX package reads;
     `weight_coap_penetration` > 0 adds the capsule penetration loss
     (`core/collision.py`; 0 as shipped)."""
 
@@ -75,14 +78,25 @@ class EgoHmrConfig:
     timestep_embed_dim: int = 512
     gcn_hid_dim: int = 1024
     gcn_layers: int = 4
+    cond_mask_prob: float = COND_MASK_PROB
+    # mask_cond zeroes the image block only, or with False the whole condition
+    only_mask_img_cond: bool = True
+    with_focal_length: bool = True
+    with_bbox_info: bool = True
+    with_cam_center: bool = True
     fx_norm_coeff: float = 1500.0
     num_train_timesteps: int = 1000
     timestep_respacing: str = "ddim50"
     weight_coap_penetration: float = 0.0
 
     @property
+    def cam_feat_dim(self) -> int:
+        return int(self.with_focal_length) + 3 * int(self.with_bbox_info) \
+            + 2 * int(self.with_cam_center)
+
+    @property
     def context_dim(self) -> int:
-        return self.img_feat_dim + self.scene_feat_dim + self.transl_embed_dim + CAM_FEATURES
+        return self.img_feat_dim + self.scene_feat_dim + self.transl_embed_dim + self.cam_feat_dim
 
     @property
     def gcn_in_dim(self) -> int:
@@ -174,10 +188,9 @@ class EgoHmr(nn.Module):
 
     def encode(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The timestep-independent features: image (B, 2048) and, in the
-        conditioning's order, [scene | translation | camera] (B, 646)."""
+        conditioning's order, [scene | translation | camera] (B, 646 as shipped)."""
         rest = [self.encode_scene(batch["scene_pcd"]),
-                self.transl_enc(batch["smpl_params"]["transl"]),
-                cam_features(batch, self.cfg.fx_norm_coeff)]
+                self.transl_enc(batch["smpl_params"]["transl"]), cam_features(batch, self.cfg)]
         return {"img": self.backbone(batch["img"]), "rest": torch.cat(rest, dim=-1)}
 
     # ----------------------------------------------------------- conditioning
@@ -196,13 +209,15 @@ class EgoHmr(nn.Module):
         return torch.cat([img, rest], dim=-1)
 
     def mask_cond(self, cond: torch.Tensor, drop: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`mask_cond` (`seeme_tpu/models/egohmr.py:233-252`) with
-        only_mask_img_cond, as shipped: the image block zeroed in every
-        sample (the scene-only condition, `force_mask`), or, given the (B,)
-        bool `drop` of training, in the samples it marks."""
-        img = cond[:, :, :self.cfg.img_feat_dim]
+        """`mask_cond` (`seeme_tpu/models/egohmr.py:233-252`): the image
+        block zeroed (with `only_mask_img_cond=False` the whole condition)
+        in every sample (the unconditioned branch, `force_mask`), or, given
+        the (B,) bool `drop` of training, in the samples it marks."""
         keep = torch.zeros((), dtype=cond.dtype, device=cond.device) if drop is None else \
             (~drop).to(cond.dtype)[:, None, None]
+        if not self.cfg.only_mask_img_cond:
+            return cond * keep
+        img = cond[:, :, :self.cfg.img_feat_dim]
         return torch.cat([img * keep, cond[:, :, self.cfg.img_feat_dim:]], dim=-1)
 
     # ------------------------------------------------------------- denoising
@@ -271,8 +286,12 @@ class EgoHmr(nn.Module):
         k3d_full = out["pred_keypoints_3d_full"][:, :24]
         l_kp3d_full = (k3d_full - batch["keypoints_3d_full"][..., :3]).abs().sum(dim=(1, 2)).mean()
 
-        focal = (batch["fx"] * self.cfg.fx_norm_coeff)[:, None].expand(B, 2)
-        center = torch.stack([batch["cam_cx"], batch["cam_cy"]], dim=-1)
+        if self.cfg.with_focal_length:
+            focal = (batch["fx"] * self.cfg.fx_norm_coeff)[:, None].expand(B, 2)
+            center = torch.stack([batch["cam_cx"], batch["cam_cy"]], dim=-1)
+        else:  # the fixed camera (`seeme_tpu/models/egohmr.py:349-355`)
+            focal = batch["fx"].new_full((B, 2), 5000.0)
+            center = batch["fx"].new_tensor([960.0, 540.0]).expand(B, 2)
         k2d = perspective_projection(out["pred_keypoints_3d"], sp["transl"], focal, center)
         k2d = k2d / k2d.new_tensor([1920.0, 1080.0]) - 0.5
         k2d = k2d[:, torch.as_tensor(SMPL_TO_OPENPOSE, device=k2d.device)]
@@ -310,13 +329,13 @@ class EgoHmr(nn.Module):
     def train_draws(self, batch_size: int, generator: Optional[torch.Generator] = None
                     ) -> Dict[str, torch.Tensor]:
         """One training step's draws: timesteps (B,) in [0, T), noise (B, 144)
-        and the condition drop (B,) bool with probability `COND_MASK_PROB`."""
+        and the condition drop (B,) bool with probability `cfg.cond_mask_prob`."""
         dev = self.device
         return {"t": torch.randint(0, self.schedule.num_train_timesteps, (batch_size,),
                                    generator=generator, device=dev),
                 "noise": torch.randn(batch_size, 144, generator=generator, device=dev),
                 "drop": torch.rand(batch_size, generator=generator, device=dev)
-                < COND_MASK_PROB}
+                < self.cfg.cond_mask_prob}
 
     def training_loss(self, batch: Dict, draws: Dict[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

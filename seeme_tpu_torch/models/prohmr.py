@@ -3,7 +3,10 @@ evaluation path (`seeme_tpu/models/prohmr.py`).
 
 The context is [cam_center / fx (2) | bbox / fx (3) | fx (1) | ResNet50
 image features (2048) | PointNet scene features (512)], in the reference's
-prepend order (`prohmr_scene.py:119-138`); a conditional Glow over the
+prepend order (`prohmr_scene.py:119-138`), each camera part there only
+under its `with_*` switch (all on as shipped; without `with_focal_length`
+the cameras take the fixed `focal_length` and the 1920 x 1080 image's
+centre, `seeme_tpu/models/prohmr.py:285-292`); a conditional Glow over the
 24-joint 'prohmr'-layout rot6d pose (144-d) and an FC head that predicts
 the betas and camera offsets from it. The mode (z = 0) comes first, then
 `num_test_samples - 1` draws; SMPL and the cameras follow.
@@ -17,8 +20,10 @@ accelerator. Module names follow the reference checkpoint (`backbone.*`,
 
 Training (`python -m seeme_tpu_torch.train_prohmr_scene`): `forward_step(train=True)`
 takes the mode and `num_train_samples - 1` draws with gradients,
-`compute_loss` the keypoint, v2v, NLL, orthogonality and parameter terms,
-and the HMR `Discriminator` the adversarial ones. The scene encoder trains
+`compute_loss` the keypoint, v2v, NLL, orthogonality and parameter terms
+(weighted by `cfg.loss_weights`; the v2v term's ground-truth mesh from
+`smpl_male` / `smpl_female`, each the neutral body where it is not given,
+by `batch["gender"]`), and the HMR `Discriminator` the adversarial ones. The scene encoder trains
 through the fused kernels' backward (`ops/pointnet_fused.py`). Every random
 draw of a step (`train_draws`) can be handed in, so a test replays the JAX
 package's.
@@ -26,7 +31,7 @@ package's.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -44,7 +49,6 @@ from ..nn.resnet import resnet50
 from ..ops.pointnet_fused import FusedPointnet
 
 SCENE_HIDDEN = 256  # the scene encoder's hidden width (`seeme_tpu/models/prohmr.py:153`)
-CAM_FEATURES = 6    # cam_center / fx, bbox / fx, fx
 # SMPL-45 -> OpenPose-25 joints (`prohmr_scene.py:67-68`)
 SMPL_TO_OPENPOSE = np.array(
     [24, 12, 17, 19, 21, 16, 18, 20, 0, 2, 5, 8, 1, 4, 7,
@@ -70,7 +74,9 @@ SMPL_PARAM_NOISE_RATIO = 0.005  # the NLL's pose noise (`seeme_tpu/models/prohmr
 
 @dataclass(frozen=True)
 class ProHMRConfig:
-    """`seeme_tpu/models/prohmr.py:49`, the fields the shipped configs use."""
+    """`seeme_tpu/models/prohmr.py:49-82`'s fields and defaults, and the
+    glow's `use_batch_norm` (`seeme_tpu/flows/glow.py:49`, which the JAX
+    config leaves at its default, on)."""
 
     flow_dim: int = 144
     flow_layers: int = 4
@@ -78,22 +84,34 @@ class ProHMRConfig:
     flow_depth: int = 2
     context_features: int = 2048
     scene_feat_dim: int = 512
+    with_focal_length: bool = True
+    with_bbox_info: bool = True
+    with_cam_center: bool = True
     fc_head_features: int = 1024
     image_size: int = 224
     fx_norm_coeff: float = 1500.0
+    focal_length: float = 5000.0  # the cameras' focal length without with_focal_length
     num_train_samples: int = 2
     num_test_samples: int = 4
+    smpl_param_noise_ratio: float = SMPL_PARAM_NOISE_RATIO
+    loss_weights: Dict[str, float] = field(default_factory=lambda: dict(LOSS_WEIGHTS))
+    use_batch_norm: bool = True
+
+    @property
+    def cam_feat_dim(self) -> int:
+        return int(self.with_focal_length) + 3 * int(self.with_bbox_info) \
+            + 2 * int(self.with_cam_center)
 
     @property
     def total_context(self) -> int:
-        """Image, camera (the three `with_*` parts, on in every shipped
-        config) and scene features."""
-        return self.context_features + CAM_FEATURES + self.scene_feat_dim
+        """Image, camera (the parts the `with_*` switches keep) and scene features."""
+        return self.context_features + self.cam_feat_dim + self.scene_feat_dim
 
     def glow_config(self) -> GlowConfig:
         return GlowConfig(features=self.flow_dim, hidden_features=self.flow_hidden,
                           num_layers=self.flow_layers, num_blocks_per_layer=self.flow_depth,
-                          context_features=self.total_context)
+                          context_features=self.total_context,
+                          use_batch_norm=self.use_batch_norm)
 
 
 class FCHead(nn.Module):
@@ -160,19 +178,28 @@ def gt_pose_6d(smpl_params: Dict) -> torch.Tensor:
     return rotmat_to_rot6d(rot, "prohmr").reshape(B, -1)
 
 
-def cam_features(batch: Dict, fx_norm_coeff: float) -> torch.Tensor:
-    """(B, 6) camera context in the reference's prepend order: [cam_center /
-    fx | bbox / fx | fx] (`prohmr_scene.py:119-138`, `egohmr.py:197-207`)."""
-    orig_fx = batch["fx"] * fx_norm_coeff
+def cam_features(batch: Dict, cfg) -> torch.Tensor:
+    """(B, cfg.cam_feat_dim) camera context in the reference's prepend order:
+    [cam_center / fx | bbox / fx | fx], each part only under its `with_*`
+    switch of `cfg` (`prohmr_scene.py:119-138`, `egohmr.py:197-207`)."""
+    orig_fx = batch["fx"] * cfg.fx_norm_coeff
     center = batch["box_center"]
-    return torch.stack([batch["cam_cx"] / orig_fx, batch["cam_cy"] / orig_fx,
-                        center[:, 0] / orig_fx, center[:, 1] / orig_fx,
-                        batch["box_size"] / orig_fx, batch["fx"]], dim=-1)
+    parts = []
+    if cfg.with_cam_center:
+        parts += [batch["cam_cx"] / orig_fx, batch["cam_cy"] / orig_fx]
+    if cfg.with_bbox_info:
+        parts += [center[:, 0] / orig_fx, center[:, 1] / orig_fx, batch["box_size"] / orig_fx]
+    if cfg.with_focal_length:
+        parts.append(batch["fx"])
+    if not parts:
+        return batch["fx"].new_zeros(batch["fx"].shape[0], 0)
+    return torch.stack(parts, dim=-1)
 
 
 class ProHMRScene(nn.Module):
     def __init__(self, cfg: ProHMRConfig, smpl: SmplModel, device: str | torch.device = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, smpl_male: Optional[SmplModel] = None,
+                 smpl_female: Optional[SmplModel] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -186,6 +213,10 @@ class ProHMRScene(nn.Module):
         self.to(dev)
         self.device = dev
         self.smpl = smpl.to(dev)
+        # the ground truth's gendered bodies of the v2v term (`seeme_tpu/models/prohmr.py:
+        # 144-151`); None: `self.smpl`, the neutral body
+        self.smpl_male = None if smpl_male is None else smpl_male.to(dev)
+        self.smpl_female = None if smpl_female is None else smpl_female.to(dev)
         # the JAX package's defaults without smpl_mean_params.npz (`fc_head.py:26-31`)
         self.register_buffer("init_betas", torch.zeros(10, device=dev), persistent=False)
         self.register_buffer("init_cam", torch.tensor([0.9, 0.0, 0.0], device=dev),
@@ -203,9 +234,8 @@ class ProHMRScene(nn.Module):
 
     def conditioning_features(self, batch: Dict) -> torch.Tensor:
         """The (B, total_context) context (`seeme_tpu/models/prohmr.py:188`)."""
-        return torch.cat([cam_features(batch, self.cfg.fx_norm_coeff),
-                          self.encode_image(batch["img"]), self.encode_scene(batch["scene_pcd"])],
-                         dim=-1)
+        return torch.cat([cam_features(batch, self.cfg), self.encode_image(batch["img"]),
+                          self.encode_scene(batch["scene_pcd"])], dim=-1)
 
     # ------------------------------------------------------------------- flow
     def flow_forward(self, context: torch.Tensor, num_samples: Optional[int] = None,
@@ -278,8 +308,12 @@ class ProHMRScene(nn.Module):
 
         # cameras (`prohmr_scene.py:183-231`)
         cam = out["cam"]
-        focal = (batch["fx"] * cfg.fx_norm_coeff)[:, None, None].expand(B, NS, 2)
-        cam_center = torch.stack([batch["cam_cx"], batch["cam_cy"]], dim=-1)[:, None]
+        if cfg.with_focal_length:
+            focal = (batch["fx"] * cfg.fx_norm_coeff)[:, None, None].expand(B, NS, 2)
+            cam_center = torch.stack([batch["cam_cx"], batch["cam_cy"]], dim=-1)[:, None]
+        else:
+            focal = context.new_full((B, NS, 2), cfg.focal_length)
+            cam_center = context.new_tensor([960.0, 540.0])[None, None]
         cam_center = cam_center.expand(B, NS, 2)
         s, tx, ty = cam[..., 0], cam[..., 1], cam[..., 2]
         out["pred_cam_t"] = torch.stack(
@@ -310,9 +344,9 @@ class ProHMRScene(nn.Module):
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """`compute_loss` (`seeme_tpu/models/prohmr.py:331-461`): the mode's
         and the draws' (expectation) keypoint, v2v and parameter losses, the
-        NLL of the ground-truth pose plus `SMPL_PARAM_NOISE_RATIO` times
+        NLL of the ground-truth pose plus `cfg.smpl_param_noise_ratio` times
         `nll_noise` (B, 144), and the rot6d orthogonality."""
-        W = LOSS_WEIGHTS
+        W = self.cfg.loss_weights
         op = torch.as_tensor(SMPL_TO_OPENPOSE, device=self.device)
         k3d = output["pred_keypoints_3d"][:, :, :24]
         B, NS = k3d.shape[:2]
@@ -342,9 +376,16 @@ class ProHMRScene(nn.Module):
         l3df = mode_exp(kp3d_loss(output["pred_keypoints_3d_full"][:, :, :24],
                                   rep(batch["keypoints_3d_full"]), False))
 
-        # v2v against the ground-truth mesh (the neutral body: no gendered models here)
+        # v2v against the ground-truth mesh: the male body's, or the female
+        # body's where batch["gender"] is 1 (`seeme_tpu/models/prohmr.py:364-376`)
         sp = batch["smpl_params"]
-        gt = smpl_forward(self.smpl, sp["betas"], sp["body_pose"], sp["global_orient"])
+        male = self.smpl if self.smpl_male is None else self.smpl_male
+        female = self.smpl if self.smpl_female is None else self.smpl_female
+        gt = smpl_forward(male, sp["betas"], sp["body_pose"], sp["global_orient"])
+        if female is not male and "gender" in batch:
+            gt_f = smpl_forward(female, sp["betas"], sp["body_pose"], sp["global_orient"])
+            is_f = (batch["gender"] == 1)[:, None, None]
+            gt = {k: torch.where(is_f, gt_f[k], gt[k]) for k in ("vertices", "joints")}
         l_v2v = ((output["pred_vertices"] - output["pred_keypoints_3d"][:, :, :1])
                  - (gt["vertices"] - gt["joints"][:, :1])[:, None]).abs().mean(dim=(2, 3))
         v2v = (l_v2v[:, 0].mean(), l_v2v[:, 1:].mean() if NS > 1 else 0.0)
@@ -355,7 +396,7 @@ class ProHMRScene(nn.Module):
         bp = mode_exp(((output["body_pose"].reshape(B, NS, -1) - gt_bp) ** 2).sum(-1))
         bt = mode_exp(((output["betas"].reshape(B, NS, -1) - sp["betas"][:, None]) ** 2).sum(-1))
 
-        pose = gt_pose_6d(sp) + SMPL_PARAM_NOISE_RATIO * nll_noise
+        pose = gt_pose_6d(sp) + self.cfg.smpl_param_noise_ratio * nll_noise
         nll = -self.flow_log_prob(pose, output["conditioning_feats"]).mean()
 
         p6 = output["pose_6d"].reshape(-1, 2, 3)

@@ -12,10 +12,16 @@ dict as it reads a reference checkpoint.
 The sampling path: `encode_conditioning` (interactee -> `MotionVae.encode`
 mean; scene -> the fused PointNet blocks -> `output_scene`; image -> the
 ResNet50 -> `output_images`; in that token order), then `sample_from_cond`
-(the fused DDIM kernel, then `MotionVae.decode`), then `eval_fk` (renorm,
-SMPL joints, global-orientation quaternions). On the card the fused
-wrappers launch their CUDA kernels; on the CPU they run their plain
-versions. Every shipped ego config builds: EgoBody and GIMO (21 joints,
+(the reverse process, then `MotionVae.decode`), then `eval_fk` (renorm,
+SMPL joints, global-orientation quaternions). The reverse process is one
+fused DDIM kernel (kernel 3 for the MD stack, kernel 5 for the
+token-concat one) where `seeme_tpu/models/seeme.py:506-513` takes its
+fused kernel: `use_fused`, eta 0, epsilon prediction, and one head (the
+kernels' attention is one head; kernel 5 also at most 8 condition tokens,
+kernel 3 any count its shared memory holds, where the JAX route stops at
+8 for its VMEM); every other configuration runs the `ddim_sample` loop
+over the eager denoiser, as the JAX package's scan does. On the card the fused wrappers launch their CUDA
+kernels; on the CPU they run their plain versions. Every shipped ego config builds: EgoBody and GIMO (21 joints,
 zero-padded to SMPL's 23), the wearer or the interactee as the estimated
 actor, axis-angle or rot6d features, with or without the predicted
 translation.
@@ -38,13 +44,15 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..diffusion.sampling import ddim_sample
 from ..core.rotations import aa_to_quat, rot6d_to_rotmat, rotmat_to_quat
 from ..core.smpl import SmplModel, smpl_forward, smpl_joints24
 from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
-from ..ops.denoiser_fused import KernelWeights, ddim_fused, ddim_fused_grid, ddim_fused_tok
+from ..ops.denoiser_fused import (TOK_MAX_COND, KernelWeights, ddim_fused, ddim_fused_grid,
+                                  ddim_fused_tok)
 from ..ops import module_state, tensor_versions
 from ..ops.pointnet_fused import FusedPointnet
 from ..parallel.mesh import rows
@@ -71,6 +79,7 @@ class SeeMeConfig:
     latent_dim: Tuple[int, int] = (1, 256)
     ff_size: int = 128
     num_layers: int = 5
+    num_heads: int = 1                  # model.num_head, the VAE's and the denoiser's
     dropout: float = 0.1                # model.droupout
     guidance_scale: float = 1.0
     guidance_uncondp: float = 0.1       # element-wise CFG mask rate in training
@@ -80,11 +89,14 @@ class SeeMeConfig:
     md_trans: bool = True
     mlp_dist: bool = False              # TRAIN.ABLATION.MLP_DIST
     num_inference_timesteps: int = 50
+    eta: float = 0.0                    # model.scheduler.eta: DDIM's noise scale
     scene_points: int = 20000
     scene_feat_dim: int = 512
     # the side of the synthetic image crops; the JAX package's synthetic
     # data and `init_params` use 224, the egocentric crop size
     image_size: int = 224
+    # model.use_fused: false samples through the `ddim_sample` loop
+    use_fused: bool = True
     # the DDIM entry, as `seeme_tpu/models/seeme.py:80`: "loop" (`ddim_fused`)
     # or "grid" (`ddim_fused_grid`); both launch `csrc/ddim_md.cu`
     fused_variant: str = "loop"
@@ -133,12 +145,11 @@ class SeeMeSystem(nn.Module):
             raise ValueError(f"fused_variant {cfg.fused_variant!r} is not 'loop' or 'grid'")
         self.cfg = cfg
         d = cfg.latent_dim[-1]
-        # one attention head, as the reference hard-codes (`mld_vae.py:51-53`);
-        # the fused DDIM path is single-head
+        # `num_heads` reaches both, as `seeme_tpu/models/seeme.py:137, 146`
         self.vae = MotionVae(cfg.nfeats, cfg.latent_dim, cfg.ff_size, cfg.num_layers,
-                             dropout=cfg.dropout, mlp_dist=cfg.mlp_dist)
-        self.denoiser = Denoiser(cfg.latent_dim, cfg.ff_size, cfg.num_layers, text_encoded_dim=d,
-                                 md_trans=cfg.md_trans, dropout=cfg.dropout)
+                             cfg.num_heads, dropout=cfg.dropout, mlp_dist=cfg.mlp_dist)
+        self.denoiser = Denoiser(cfg.latent_dim, cfg.ff_size, cfg.num_layers, cfg.num_heads,
+                                 text_encoded_dim=d, md_trans=cfg.md_trans, dropout=cfg.dropout)
         self.use_interactee = "interactee" in cfg.condition
         self.use_scene = "scene" in cfg.condition
         self.use_image = "image" in cfg.condition
@@ -395,29 +406,58 @@ class SeeMeSystem(nn.Module):
         return self.vae.decode(mu, self.cfg.motion_length)
 
     # -------------------------------------------------------------- sampling
+    def takes_kernel(self, n_cond: int) -> bool:
+        """Whether `sample_from_cond` runs a fused DDIM kernel for `n_cond`
+        condition tokens: `use_fused`, eta 0 and epsilon prediction, as
+        `seeme_tpu/models/seeme.py:506-513`, and one head (the JAX kernel's
+        attention is one head at any `num_heads`, so a multi-head model
+        would sample another function than the one it trained). The JAX
+        route's limit of 8 condition tokens is its kernel's VMEM budget:
+        kernel 3 takes any count that fits its shared memory (its wrapper
+        refuses past that), kernel 5 at most `TOK_MAX_COND`."""
+        cfg = self.cfg
+        return (cfg.use_fused and cfg.eta == 0.0 and cfg.predict_epsilon and cfg.num_heads == 1
+                and (cfg.md_trans or n_cond <= TOK_MAX_COND))
+
     @torch.no_grad()
     def sample_from_cond(self, cond_full: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
-                         z_init: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Reverse diffusion (the fused DDIM kernel, through the entry
-        `cfg.fused_variant` names; with more than one latent token always
-        `ddim_fused`, as `seeme_tpu/models/seeme.py:532-534` routes) + VAE
-        decode. z_init (B, *latent_dim) replaces the drawn initial noise.
-        Returns normalized features (B, T, nfeats)."""
+                         z_init: Optional[torch.Tensor] = None,
+                         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Reverse diffusion + VAE decode. The fused DDIM kernel where
+        `takes_kernel` (through the entry `cfg.fused_variant` names; with
+        more than one latent token always `ddim_fused`, as
+        `seeme_tpu/models/seeme.py:532-534` routes; kernel 5 for the
+        token-concat stack), else the `ddim_sample` loop over the eager
+        denoiser at `cfg.eta`. z_init (B, *latent_dim) replaces the drawn
+        initial noise and `noise` (steps, B, *latent_dim) the loop's
+        per-step draws at eta > 0. Returns normalized features (B, T,
+        nfeats)."""
         cfg = self.cfg
         B = cond_full.shape[0] // (2 if cfg.guidance_scale > 1.0 else 1)
         shape = (B, cfg.latent_dim[0], cfg.latent_dim[-1])
         if z_init is None:
             z_init = torch.randn(shape, generator=generator, device=self.device)
-        sd, weights, _ = self.kernel_operands()
-        grid = cfg.fused_variant == "grid" and cfg.latent_dim[0] == 1
-        ddim = ddim_fused_grid if grid else ddim_fused
-        if not cfg.md_trans:  # the token-concat stack: kernel 5
-            ddim = ddim_fused_tok
-        z = ddim(sd, cond_full.contiguous(),
-                 z_init.to(self.device, torch.float32).contiguous(), self.schedule,
-                 cfg.num_inference_timesteps, cfg.num_layers, cfg.guidance_scale,
-                 weights=weights)
+        z_init = z_init.to(self.device, torch.float32).contiguous()
+        if self.takes_kernel(cond_full.shape[1]):
+            sd, weights, _ = self.kernel_operands()
+            grid = cfg.fused_variant == "grid" and cfg.latent_dim[0] == 1
+            ddim = ddim_fused_grid if grid else ddim_fused
+            if not cfg.md_trans:  # the token-concat stack: kernel 5
+                ddim = ddim_fused_tok
+            z = ddim(sd, cond_full.contiguous(), z_init, self.schedule,
+                     cfg.num_inference_timesteps, cfg.num_layers, cfg.guidance_scale,
+                     weights=weights)
+        else:
+            training = self.denoiser.training
+            self.denoiser.eval()  # the JAX scan applies the denoiser deterministically
+            try:
+                z = ddim_sample(lambda x, t: self.denoiser(x, t, cond_full), self.schedule,
+                                shape, cfg.num_inference_timesteps, cfg.guidance_scale,
+                                z_init=z_init, generator=generator, device=self.device,
+                                eta=cfg.eta, noise=noise)
+            finally:
+                self.denoiser.train(training)
         return self.vae.decode(z, cfg.motion_length)
 
     @torch.no_grad()

@@ -14,8 +14,9 @@ shipped config) runs over the padded per-frame features.
     target is masked past each length (`:151-187`);
   * `sample` (`:190-268`): classifier-free guidance doubles the condition
     as [zeros; text] (and a `cond_mask` with it). A model with a VAE, the
-    token-concat arch, one head, at most `TOK_MAX_COND` condition tokens
-    and no mask runs the whole reverse process in one launch of
+    token-concat arch, one head, at most `TOK_MAX_COND` condition tokens,
+    no mask and `use_fused` (`:229-231`) runs the whole reverse process in
+    one launch of
     `csrc/ddim_tok.cu` (`ddim_fused_tok`; on the CPU its plain version);
     every other model (the token text modes, `vae_type="no"`, trans_dec)
     runs the `ddim_sample` loop over the eager denoiser, as the JAX
@@ -86,6 +87,7 @@ class T2MConfig:
     mlp_dist: bool = False                 # TRAIN.ABLATION.MLP_DIST
     text_encoder_path: str = ""            # model.text_encoder.params.modelpath
     last_hidden_state: bool = False        # model.text_encoder.params.last_hidden_state
+    use_fused: bool = True                 # model.use_fused / TEST.USE_FUSED: false takes the loop
 
 
 class T2MSystem(nn.Module):
@@ -130,11 +132,12 @@ class T2MSystem(nn.Module):
 
     def takes_kernel(self, n_cond: int, cond_mask: Optional[torch.Tensor]) -> bool:
         """Whether `sample` runs the token kernel: the pooled VAE model, at
-        any number of latent tokens (`seeme_tpu/models/t2m.py:225-250`); a
-        shape the kernel cannot take raises there, naming the limit."""
+        any number of latent tokens, unless `use_fused` is off
+        (`seeme_tpu/models/t2m.py:225-250`); a shape the kernel cannot take
+        raises there, naming the limit."""
         cfg = self.cfg
-        return (not self.diffusion_only and cfg.arch == "trans_enc" and cfg.num_heads == 1
-                and n_cond <= TOK_MAX_COND and cond_mask is None)
+        return (cfg.use_fused and not self.diffusion_only and cfg.arch == "trans_enc"
+                and cfg.num_heads == 1 and n_cond <= TOK_MAX_COND and cond_mask is None)
 
     def encode_captions(self, batch: Dict) -> Dict:
         """A host batch with its captions replaced by `text_emb` (and, in the

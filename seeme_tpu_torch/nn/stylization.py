@@ -34,7 +34,9 @@ class StylizationBlock(nn.Module):
 
 class LinearTemporalCrossAttention(nn.Module):
     """Linear cross attention: softmax over features for the query, over
-    condition tokens for the key."""
+    condition tokens for the key; a padded condition token (False in
+    `xf_valid_mask`) enters that softmax at -1e9
+    (`seeme_tpu/nn/stylization.py:77-82`)."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int,
                  dropout: float = 0.1):
@@ -47,13 +49,16 @@ class LinearTemporalCrossAttention(nn.Module):
         self.value = nn.Linear(text_latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
-    def forward(self, x, xf, emb):
+    def forward(self, x, xf, emb, xf_valid_mask: Optional[torch.Tensor] = None):
         B, T, D = x.shape
         N = xf.shape[1]
         H = self.num_heads
         xfn = self.text_norm(xf)
         query = torch.softmax(self.query(self.norm(x)).reshape(B, T, H, -1), dim=-1)
-        key = torch.softmax(self.key(xfn).reshape(B, N, H, -1), dim=1)
+        key_logits = self.key(xfn).reshape(B, N, H, -1)
+        if xf_valid_mask is not None:
+            key_logits = key_logits.masked_fill(~xf_valid_mask[:, :, None, None], -1e9)
+        key = torch.softmax(key_logits, dim=1)
         value = self.value(xfn).reshape(B, N, H, -1)
         attention = torch.einsum("bnhd,bnhl->bhdl", key, value)
         y = torch.einsum("bnhd,bhdl->bnhl", query, attention).reshape(B, T, D)
@@ -75,7 +80,9 @@ class StylizedFFN(nn.Module):
 
 class MdTransformerLayer(nn.Module):
     """Self-attention over [x; xf; time] (post-norm, ff 1024, relu), keeping
-    the x tokens; then linear cross-attention over xf; then the stylized FFN."""
+    the x tokens; then linear cross-attention over xf; then the stylized FFN.
+    `xf_valid_mask` (B, N), True = valid, keeps padded condition tokens out
+    of both attentions (`seeme_tpu/nn/stylization.py:126-160`)."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int = 128,
                  text_latent_dim: Optional[int] = None, dropout: float = 0.1):
@@ -85,8 +92,13 @@ class MdTransformerLayer(nn.Module):
             d_model, text_latent_dim or d_model, num_heads, d_model, dropout)
         self.ffn = StylizedFFN(d_model, ffn_dim, d_model, dropout)
 
-    def forward(self, x, xf, emb):  # x (B, T, D), xf (B, N, D), emb (B, 1, D)
-        T = x.shape[1]
-        x = self.sa_block(torch.cat([x, xf, emb], dim=1))[:, :T]
-        x = self.ca_block(x, xf, emb[:, 0])
+    def forward(self, x, xf, emb, xf_valid_mask: Optional[torch.Tensor] = None):
+        # x (B, T, D), xf (B, N, D), emb (B, 1, D)
+        B, T = x.shape[:2]
+        key_valid = None
+        if xf_valid_mask is not None:
+            ones = torch.ones(B, T, dtype=torch.bool, device=x.device)
+            key_valid = torch.cat([ones, xf_valid_mask, ones[:, :1]], dim=1)
+        x = self.sa_block(torch.cat([x, xf, emb], dim=1), key_valid)[:, :T]
+        x = self.ca_block(x, xf, emb[:, 0], xf_valid_mask)
         return self.ffn(x, emb[:, 0])

@@ -59,9 +59,17 @@ sampled and the real motions with the recognition model of its dataset
 `STGCN` on the rot6d block) and scores `ActionMetrics` (FID, accuracy,
 Diversity, MultiModality) over the `n_valid` rows. The evaluator runs its
 seeded random init unless `test.evaluator_checkpoint` names weights under
-the reference's keys. The JAX CLI samples through its scan unless
-TEST.USE_FUSED (`test.py:75-80`); the port routes by shape to kernel 5, as
-in its text-to-motion branch.
+the reference's keys (TEST.EVALUATOR_HIDDEN / EVALUATOR_LAYERS size the
+GRU, `test.py:397-401`).
+
+TEST.USE_FUSED (`test.py:73-87`) sets every branch's `use_fused`: true
+samples through the fused DDIM kernel where the model takes it, false
+through the `ddim_sample` loop. The one difference from `test.py`: with the
+key absent the port keeps the model's own `use_fused` (the kernel, as
+shipped), where `test.py` defaults to its scan because its bf16 kernel
+drifts about 0.8% (`seeme_tpu/models/seeme.py:70-74`); the port's kernels
+are f32 and held to 1e-3 of max|z|. An ego model on the loop at eta > 0
+draws its per-step noise from the replication's generator.
 
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
@@ -140,13 +148,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def action_evaluator(dataset: str, num_classes: int, seed: int, device: torch.device,
-                     checkpoint: str = "") -> torch.nn.Module:
+                     checkpoint: str = "", hidden: int = 128, layers: int = 2
+                     ) -> torch.nn.Module:
     """The dataset's action-recognition model (`test.py:391-412`): UESTC's
-    ST-GCN, else the GRU; its weights from `checkpoint` (the reference's
-    keys), else its seeded random init with the graph's edge importances 1,
-    as the JAX init has them. Frozen, in eval mode."""
+    ST-GCN, else the GRU of `hidden` units and `layers` layers
+    (TEST.EVALUATOR_HIDDEN / EVALUATOR_LAYERS); its weights from
+    `checkpoint` (the reference's keys), else its seeded random init with
+    the graph's edge importances 1, as the JAX init has them. Frozen, in
+    eval mode."""
     clf = (STGCN(num_class=num_classes) if dataset == "uestc"
-           else MotionDiscriminator(output_size=num_classes))
+           else MotionDiscriminator(hidden_size=hidden, num_layers=layers,
+                                    output_size=num_classes))
     init_parameters_(clf, torch.Generator().manual_seed(seed))
     if isinstance(clf, STGCN):
         for p in clf.edge_importance:
@@ -176,6 +188,9 @@ class Evaluator:
                 tc = dataclasses.replace(tc, **{name: getattr(args, name)})
         tc = dataclasses.replace(tc, count_time=tc.count_time or args.count_time,
                                  save_predictions=tc.save_predictions or args.save_predictions)
+        if tc.use_fused is not None:  # TEST.USE_FUSED (`test.py:73-87`) over model.use_fused
+            preset = dataclasses.replace(
+                preset, model=dataclasses.replace(preset.model, use_fused=tc.use_fused))
         self.preset = preset = dataclasses.replace(preset, test=tc)
         self.device, self.backend, self.mesh, self.joined = join_world(
             resolve_device(args.device))
@@ -258,7 +273,13 @@ class Evaluator:
                             cond_cache[i] = cond
                     z_init = rows(torch.randn(latent, generator=gen, device=self.device),
                                   self.shard)
-                    feats = system.sample_from_cond(cond, z_init=z_init)
+                    noise = None
+                    if not system.takes_kernel(cond.shape[1]) and system.cfg.eta > 0:
+                        # the loop's per-step noise, at the whole batch's shape too
+                        steps = system.cfg.num_inference_timesteps
+                        noise = rows(torch.randn((latent[0], steps, *latent[1:]), generator=gen,
+                                                 device=self.device), self.shard).transpose(0, 1)
+                    feats = system.sample_from_cond(cond, z_init=z_init, noise=noise)
                 out = system.eval_fk(batch, feats)
                 self._sync()
                 if tc.count_time:
@@ -337,7 +358,8 @@ class Evaluator:
         """The action-to-motion replications: (metrics of each, batch seconds)."""
         system, tc = self.system, self.preset.test
         clf = action_evaluator(self.preset.dataset, system.cfg.num_classes, self.seed,
-                               self.device, tc.evaluator_checkpoint)
+                               self.device, tc.evaluator_checkpoint, tc.evaluator_hidden,
+                               tc.evaluator_layers)
         self.log(f"loaded evaluator {tc.evaluator_checkpoint}" if tc.evaluator_checkpoint else
                  "action evaluator running with its seeded random init "
                  "(test.evaluator_checkpoint names weights)")

@@ -128,7 +128,9 @@ class EvaluatorTrainer:
         elif name in A2M_DATASETS:
             self.dm = get_datamodule(name, motion_length=preset.model.num_frames,
                                      debug=args.debug)
-            self.module = action_evaluator(name, self.dm.num_classes, args.seed, dev)
+            self.module = action_evaluator(name, self.dm.num_classes, args.seed, dev,
+                                           hidden=preset.test.evaluator_hidden,
+                                           layers=preset.test.evaluator_layers)
             self.kind = "stgcn" if isinstance(self.module, STGCN) else "gru"
             self.smpl = load_smpl_or_synthetic(cfg).to(dev)
         else:

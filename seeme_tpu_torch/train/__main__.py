@@ -138,7 +138,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None, help="END_EPOCH")
     p.add_argument("--out", default=None, help="experiment dir")
-    p.add_argument("--resume", default=None, help="experiment dir to resume from")
+    p.add_argument("--resume", default=None,
+                   help="experiment dir to resume from (wins over TRAIN.RESUME)")
     p.add_argument("--pretrained_vae", default=None, help="stage-1 checkpoint for stage 2")
     p.add_argument("--nodebug", action="store_true", help="DEBUG false: the full splits")
     p.add_argument("--device", default="cuda")
@@ -232,11 +233,19 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
 
         self.step = self.start_epoch = 0
-        if args.resume:
-            resume = normalize_resume_dir(args.resume)
+        # --resume, else TRAIN.RESUME (train.py:155-178): checked before
+        # anything is deleted; resuming in place deletes nothing, a warm start
+        # from another dir clears this run's stale steps (rank 0), and every
+        # rank restores
+        resume = args.resume or tc.resume
+        if resume:
+            key = "--resume" if args.resume else "TRAIN.RESUME"
+            resume = normalize_resume_dir(resume)
             if resume_scan(resume)[1] is None:
                 raise FileNotFoundError(
-                    f"--resume {resume} has no checkpoint under {resume}/checkpoints")
+                    f"{key}={resume} has no checkpoint under {resume}/checkpoints: refusing "
+                    f"to start (a fresh start would delete this run's checkpoints; unset "
+                    f"{key} to train from scratch)")
             if resume != self.exp_dir and self.is_main:
                 clear_stale_steps(self.exp_dir)
             self.step, _ = restore_state(resume, self.system, self.optimizer, self.generator,
@@ -395,6 +404,7 @@ class Trainer:
     def fit(self) -> List[Dict]:
         tc = self.preset.train
         val_every = max(tc.val_every_steps, 1)
+        log_every = max(tc.log_every_steps, 1)  # LOGGER.LOG_EVERY_STEPS, in epochs
         data, k = self.dispatch()
         self.route = ("host" if data is None else "device", k)
         common = dict(generator=self.generator, model=self.model, shard=self.shard,
@@ -412,14 +422,15 @@ class Trainer:
             memory = memory_stats(self.device)
             record = {"epoch": epoch, "means": means, "steps": steps, "step_ms": ms,
                       "memory": memory}
-            mem = "".join(f" {k}={v:.2f}" for k, v in memory.items())
-            if self.device.type == "cuda":
-                mem += f" max_memory_allocated={torch.cuda.max_memory_allocated(self.device)}"
-            self.log(f"epoch {epoch}/{tc.end_epoch} step {self.step} "
-                     + " ".join(f"{k}={v:.5f}" for k, v in sorted(means.items())) + mem)
-            if self.tb is not None:
-                self.tb.scalars(self.step, means, prefix=f"{self.stage}/")
-                self.wb.log(self.step, means, prefix=f"{self.stage}/")
+            if epoch % log_every == 0:
+                mem = "".join(f" {k}={v:.2f}" for k, v in memory.items())
+                if self.device.type == "cuda":
+                    mem += f" max_memory_allocated={torch.cuda.max_memory_allocated(self.device)}"
+                self.log(f"epoch {epoch}/{tc.end_epoch} step {self.step} "
+                         + " ".join(f"{k}={v:.5f}" for k, v in sorted(means.items())) + mem)
+                if self.tb is not None:
+                    self.tb.scalars(self.step, means, prefix=f"{self.stage}/")
+                    self.wb.log(self.step, means, prefix=f"{self.stage}/")
             if (epoch + 1) % val_every == 0:
                 record["val"] = validate(self.system, self.stage, (
                     (shard_batch(self.mesh, b), n) for b, n in self.val_batches()), self.shard)

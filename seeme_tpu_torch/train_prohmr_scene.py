@@ -39,7 +39,7 @@ from .core.smpl import synthetic_smpl
 from .data.augmentation import MoCapDataset
 from .data.egohmr_images import EgoHmrImageDataModule
 from .data.synthetic import to_torch
-from .models.prohmr import GENERATOR, LOSS_WEIGHTS, ProHMRConfig, ProHMRScene, gt_pose_6d
+from .models.prohmr import GENERATOR, ProHMRConfig, ProHMRScene, gt_pose_6d
 
 NOISE_SEED = 1   # the step draws' generator (the JAX CLI's PRNGKey(1))
 MOCAP_SEED = 3   # the discriminator's real-pose order (`train_prohmr_scene.py:86`)
@@ -88,7 +88,7 @@ def g_step(model: ProHMRScene, opt: torch.optim.AdamW, params, batch: Dict, draw
     B, NS = out["body_pose"].shape[:2]
     pose, betas = out["body_pose"].reshape(B * NS, 23, 3, 3), out["betas"].reshape(B * NS, 10)
     terms["loss_gen"] = ((model.discriminator_outputs(pose, betas) - 1.0) ** 2).sum() / B
-    total = loss + LOSS_WEIGHTS["ADVERSARIAL"] * terms["loss_gen"]
+    total = loss + model.cfg.loss_weights["ADVERSARIAL"] * terms["loss_gen"]
     for p, g in zip(params, torch.autograd.grad(total, params)):
         p.grad = g
     opt.step()
@@ -100,7 +100,7 @@ def d_step(model: ProHMRScene, opt: torch.optim.AdamW, mocap: Dict, fake) -> tor
     real_pose = aa_to_rotmat(mocap["body_pose"].reshape(-1, 23, 3))
     d_fake = model.discriminator_outputs(*fake)
     d_real = model.discriminator_outputs(real_pose, mocap["betas"])
-    loss = LOSS_WEIGHTS["ADVERSARIAL"] * (
+    loss = model.cfg.loss_weights["ADVERSARIAL"] * (
         (d_fake ** 2).sum() / d_fake.shape[0] + ((d_real - 1.0) ** 2).sum() / d_real.shape[0])
     opt.zero_grad(set_to_none=True)
     loss.backward()

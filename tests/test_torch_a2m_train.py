@@ -22,7 +22,7 @@ from seeme_tpu_torch.models.a2m import A2MSystem
 from seeme_tpu_torch.train.__main__ import main
 from test_torch_a2m import one_torch_thread  # noqa: F401  (autouse)
 
-JAX_FIELDS = {f.name for f in dataclasses.fields(JConfig)} - {"use_fused"}
+JAX_FIELDS = {f.name for f in dataclasses.fields(JConfig)}
 
 
 @pytest.mark.parametrize("preset", sorted(A2M_PRESETS))

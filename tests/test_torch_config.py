@@ -137,16 +137,51 @@ def test_each_yaml_builds_the_jax_config_and_its_preset(name):
     assert build.preset_from_yaml(loader.load_config(path)) == PRESETS[name]()
 
 
-@pytest.mark.parametrize("override,match", [
-    ("model.num_head=2", "num_head: 2 has no counterpart"),
-    ("model.scheduler.eta=0.5", "eta: 0.5 has no counterpart"),
-    ("model.use_fused=false", "use_fused: False has no counterpart"),
+TINY_EGO = ["model.latent_dim=[1,32]", "model.ff_size=16", "model.num_layers=3",
+            "model.scene_points=64", "model.scene_feat_dim=32",
+            "model.scheduler.num_inference_timesteps=3"]
+
+
+@pytest.mark.parametrize("override,field,value", [
+    ("model.num_head=2", "num_heads", 2),
+    ("model.scheduler.eta=0.5", "eta", 0.5),
+    ("model.use_fused=false", "use_fused", False),
 ])
-def test_builder_raises_on_what_the_port_cannot_run(override, match):
-    cfg = loader.load_config(os.path.join(CONFIGS, "config_mld_egobody.yaml"),
-                             overrides=loader.parse_dotted_overrides([override]))
-    with pytest.raises(ValueError, match=match):
-        build.preset_from_yaml(cfg)
+def test_builder_raises_on_what_the_port_cannot_run(override, field, value, monkeypatch):
+    """The three values the port refused before it had a loop route now
+    build as the JAX builder builds them, and the system samples through
+    the `ddim_sample` loop: no fused DDIM entry is called and no kernel
+    launch is counted, where the shipped value calls the MD entry once."""
+    from seeme_tpu_torch.models import seeme as seeme_mod
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+
+    calls = []
+    for name in ("ddim_fused", "ddim_fused_grid", "ddim_fused_tok"):
+        real = getattr(seeme_mod, name)
+        monkeypatch.setattr(seeme_mod, name,
+                            lambda *a, _real=real, _n=name, **k: calls.append(_n) or _real(*a, **k))
+
+    def sample(overrides):
+        cfg = loader.load_config(os.path.join(CONFIGS, "config_mld_egobody.yaml"),
+                                 overrides=loader.parse_dotted_overrides(TINY_EGO + overrides))
+        preset, dm, system = build.build_system(cfg, torch.device("cpu"))
+        batch = {k: torch.as_tensor(v) for k, v in next(dm.batches("test", 2)).items()}
+        launches = [f.launches for f in (dfu.ddim_fused, dfu.ddim_fused_grid, dfu.ddim_fused_tok)]
+        feats = system.sample_from_cond(system.encode_conditioning(batch),
+                                        generator=torch.Generator().manual_seed(0))
+        after = [f.launches for f in (dfu.ddim_fused, dfu.ddim_fused_grid, dfu.ddim_fused_tok)]
+        assert after == launches
+        assert feats.shape == (2, 60, preset.model.nfeats) and bool(torch.isfinite(feats).all())
+        return preset, system
+
+    preset, system = sample([override])
+    assert getattr(preset.model, field) == value
+    assert getattr(j_build.seeme_config_from_yaml(j_load_config(
+        os.path.join(CONFIGS, "config_mld_egobody.yaml"), overrides=j_overrides([override]))),
+        field) == value
+    assert not system.takes_kernel(2) and calls == []
+    sample([])
+    assert calls == ["ddim_fused"]
 
 
 def test_smpl_file_is_not_read(tmp_path):

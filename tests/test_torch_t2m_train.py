@@ -75,8 +75,8 @@ def test_denoiser_matches_flax(case):
     """Every arch from the JAX init tree (`from_jax_params`, strict): the
     token-concat and MD U-skip stacks, the plain decoder with `mem_pos`,
     each over latents or (diffusion-only) over features with the length
-    mask, with and without a condition mask (the MD stack, which no masked
-    caller reaches, refuses one); 2 heads."""
+    mask, with and without a condition mask (the MD stack takes one too,
+    its padded tokens out of both attentions); 2 heads."""
     arch, diffusion_only, md_trans, masked = DENOISER_CASES[case]
     layers = 2 if arch == "trans_dec" else 3
     kw = dict(latent_dim=(1, W), ff_size=16, num_layers=layers, num_heads=2,
@@ -103,9 +103,11 @@ def test_denoiser_matches_flax(case):
     if diffusion_only:
         assert not got[1, 9:].any()
     if md_trans:
-        with pytest.raises(ValueError, match="md_trans"):
-            den(torch.as_tensor(sample), torch.as_tensor(t), torch.as_tensor(cond),
-                cond_mask=torch.as_tensor(token_mask(7)))
+        m = token_mask(7)
+        want = jax.jit(lambda p, m: jden.apply(p, sample, t, cond, None, cond_mask=m))(params, m)
+        got = den(torch.as_tensor(sample), torch.as_tensor(t), torch.as_tensor(cond),
+                  cond_mask=torch.as_tensor(m))
+        close(got.detach().numpy(), want, MODULE_RTOL)
 
 
 @pytest.mark.parametrize("case", list(LOSS_CASES))
