@@ -10,8 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
+
 
 def qinv(q: torch.Tensor) -> torch.Tensor:
+    count("host_sync.ric_qinv")     # a copy from the host, on the card a wait
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
 
 

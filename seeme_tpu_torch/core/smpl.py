@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from .rotations import aa_to_rotmat
 
 NUM_JOINTS = 24
@@ -232,15 +233,20 @@ def _rigid_transforms(rot_mats: torch.Tensor, joints: torch.Tensor,
     rot_mats (B, 24, 3, 3), joints (B, 24, 3) rest positions. Returns
     (posed_joints (B, 24, 3), rel_transforms (B, 24, 4, 4)). The walk uses
     the canonical PARENTS table; a model with another table is refused.
+    On the card the parents' read-back and the two copies from the host
+    each wait for the stream.
     """
+    count("host_sync.smpl_parents")
     if not np.array_equal(parents.cpu().numpy(), PARENTS):
         raise ValueError("parents table differs from the canonical SMPL tree")
+    count("host_sync.smpl_parent_index")
     par = torch.as_tensor(np.clip(PARENTS, 0, None), device=joints.device)
     rel_pos = joints.clone()
     rel_pos[:, 1:] = joints[:, 1:] - joints[:, par[1:]]
 
     B = rot_mats.shape[0]
     top = torch.cat([rot_mats, rel_pos[..., None]], dim=-1)           # (B,24,3,4)
+    count("host_sync.smpl_bottom_row")
     bot = top.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(B, NUM_JOINTS, 1, 4)
     local_tf = torch.cat([top, bot], dim=-2)                          # (B,24,4,4)
 
@@ -278,14 +284,15 @@ def smpl_joints24(
 ) -> torch.Tensor:
     """The 24 skeleton joints, no vertex skinning: the regressor folded
     through the template and the shape blend shapes, then the chain."""
-    rot_mats = _rot_mats(body_pose, global_orient, pose2rot)
-    j_template = model.j_regressor @ model.v_template                       # (24, 3)
-    j_shapedirs = torch.einsum("jv,vdn->jdn", model.j_regressor, model.shapedirs)
-    joints_rest = j_template + torch.einsum("jdn,bn->bjd", j_shapedirs, betas)
-    posed_joints, _ = _rigid_transforms(rot_mats, joints_rest, model.parents)
-    if transl is not None:
-        posed_joints = posed_joints + transl[:, None, :]
-    return posed_joints
+    with span("joints.fk"):
+        rot_mats = _rot_mats(body_pose, global_orient, pose2rot)
+        j_template = model.j_regressor @ model.v_template                       # (24, 3)
+        j_shapedirs = torch.einsum("jv,vdn->jdn", model.j_regressor, model.shapedirs)
+        joints_rest = j_template + torch.einsum("jdn,bn->bjd", j_shapedirs, betas)
+        posed_joints, _ = _rigid_transforms(rot_mats, joints_rest, model.parents)
+        if transl is not None:
+            posed_joints = posed_joints + transl[:, None, :]
+        return posed_joints
 
 
 def smpl_forward(

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.ric import recover_from_ric
+from ..utils.profiling import span
 from .batch import epoch_indices
 
 HUMANML_NFEATS = 263
@@ -89,7 +90,8 @@ def feats2joints(features: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
     the root's rotation and velocity over the frames."""
     njoints = 22 if features.shape[-1] == HUMANML_NFEATS else 21
     raw = renorm(features.to(dtype), mean.to(dtype), std.to(dtype))
-    return recover_from_ric(raw, njoints).to(features.dtype)
+    with span("joints.fk"):
+        return recover_from_ric(raw, njoints).to(features.dtype)
 
 
 class HumanML3DDataModule:

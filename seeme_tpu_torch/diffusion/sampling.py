@@ -19,6 +19,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.profiling import span
 from .schedulers import DiffusionSchedule
 
 # denoiser_fn(sample (B, N, D), t (B,)) -> model_output (B, N, D)
@@ -65,13 +66,14 @@ def ddim_sample(
     noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """x_0 samples of `shape` by DDIM; at eta > 0 step i adds `noise[i]`,
-    or a draw from `generator`."""
-    latents = _start(shape, z_init, generator, device) * schedule.init_noise_sigma
-    for i, t in enumerate(schedule.ddim_timesteps(num_inference_steps)):
-        pred = _guided(denoiser_fn, latents, t, guidance_scale)
-        eps = _step_noise(noise, i, latents, generator) if eta > 0 else None
-        latents = schedule.ddim_step(pred, int(t), latents, num_inference_steps, eta, eps)
-    return latents
+    or a draw from `generator`; the whole loop is one `sample.denoise` span."""
+    with span("sample.denoise"):
+        latents = _start(shape, z_init, generator, device) * schedule.init_noise_sigma
+        for i, t in enumerate(schedule.ddim_timesteps(num_inference_steps)):
+            pred = _guided(denoiser_fn, latents, t, guidance_scale)
+            eps = _step_noise(noise, i, latents, generator) if eta > 0 else None
+            latents = schedule.ddim_step(pred, int(t), latents, num_inference_steps, eta, eps)
+        return latents
 
 
 def ddpm_sample(

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 
 def make_betas(num_train_timesteps: int, beta_start: float, beta_end: float,
                beta_schedule: str) -> np.ndarray:
@@ -75,6 +77,7 @@ class DiffusionSchedule:
         if self.prediction_type == "sample":
             x0 = model_output
         elif self.prediction_type == "epsilon":
+            count("host_sync.predict_x0_table")   # a copy from the host, on the card a wait
             acp_t = torch.as_tensor(self.alphas_cumprod, device=sample.device)[t]
             x0 = (sample - torch.sqrt(1.0 - acp_t) * model_output) / torch.sqrt(acp_t)
         else:
@@ -99,6 +102,7 @@ class DiffusionSchedule:
         """One x_t -> x_{t-k} DDIM update (diffusers DDIMScheduler.step,
         `seeme_tpu/diffusion/schedulers.py:122-150`): at eta > 0 the step
         adds eta * sigma_t * `noise`, which it then needs."""
+        count("host_sync.ddim_step_scalars", 2)   # two copies from the host, on the card waits
         acp_t = sample.new_tensor(float(self.alphas_cumprod[t]))
         acp_prev = sample.new_tensor(self.alpha_prev(int(t), num_inference_steps))
         x0 = self.predict_x0(model_output, int(t), sample)

@@ -18,6 +18,7 @@ import torch
 
 from ..core.rotations import quat_to_rotmat
 from ..parallel.mesh import allreduce_metric_sums
+from ..utils.profiling import count, span
 
 HEAD_JOINT = 15
 PELVIS = 0
@@ -107,15 +108,22 @@ class EgoMetric:
     def update(self, jts_pred, jts_gt, quat_pred, quat_gt, mask,
                jts_int: Optional[torch.Tensor] = None,
                jts_int_gt: Optional[torch.Tensor] = None) -> None:
-        per_seq = ego_sequence_metrics(jts_pred, jts_gt, quat_pred, quat_gt, mask)
-        if jts_int is not None and jts_int_gt is not None:
-            self._add("mpjpe_interactee", interactee_mpjpe(jts_int, jts_int_gt, mask).tolist())
-        keep = (kept_by_test_split(per_seq) if self.split == "test"
-                else torch.ones_like(per_seq["mpjpe"], dtype=torch.bool))
-        names = {"mpjpe": "MPJPE", "root_err": "ROOT_ERROR",
-                 "head_err": "HEAD_ORIENTATION_ERROR", "accl": "ACCL"}
-        for k, name in names.items():
-            self._add(name, per_seq[k][keep].tolist())
+        """Add one batch's sequences; each boolean index and `.tolist()` is
+        a read-back for which the host waits on the card."""
+        with span("metric"):
+            per_seq = ego_sequence_metrics(jts_pred, jts_gt, quat_pred, quat_gt, mask)
+            if jts_int is not None and jts_int_gt is not None:
+                count("host_sync.metric_tolist")
+                self._add("mpjpe_interactee",
+                          interactee_mpjpe(jts_int, jts_int_gt, mask).tolist())
+            keep = (kept_by_test_split(per_seq) if self.split == "test"
+                    else torch.ones_like(per_seq["mpjpe"], dtype=torch.bool))
+            names = {"mpjpe": "MPJPE", "root_err": "ROOT_ERROR",
+                     "head_err": "HEAD_ORIENTATION_ERROR", "accl": "ACCL"}
+            for k, name in names.items():
+                count("host_sync.metric_index")
+                count("host_sync.metric_tolist")
+                self._add(name, per_seq[k][keep].tolist())
 
     def compute(self, sync: bool = False) -> Dict[str, float]:
         """The mean of every key over the sequences counted so far; with

@@ -57,6 +57,7 @@ from ..ops import module_state, tensor_versions
 from ..ops.pointnet_fused import FusedPointnet
 from ..parallel.mesh import rows
 from ..train.losses import LossWeights, diffusion_losses, vae_losses, x0_losses
+from ..utils.profiling import span
 from .denoiser import Denoiser
 from .vae import MotionVae, reparameterize
 
@@ -272,7 +273,8 @@ class SeeMeSystem(nn.Module):
     def scene_features(self, scene: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) point cloud -> (B, 512) frozen PointNet features,
         through the fused blocks, without a gradient."""
-        return self._fused_scene(self.proscene["scene_enc"], scene)
+        with span("encode.pointnet"):
+            return self._fused_scene(self.proscene["scene_enc"], scene)
 
     def encode_scene(self, scene: torch.Tensor) -> torch.Tensor:
         """(B, 1, d) scene token: frozen PointNet, then the trainable
@@ -283,7 +285,8 @@ class SeeMeSystem(nn.Module):
     def image_features(self, image: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) crops -> (B, 2048) frozen ResNet50 features, without
         a gradient; cacheable per sample as `scene_features` is."""
-        return self.image_encoder(image)
+        with span("encode.image"):
+            return self.image_encoder(image)
 
     def _condition_tokens(self, batch: Dict, masks: Optional[Dict] = None) -> torch.Tensor:
         """(B, n_cond, d) condition tokens [interactee, scene, image].
@@ -298,7 +301,7 @@ class SeeMeSystem(nn.Module):
             f_int = self.actor_features(batch, INTERACTEE)
             if masks is not None:
                 f_int = f_int.masked_fill(masks["mask_interactee"], 0.0)
-            with torch.no_grad():  # the VAE is frozen in stage 2
+            with torch.no_grad(), span("encode.interactee"):  # the VAE is frozen in stage 2
                 mu, _ = self.vae.encode(f_int)
             tokens.append(mu)
         if self.use_scene:
@@ -322,12 +325,13 @@ class SeeMeSystem(nn.Module):
     def encode_conditioning(self, batch: Dict) -> torch.Tensor:
         """Eval-time condition tokens, doubled as [uncond; cond] when
         guidance > 1 (the uncond half from zeroed inputs)."""
-        cond = self._condition_tokens(batch)
-        if self.cfg.guidance_scale > 1.0:
-            zeroed = {k: (torch.zeros_like(v) if k in ("feats", "transl", "scene", "image") else v)
-                      for k, v in batch.items()}
-            return torch.cat([self._condition_tokens(zeroed), cond], dim=0)
-        return cond
+        with span("encode"):
+            cond = self._condition_tokens(batch)
+            if self.cfg.guidance_scale > 1.0:
+                zeroed = {k: (torch.zeros_like(v) if k in ("feats", "transl", "scene", "image")
+                              else v) for k, v in batch.items()}
+                return torch.cat([self._condition_tokens(zeroed), cond], dim=0)
+            return cond
 
     # -------------------------------------------------------------- training
     def loss_draws(self, stage: str, batch: Dict, generator: Optional[torch.Generator] = None,
@@ -433,32 +437,34 @@ class SeeMeSystem(nn.Module):
         initial noise and `noise` (steps, B, *latent_dim) the loop's
         per-step draws at eta > 0. Returns normalized features (B, T,
         nfeats)."""
-        cfg = self.cfg
-        B = cond_full.shape[0] // (2 if cfg.guidance_scale > 1.0 else 1)
-        shape = (B, cfg.latent_dim[0], cfg.latent_dim[-1])
-        if z_init is None:
-            z_init = torch.randn(shape, generator=generator, device=self.device)
-        z_init = z_init.to(self.device, torch.float32).contiguous()
-        if self.takes_kernel(cond_full.shape[1]):
-            sd, weights, _ = self.kernel_operands()
-            grid = cfg.fused_variant == "grid" and cfg.latent_dim[0] == 1
-            ddim = ddim_fused_grid if grid else ddim_fused
-            if not cfg.md_trans:  # the token-concat stack: kernel 5
-                ddim = ddim_fused_tok
-            z = ddim(sd, cond_full.contiguous(), z_init, self.schedule,
-                     cfg.num_inference_timesteps, cfg.num_layers, cfg.guidance_scale,
-                     weights=weights)
-        else:
-            training = self.denoiser.training
-            self.denoiser.eval()  # the JAX scan applies the denoiser deterministically
-            try:
-                z = ddim_sample(lambda x, t: self.denoiser(x, t, cond_full), self.schedule,
-                                shape, cfg.num_inference_timesteps, cfg.guidance_scale,
-                                z_init=z_init, generator=generator, device=self.device,
-                                eta=cfg.eta, noise=noise)
-            finally:
-                self.denoiser.train(training)
-        return self.vae.decode(z, cfg.motion_length)
+        with span("sample"):
+            cfg = self.cfg
+            B = cond_full.shape[0] // (2 if cfg.guidance_scale > 1.0 else 1)
+            shape = (B, cfg.latent_dim[0], cfg.latent_dim[-1])
+            if z_init is None:
+                z_init = torch.randn(shape, generator=generator, device=self.device)
+            z_init = z_init.to(self.device, torch.float32).contiguous()
+            if self.takes_kernel(cond_full.shape[1]):
+                sd, weights, _ = self.kernel_operands()
+                grid = cfg.fused_variant == "grid" and cfg.latent_dim[0] == 1
+                ddim = ddim_fused_grid if grid else ddim_fused
+                if not cfg.md_trans:  # the token-concat stack: kernel 5
+                    ddim = ddim_fused_tok
+                z = ddim(sd, cond_full.contiguous(), z_init, self.schedule,
+                         cfg.num_inference_timesteps, cfg.num_layers, cfg.guidance_scale,
+                         weights=weights)
+            else:
+                training = self.denoiser.training
+                self.denoiser.eval()  # the JAX scan applies the denoiser deterministically
+                try:
+                    z = ddim_sample(lambda x, t: self.denoiser(x, t, cond_full), self.schedule,
+                                    shape, cfg.num_inference_timesteps, cfg.guidance_scale,
+                                    z_init=z_init, generator=generator, device=self.device,
+                                    eta=cfg.eta, noise=noise)
+                finally:
+                    self.denoiser.train(training)
+            with span("sample.decode"):
+                return self.vae.decode(z, cfg.motion_length)
 
     @torch.no_grad()
     def eval_fk(self, batch: Dict, feats_rst: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -466,22 +472,23 @@ class SeeMeSystem(nn.Module):
         ground truth and of the other actor, and the global-orientation
         quaternions of the head-orientation metric (from the 6-D rotation
         for rot6d features)."""
-        cfg = self.cfg
-        raw_rst = self.renorm(feats_rst)
-        raw_ref = self.renorm(self.actor_features(batch, self.actor))
-        raw_int = self.renorm(self.actor_features(batch, self.other))
-        betas, transl = batch["betas"][:, self.actor], self._transl(batch, self.actor)
-        if cfg.data_type == "rot6d":
-            quat_rst = rotmat_to_quat(rot6d_to_rotmat(raw_rst[..., :6], "diffusion"))
-            quat_ref = rotmat_to_quat(rot6d_to_rotmat(raw_ref[..., :6], "diffusion"))
-        else:
-            quat_rst, quat_ref = aa_to_quat(raw_rst[..., :3]), aa_to_quat(raw_ref[..., :3])
-        return {
-            "feats_rst": feats_rst,
-            "joints_rst": self.feats_to_joints(raw_rst, betas, transl),
-            "joints_ref": self.feats_to_joints(raw_ref, betas, transl),
-            "joints_int": self.feats_to_joints(raw_int, batch["betas"][:, self.other],
-                                               self._transl(batch, self.other)),
-            "quat_rst": quat_rst,
-            "quat_ref": quat_ref,
-        }
+        with span("joints"):
+            cfg = self.cfg
+            raw_rst = self.renorm(feats_rst)
+            raw_ref = self.renorm(self.actor_features(batch, self.actor))
+            raw_int = self.renorm(self.actor_features(batch, self.other))
+            betas, transl = batch["betas"][:, self.actor], self._transl(batch, self.actor)
+            if cfg.data_type == "rot6d":
+                quat_rst = rotmat_to_quat(rot6d_to_rotmat(raw_rst[..., :6], "diffusion"))
+                quat_ref = rotmat_to_quat(rot6d_to_rotmat(raw_ref[..., :6], "diffusion"))
+            else:
+                quat_rst, quat_ref = aa_to_quat(raw_rst[..., :3]), aa_to_quat(raw_ref[..., :3])
+            return {
+                "feats_rst": feats_rst,
+                "joints_rst": self.feats_to_joints(raw_rst, betas, transl),
+                "joints_ref": self.feats_to_joints(raw_ref, betas, transl),
+                "joints_int": self.feats_to_joints(raw_int, batch["betas"][:, self.other],
+                                                   self._transl(batch, self.other)),
+                "quat_rst": quat_rst,
+                "quat_ref": quat_ref,
+            }

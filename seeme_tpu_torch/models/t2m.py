@@ -51,6 +51,7 @@ from ..ops.denoiser_fused import TOK_MAX_COND, KernelWeights, ddim_fused_tok
 from ..parallel.mesh import rows
 from ..train.losses import diffusion_losses, kl_standard_normal, smooth_l1
 from ..train.state import set_stage
+from ..utils.profiling import span
 from .denoiser import Denoiser
 from .text_encoder import ClipTextEncoder
 from .vae import MotionVae, reparameterize
@@ -236,38 +237,40 @@ class T2MSystem(nn.Module):
         noise: (B, *latent_dim), or (B, T, nfeats) without a VAE. Frames
         past `lengths` are masked in the decoder (or zeroed by the
         diffusion-only denoiser)."""
-        cfg = self.cfg
-        if text_emb.dim() == 2:
-            text_emb = text_emb[:, None, :]
-        text_emb = torch.as_tensor(text_emb, dtype=torch.float32, device=self.device)
-        B, T = text_emb.shape[0], nframes or cfg.max_len
-        doubled = cfg.guidance_scale > 1.0
-        cond = torch.cat([torch.zeros_like(text_emb), text_emb]) if doubled else text_emb
-        if cond_mask is not None:
-            cond_mask = torch.as_tensor(cond_mask, device=self.device).to(torch.bool)
-            if doubled:
-                cond_mask = torch.cat([cond_mask, cond_mask])
-        if lengths is not None:
-            lengths = torch.as_tensor(lengths, device=self.device)
-        shape = (B, T, cfg.nfeats) if self.diffusion_only else (B, *cfg.latent_dim)
-        if z_init is None:
-            z_init = torch.randn(shape, generator=generator, device=self.device)
-        z_init = z_init.to(self.device, torch.float32).contiguous()
-        steps = cfg.num_inference_timesteps
+        with span("sample"):
+            cfg = self.cfg
+            if text_emb.dim() == 2:
+                text_emb = text_emb[:, None, :]
+            text_emb = torch.as_tensor(text_emb, dtype=torch.float32, device=self.device)
+            B, T = text_emb.shape[0], nframes or cfg.max_len
+            doubled = cfg.guidance_scale > 1.0
+            cond = torch.cat([torch.zeros_like(text_emb), text_emb]) if doubled else text_emb
+            if cond_mask is not None:
+                cond_mask = torch.as_tensor(cond_mask, device=self.device).to(torch.bool)
+                if doubled:
+                    cond_mask = torch.cat([cond_mask, cond_mask])
+            if lengths is not None:
+                lengths = torch.as_tensor(lengths, device=self.device)
+            shape = (B, T, cfg.nfeats) if self.diffusion_only else (B, *cfg.latent_dim)
+            if z_init is None:
+                z_init = torch.randn(shape, generator=generator, device=self.device)
+            z_init = z_init.to(self.device, torch.float32).contiguous()
+            steps = cfg.num_inference_timesteps
 
-        if self.diffusion_only:
-            L = lengths if lengths is not None else torch.full((B,), T, device=self.device)
-            L = torch.cat([L, L]) if doubled else L
-            return ddim_sample(lambda x, t: self.denoiser(x, t, cond, cond_mask, L),
-                               self.schedule, shape, steps, cfg.guidance_scale, z_init=z_init)
-        if self.takes_kernel(cond.shape[1], cond_mask):
-            sd, weights = self.kernel_operands()
-            z = ddim_fused_tok(sd, cond.contiguous(), z_init, self.schedule, steps,
-                               cfg.num_layers, cfg.guidance_scale, weights=weights)
-        else:
-            z = ddim_sample(lambda x, t: self.denoiser(x, t, cond, cond_mask), self.schedule,
-                            shape, steps, cfg.guidance_scale, z_init=z_init)
-        return self.vae.decode(z, T, lengths)
+            if self.diffusion_only:
+                L = lengths if lengths is not None else torch.full((B,), T, device=self.device)
+                L = torch.cat([L, L]) if doubled else L
+                return ddim_sample(lambda x, t: self.denoiser(x, t, cond, cond_mask, L),
+                                   self.schedule, shape, steps, cfg.guidance_scale, z_init=z_init)
+            if self.takes_kernel(cond.shape[1], cond_mask):
+                sd, weights = self.kernel_operands()
+                z = ddim_fused_tok(sd, cond.contiguous(), z_init, self.schedule, steps,
+                                   cfg.num_layers, cfg.guidance_scale, weights=weights)
+            else:
+                z = ddim_sample(lambda x, t: self.denoiser(x, t, cond, cond_mask), self.schedule,
+                                shape, steps, cfg.guidance_scale, z_init=z_init)
+            with span("sample.decode"):
+                return self.vae.decode(z, T, lengths)
 
     @torch.no_grad()
     def reconstruct(self, batch: Dict, generator: Optional[torch.Generator] = None,
@@ -284,5 +287,6 @@ class T2MSystem(nn.Module):
     def feats_to_joints(self, feats: torch.Tensor) -> torch.Tensor:
         """Normalized (B, T, nfeats) features -> (B, T, njoints, 3) joints,
         recovered in float64."""
-        return feats2joints(feats, self.mean, self.std, dtype=torch.float64)
+        with span("joints"):
+            return feats2joints(feats, self.mean, self.std, dtype=torch.float64)
 

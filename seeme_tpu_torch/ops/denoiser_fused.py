@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from ..diffusion.sampling import ddim_sample
 from ..diffusion.schedulers import DiffusionSchedule
 from ..nn.embeddings import sinusoidal_timestep_embedding
+from ..utils.profiling import count, span
 from . import _build
 
 StateDict = Dict[str, torch.Tensor]
@@ -244,7 +245,9 @@ def denoiser_apply_pure(sd: StateDict, x: torch.Tensor, timesteps: torch.Tensor 
 
 
 def ddim_schedule_arrays(schedule, num_steps: int, device="cpu"):
-    """(timesteps int64, acp_t f32, acp_prev f32), each (num_steps,)."""
+    """(timesteps int64, acp_t f32, acp_prev f32), each (num_steps,): three
+    copies from the host, each of which waits for the card's stream."""
+    count("host_sync.ddim_schedule", 3)
     ts = schedule.ddim_timesteps(num_steps)
     acp = schedule.alphas_cumprod
     acp_prev = [schedule.alpha_prev(int(t), num_steps) for t in ts]
@@ -261,10 +264,11 @@ def ddim_fused_plain(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
     projection; the MD stack's condition invariants) and, as the kernels
     make them, the time token's own projections once a step; cond is
     [uncond; cond] (2B rows) when guidance_scale > 1."""
-    timesteps = ddim_schedule_arrays(schedule, num_steps, z_init.device)[0]
-    cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
-    tokens = dict(zip(timesteps.tolist(), time_tokens))
-    inv = md_step_invariants(sd, cond_p, num_layers) if md_trans else None
+    with span("sample.precompute"):
+        timesteps = ddim_schedule_arrays(schedule, num_steps, z_init.device)[0]
+        cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
+        tokens = dict(zip(timesteps.tolist(), time_tokens))
+        inv = md_step_invariants(sd, cond_p, num_layers) if md_trans else None
     # the token stack takes the projected condition: without emb_proj in
     # its weights, `_project_cond` passes it through
     sd_steps = {k: v for k, v in sd.items() if not k.startswith("emb_proj.")}
@@ -417,8 +421,8 @@ def _launch_ddim_md(wrapper, sd, cond, z_init, schedule, num_steps, num_layers,
         _check_split(name, n)
     cfg = int(guidance_scale > 1.0)
     lib = _build.load_library()
-    timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
-    with torch.no_grad():
+    with torch.no_grad(), span("sample.precompute"):
+        timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
         inv = md_step_invariants(sd, cond_p, num_layers, time_tokens)
         names = layer_names(num_layers)
@@ -428,15 +432,16 @@ def _launch_ddim_md(wrapper, sd, cond, z_init, schedule, num_steps, num_layers,
         inv_step = torch.stack([
             torch.cat([inv[n][k] for k in ("k_emb", "v_emb", "ca_eo", "ffn_eo")], dim=-1)
             for n in names]).contiguous()                               # (L, steps, 6D)
-    z0 = (z_init * schedule.init_noise_sigma).reshape(B, T * D).contiguous()
-    z_out = torch.empty(B, T * D, device=dev)
-    pe = sd["query_pos.pe"][:T, 0].contiguous()
-    _build.check(lib.ddim_md(
-        z0.data_ptr(), z_out.data_ptr(), inv_cond.data_ptr(), inv_step.data_ptr(),
-        weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(), pe.data_ptr(),
-        B, cond.shape[0], cond.shape[1], D, weights.sa_ff, weights.ff, num_layers, num_steps, T,
-        float(guidance_scale), cfg, _build.stream_ptr(dev)), name,
-        _tokens(T, cond.shape[1], cfg))
+        z0 = (z_init * schedule.init_noise_sigma).reshape(B, T * D).contiguous()
+        z_out = torch.empty(B, T * D, device=dev)
+        pe = sd["query_pos.pe"][:T, 0].contiguous()
+    with span("sample.denoise"):
+        _build.check(lib.ddim_md(
+            z0.data_ptr(), z_out.data_ptr(), inv_cond.data_ptr(), inv_step.data_ptr(),
+            weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(), pe.data_ptr(),
+            B, cond.shape[0], cond.shape[1], D, weights.sa_ff, weights.ff, num_layers,
+            num_steps, T, float(guidance_scale), cfg, _build.stream_ptr(dev)), name,
+            _tokens(T, cond.shape[1], cfg))
     _count(wrapper, T)
     return z_out.reshape(B, T, D)
 
@@ -509,20 +514,21 @@ def ddim_fused_tok(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
     if weights.ff > D:
         raise ValueError(f"ddim_fused_tok: feed-forward width {weights.ff} is over {D}")
     lib = _build.load_library()
-    timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
-    with torch.no_grad():
+    with torch.no_grad(), span("sample.precompute"):
+        timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
         pe = sd["query_pos.pe"][: T + 1 + NC, 0]
         cond_in = (cond_p + pe[T + 1:]).contiguous()       # (Bc, NC, D), positions T+1..
         time_in = (time_tokens + pe[T]).contiguous()        # (steps, D), position T
-    z0 = (z_init * schedule.init_noise_sigma).reshape(B, T * D).contiguous()
-    z_out = torch.empty(B, T * D, device=dev)
-    pe_lat = pe[:T].contiguous()
-    _build.check(lib.ddim_tok(
-        z0.data_ptr(), z_out.data_ptr(), cond_in.data_ptr(), time_in.data_ptr(),
-        weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(), pe_lat.data_ptr(),
-        B, NC, weights.ff, num_layers, num_steps, T, float(guidance_scale), cfg,
-        _build.stream_ptr(dev)), "ddim_fused_tok", _tokens(T, NC, cfg))
+        z0 = (z_init * schedule.init_noise_sigma).reshape(B, T * D).contiguous()
+        z_out = torch.empty(B, T * D, device=dev)
+        pe_lat = pe[:T].contiguous()
+    with span("sample.denoise"):
+        _build.check(lib.ddim_tok(
+            z0.data_ptr(), z_out.data_ptr(), cond_in.data_ptr(), time_in.data_ptr(),
+            weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(), pe_lat.data_ptr(),
+            B, NC, weights.ff, num_layers, num_steps, T, float(guidance_scale), cfg,
+            _build.stream_ptr(dev)), "ddim_fused_tok", _tokens(T, NC, cfg))
     _count(ddim_fused_tok, T)
     return z_out.reshape(B, T, D)
 

@@ -4,7 +4,7 @@ action-to-motion branch (`_a2m_eval`, `test.py:365-450`).
 
     python -m seeme_tpu_torch.test --preset NAME [--batch_size N]
         [--replication_times N] [--checkpoint PATH] [--count_time]
-        [--save_predictions] [--device cpu] [--out DIR]
+        [--save_predictions] [--device cpu] [--out DIR] [--trace DIR]
         [model.FIELD=VALUE ...] [test.FIELD=VALUE ...]
     python -m seeme_tpu_torch.test --cfg configs/config_NAME.yaml [--cfg_assets FILE]
         [the same options] [KEY.PATH=VALUE ...]
@@ -71,6 +71,12 @@ drifts about 0.8% (`seeme_tpu/models/seeme.py:70-74`); the port's kernels
 are f32 and held to 1e-3 of max|z|. An ego model on the loop at eta > 0
 draws its per-step noise from the replication's generator.
 
+`--trace DIR` runs the replications under `utils/profiling.py::device_trace`
+and writes `DIR/trace.json` (a Chrome trace) and `DIR/spans.json` (the
+program's spans and counters, `profiling.summary()`); each test batch is a
+`batch` span keyed by its index in the run, and its layers' spans (`encode`,
+`sample`, `joints`, `metric` and their parts) nest under it. Rank 0 traces.
+
 It runs on the card unless `--device cpu` is given, and raises when there
 is no card. On the card, float32 products and convolutions run in full
 float32 (TF32 off).
@@ -92,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import sys
@@ -125,6 +132,7 @@ from ..parallel.mesh import (batch_sharding, join_world, leave_world, process_ra
                              shard_batch, valid_rows)
 from ..train.checkpoint import load_weights
 from ..utils.logger import create_experiment_dir, create_logger
+from ..utils.profiling import clear, device_trace, span, summary
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -141,6 +149,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--save_predictions", action="store_true", help="TEST.SAVE_PREDICTIONS")
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default=None, help="experiment dir")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write DIR/trace.json and DIR/spans.json of the replications")
     p.add_argument("overrides", nargs="*", default=[],
                    help="with --preset model.FIELD=VALUE, train.FIELD=VALUE or test.FIELD=VALUE; "
                         "with --cfg dotted YAML keys, e.g. TEST.MM=true")
@@ -197,6 +207,8 @@ class Evaluator:
         self.rank, self.world = process_rank()
         self.shard = batch_sharding(self.mesh)
         self.is_main = self.rank == 0
+        self.trace_dir = args.trace if self.is_main else None
+        self._batch_keys = itertools.count()
         full_float32()
         default_dir = (create_experiment_dir(config, phase="test") if config is not None
                        else os.path.join(OUT_ROOT, preset.name))
@@ -236,11 +248,32 @@ class Evaluator:
 
     def run(self) -> Dict:
         """Every replication over the test split; returns {"stats", "replications",
-        "metrics_path", "times"}."""
+        "metrics_path", "times"}. With `--trace DIR`, traced, and the spans'
+        summary written to DIR/spans.json."""
+        with device_trace(self.trace_dir, enabled=self.trace_dir is not None):
+            replications, times = self._replicate()
+        if self.trace_dir is not None:
+            with open(os.path.join(self.trace_dir, "spans.json"), "w") as f:
+                json.dump(summary(), f, indent=1)
+            clear()
+        return self._finish(replications, times)
+
+    def _replicate(self):
+        """(metrics of each replication, batch seconds) of the system's branch."""
         if isinstance(self.system, T2MSystem):
-            return self._finish(*self._run_t2m())
+            return self._run_t2m()
         if isinstance(self.system, A2MSystem):
-            return self._finish(*self._run_a2m())
+            return self._run_a2m()
+        return self._run_ego()
+
+    def _spanned(self, batches):
+        """Each of `batches` inside a `batch` span keyed by its index in the run."""
+        for item in batches:
+            with span("batch", key=next(self._batch_keys)):
+                yield item
+
+    def _run_ego(self):
+        """The ego replications: (metrics of each, batch seconds)."""
         system, tc = self.system, self.preset.test
         T = self.preset.model.motion_length
         fact = None if tc.fact == 1 else float(tc.fact)
@@ -255,7 +288,7 @@ class Evaluator:
             metric = EgoMetric(split=tc.split)
             gen = torch.Generator(device=self.device).manual_seed(self.seed + rep)
             for i, (batch_np, n_valid) in enumerate(
-                    eval_batches(self.datamodule, "test", tc.batch_size)):
+                    self._spanned(eval_batches(self.datamodule, "test", tc.batch_size))):
                 # this rank's rows; the noise drawn at the whole batch's shape
                 batch_np = shard_batch(self.mesh, batch_np)
                 n_valid = valid_rows(n_valid, tc.batch_size, self.shard)
@@ -293,7 +326,7 @@ class Evaluator:
             replications.append(metric.compute(sync=self.world > 1))
             self.log(f"replication {rep}: " + " ".join(
                 f"{k}={v:.3f}" for k, v in sorted(replications[-1].items())))
-        return self._finish(replications, times)
+        return replications, times
 
     def _run_t2m(self):
         """The text-to-motion replications: (metrics of each, batch seconds)."""
@@ -308,7 +341,7 @@ class Evaluator:
         for rep in range(tc.replication_times):
             mr, tm2t = MRMetrics(), TM2TMetrics()
             gen = torch.Generator(device=self.device).manual_seed(self.seed + rep)
-            for batch_np, n_valid in eval_batches(dm, "test", tc.batch_size):
+            for batch_np, n_valid in self._spanned(eval_batches(dm, "test", tc.batch_size)):
                 texts = batch_np.get("text")
                 batch_np = system.encode_captions(batch_np)
                 batch = to_torch(batch_np, self.device)
@@ -368,7 +401,8 @@ class Evaluator:
         for rep in range(tc.replication_times):
             metric = ActionMetrics(num_classes=system.cfg.num_classes)
             gen = torch.Generator(device=self.device).manual_seed(self.seed + rep)
-            for batch_np, n_valid in eval_batches(self.datamodule, "test", tc.batch_size):
+            for batch_np, n_valid in self._spanned(eval_batches(self.datamodule, "test",
+                                                                tc.batch_size)):
                 batch = to_torch(batch_np, self.device)
                 t0 = time.perf_counter()
                 feats = system.sample(batch["action"], generator=gen)

@@ -85,8 +85,7 @@ def test_step_timer_keeps_the_times_contract(tmp_path, monkeypatch, capsys):
             with timer:
                 pass
         timer.dump(str(tmp_path / f"{name}.txt"))
-        outputs.append((capsys.readouterr().out, open(tmp_path / f"{name}.txt").read(),
-                        timer.seqs_per_sec))
+        outputs.append((capsys.readouterr().out, open(tmp_path / f"{name}.txt").read()))
     assert outputs[0] == outputs[1]
     assert outputs[0][1].splitlines() == ["0.5", "0.25", "0.125", "0.5"]
     assert "2 iter mean Time (batch_size: 4)" in outputs[0][0]
