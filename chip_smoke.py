@@ -289,6 +289,12 @@ Phases, each printing one line with its seconds as soon as it ends:
      continues from the saved step and epoch and deletes no step file; a
      mistyped TRAIN.RESUME raises FileNotFoundError with the directory as
      it was.
+ 65. kernel 5 at MLD's published HumanML3D denoiser (9 layers, 4 heads,
+     ff 1024, text 768, guidance 7.5, B=64), then at 2 heads and ff 512:
+     `T2MSystem.sample` with the counts reset just before (expected: token
+     kernel 1 once, never the `ddim_sample` loop), the kernel against its
+     plain version (1e-3 of max|z|), its launch plan (13 clusters of 5
+     samples, one wave), ms, plain ms and bound (it runs after phase 36);
 Phases 6-8, 13-14, 47 and 55-57 time and gate the host route at one step a
 fetch (`HOST_ROUTE`, `HOST_ROUTE_CFG`); the other training phases take the
 card's default route.
@@ -300,7 +306,9 @@ numbers; kernel 5 also as `ddim_tok_t1_a2m`, at the shipped a2m shape,
 whose main path is phase 30's HumanAct12 slice at guidance 1.0; kernels 3
 and 5 at T = 2 and 10 as `ddim_md_t2`, `ddim_md_t10`, `ddim_tok_t2`,
 `ddim_tok_t10`, with guidance 2.5 / the preset's shape beside them and the
-T = 1 time of the same phase; their main paths are phases 34-35), the
+T = 1 time of the same phase; their main paths are phases 34-35; kernel 5
+at MLD's widths as `ddim_tok_mld`, 4 heads and ff 1024, with 2 heads and ff
+512 beside it, whose main path is phase 65's `T2MSystem.sample`), the
 card's name and power limit, and, last, `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero at once. Random weights: the seeded init
 plus a seeded perturbation, so the zero-initialized output projections
@@ -840,6 +848,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="seeme_multitoken_")
     try:
         multitoken_phases(dev, counted, counters, record, kernels, launches, work)
+        mld_phases(dev, counted, counters, record, kernels, launches)
         entry_phases(dev, counted, counters, record, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2764,6 +2773,96 @@ def multitoken_phases(dev, counted, counters, record, kernels: list, launches: d
     torch.cuda.empty_cache()
     phase(f"grid variant at latent [2, 256]: launches {counts} (ddim_fused, not the grid entry)",
           t)
+
+
+def mld_phases(dev, counted, counters, record, kernels: list, launches: dict) -> None:
+    """Phase 65: kernel 5 at MLD's published HumanML3D denoiser (9 layers,
+    ff 1024, text 768, guidance 7.5, B = 64) at 4 heads, then at 2 heads
+    with ff 512. Each: `T2MSystem.sample` with the launch counts reset just
+    before takes exactly one `ddim_fused_tok` launch and never the
+    `ddim_sample` loop; the kernel against `ddim_fused_plain(md_trans=False,
+    num_heads=...)` on the same card inputs within DDIM_RTOL; the launch plan
+    (13 clusters of 5 samples, one wave); ms, plain ms and bound. The 4-head
+    shape is the `ddim_tok_mld` row of the kernels line, the 2-head one
+    beside it."""
+    import torch
+
+    from seeme_tpu_torch.models import t2m as t2m_module
+    from seeme_tpu_torch.models.t2m import T2MConfig, T2MSystem
+    from seeme_tpu_torch.nn.init import perturb_parameters_
+    from seeme_tpu_torch.ops import denoiser_fused as dfu
+
+    none = {k: 0 for k in counters}
+    B, L, text_dim, g = BATCH, 9, 768, 7.5
+    src = "seeme_tpu_torch/csrc/ddim_tok.cu"
+    row = None
+    for heads, ff in ((4, 1024), (2, 512)):
+        t = time.perf_counter()
+        cfg = dataclasses.replace(T2MConfig(), num_layers=L, num_heads=heads, ff_size=ff,
+                                  text_encoded_dim=text_dim, guidance_scale=g)
+        t2m = T2MSystem(cfg, torch.zeros(263), torch.ones(263), device=dev, seed=SEED)
+        perturb_parameters_(t2m, torch.Generator().manual_seed(SEED + 65))
+        text = torch.randn(B, text_dim, generator=torch.Generator().manual_seed(SEED + 66))
+        text = text.to(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 67)
+
+        def no_loop(*args, **kwargs):
+            raise SystemExit(f"chip_smoke: FAILED: MLD's widths at {heads} heads took the "
+                             f"ddim_sample loop")
+
+        t2m.sample(text, generator=gen)  # builds the kernel library and the operands
+        torch.cuda.synchronize()
+        loop, t2m_module.ddim_sample = t2m_module.ddim_sample, no_loop
+        try:
+            t0 = time.perf_counter()
+            feats, counts = counted(lambda: t2m.sample(text, generator=gen))
+            wall = time.perf_counter() - t0
+        finally:
+            t2m_module.ddim_sample = loop
+        require(tuple(feats.shape) == (B, cfg.max_len, 263) and bool(torch.isfinite(feats).all()),
+                f"MLD widths, {heads} heads: features {tuple(feats.shape)}")
+        require(counts == {**none, "ddim_tok_t1": 1},
+                f"MLD widths, {heads} heads: launch counts {counts}")
+        record(f"t2m_sampling_mld_h{heads}", counts)
+
+        tsd, tw = t2m.kernel_operands()
+        require(tw.num_heads == heads and tw.ff == ff, f"kernel weights {tw.num_heads} / {tw.ff}")
+        c = torch.cat([torch.zeros_like(text), text])[:, None].contiguous()
+        z0 = torch.randn(B, 1, 256, generator=torch.Generator().manual_seed(SEED + 68)).to(dev)
+        steps = cfg.num_inference_timesteps
+        args = (tsd, c, z0, t2m.schedule, steps, L, g)
+        z_k = dfu.ddim_fused_tok(*args, weights=tw)
+        z_p, plain_ms = timed(lambda: dfu.ddim_fused_plain(*args, md_trans=False,
+                                                           num_heads=heads))
+        err = compare(f"ddim_fused_tok at MLD's widths, {heads} heads, ff {ff}", z_k, z_p,
+                      float(z_p.abs().max()), DDIM_RTOL)
+        info = dfu.cluster_launch(False, B, 1, tw, g)
+        print_launch(info)
+        clusters = info["grid"] // info["cluster"]
+        require(info["samples"] == 5 and clusters == 13 <= info["active_clusters"],
+                f"MLD widths, {heads} heads: launch plan {info}")
+        ms = time_ms(lambda: dfu.ddim_fused_tok(*args, weights=tw), 3)
+        flops = tok_flops(tsd, L, c.shape[0], 1, steps)
+        nbytes = 4 * (sum(v.numel() for v in tsd.values()) + c.numel() + 2 * z0.numel()
+                      + 2 * steps)
+        phase(f"kernel ddim_tok at MLD's widths (B={B}, {L} layers, {heads} heads, ff {ff}, text "
+              f"{text_dim}, guidance {g}, {info['samples']} samples a cluster, {clusters} "
+              f"clusters, {info['smem_bytes']} B a CTA): {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms(flops, nbytes):.4f} ms ({bound_by(flops, nbytes)}), f32 bound "
+              f"{bound_f32_ms(flops, nbytes):.4f} ms; T2MSystem.sample one launch, no loop, "
+              f"{wall:.3f} s on the host clock", t)
+        plan = dict(samples_a_cluster=info["samples"], clusters=clusters,
+                    active_clusters=info["active_clusters"], smem_bytes=info["smem_bytes"])
+        if row is None:
+            row = kernel_row("ddim_tok_mld", src, err, ms, plain_ms, flops, nbytes,
+                             counter="ddim_tok_t1", layers=L, heads=heads, ff=ff, **plan)
+            kernels.append(row)
+            launches["ddim_tok_mld"] = counts["ddim_tok_t1"]
+        else:
+            row[f"heads{heads}_ff{ff}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                               bound_ms=bound_ms(flops, nbytes), **plan)
+        del t2m, z_k, z_p
+        torch.cuda.empty_cache()
 
 
 def entry_phases(dev, counted, counters, record, work: str) -> None:

@@ -12,6 +12,7 @@
 enum Refusal : int {
   REFUSE_TOKEN_ROWS = 10001,   // kernel 5: one sample's token rows past DDIM_TOK_MAX_ROWS
   REFUSE_SAMPLE_SMEM = 10002,  // a DDIM kernel: one sample past a CTA's shared memory
+  REFUSE_TOK_HEADS = 10003,    // kernel 5: a head width that is not whole warps
 };
 
 // The message of a refusal, or nullptr for any other code.
@@ -23,6 +24,9 @@ inline const char* refusal_string(int err) {
     case REFUSE_SAMPLE_SMEM:
       return "one sample's rows need more shared memory a CTA than the card allows "
              "(cudaDevAttrMaxSharedMemoryPerBlockOptin)";
+    case REFUSE_TOK_HEADS:
+      return "kernel 5 takes heads whose width (256 / num_heads) is a whole number of "
+             "32-column warp passes: 1, 2, 4 or 8 heads";
     default:
       return nullptr;
   }

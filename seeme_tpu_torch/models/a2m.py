@@ -17,8 +17,9 @@ text: `MotionVae` over 60 frames of 150 rot6d features, a token-concat
     as [zeros; token] when guidance > 1; the whole reverse process is one
     launch of `csrc/ddim_tok.cu` (`ops/denoiser_fused.py::ddim_fused_tok`,
     kernel 5; its plain version on the CPU), then the decode. With
-    `use_fused` off (`:125`), or more than one head, which the kernel does
-    not take, it runs the `ddim_sample` loop over the eager denoiser;
+    `use_fused` off (`:125`), or more than one head (this route keeps
+    kernel 5 at one head), it runs the `ddim_sample` loop over the eager
+    denoiser;
   * `feats_to_joints` (`:158-164`): `core/rotation2xyz.py` over the
     system's SMPL body.
 

@@ -17,7 +17,7 @@ SMPL joints, global-orientation quaternions). The reverse process is one
 fused DDIM kernel (kernel 3 for the MD stack, kernel 5 for the
 token-concat one) where `seeme_tpu/models/seeme.py:506-513` takes its
 fused kernel: `use_fused`, eta 0, epsilon prediction, and one head (the
-kernels' attention is one head; kernel 5 also at most 8 condition tokens,
+JAX kernels' attention is one head; kernel 5 also at most 8 condition tokens,
 kernel 3 any count its shared memory holds, where the JAX route stops at
 8 for its VMEM); every other configuration runs the `ddim_sample` loop
 over the eager denoiser, as the JAX package's scan does. On the card the fused wrappers launch their CUDA

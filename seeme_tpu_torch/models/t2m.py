@@ -14,10 +14,10 @@ shipped config) runs over the padded per-frame features.
     target is masked past each length (`:151-187`);
   * `sample` (`:190-268`): classifier-free guidance doubles the condition
     as [zeros; text] (and a `cond_mask` with it). A model with a VAE, the
-    token-concat arch, one head, at most `TOK_MAX_COND` condition tokens,
-    no mask and `use_fused` (`:229-231`) runs the whole reverse process in
-    one launch of
-    `csrc/ddim_tok.cu` (`ddim_fused_tok`; on the CPU its plain version);
+    token-concat arch, at most `TOK_MAX_COND` condition tokens, no mask and
+    `use_fused` (`:229-231`) runs the whole reverse process in one launch
+    of `csrc/ddim_tok.cu` (`ddim_fused_tok`, its attention in the model's
+    `num_heads`; on the CPU its plain version);
     every other model (the token text modes, `vae_type="no"`, trans_dec)
     runs the `ddim_sample` loop over the eager denoiser, as the JAX
     package's does;
@@ -128,17 +128,18 @@ class T2MSystem(nn.Module):
         key = tensor_versions(self.denoiser)
         if self._kernel_operands is None or self._kernel_operands[0] != key:
             sd = module_state(self.denoiser)
-            self._kernel_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers, False)))
+            self._kernel_operands = (key, (sd, KernelWeights(sd, self.cfg.num_layers, False,
+                                                             self.cfg.num_heads)))
         return self._kernel_operands[1]
 
     def takes_kernel(self, n_cond: int, cond_mask: Optional[torch.Tensor]) -> bool:
         """Whether `sample` runs the token kernel: the pooled VAE model, at
-        any number of latent tokens, unless `use_fused` is off
+        any number of latent tokens and heads, unless `use_fused` is off
         (`seeme_tpu/models/t2m.py:225-250`); a shape the kernel cannot take
         raises there, naming the limit."""
         cfg = self.cfg
         return (cfg.use_fused and not self.diffusion_only and cfg.arch == "trans_enc"
-                and cfg.num_heads == 1 and n_cond <= TOK_MAX_COND and cond_mask is None)
+                and n_cond <= TOK_MAX_COND and cond_mask is None)
 
     def encode_captions(self, batch: Dict) -> Dict:
         """A host batch with its captions replaced by `text_emb` (and, in the

@@ -41,9 +41,9 @@ SIGNATURES = {
     "pointnet_input_block": [_P] * 10 + [_I] * 3 + [_P],
     "pointnet_split_block": [_P] * 8 + [_I] * 3 + [_P],
     "ddim_md": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
-    "ddim_tok": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "ddim_tok": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     "ddim_md_info": [_I] * 8 + [_P],
-    "ddim_tok_info": [_I] * 6 + [_P],
+    "ddim_tok_info": [_I] * 7 + [_P],
     "pointnet_info": [_I, _I, _P],
 }
 BUILD_TIMEOUT = 600  # seconds for the compiles together, and again for the link

@@ -6,8 +6,9 @@
   step-invariant condition projections hoisted (`md_step_invariants`); one
   latent token takes the T=1 layer (`_md_layer_t1`), more the general one
   (`_md_layer`), as the JAX twin branches. md_trans=False: the plain
-  post-norm GELU stack over [x; time; cond], keeping the first T rows.
-  Single head, as the JAX twin.
+  post-norm GELU stack over [x; time; cond], keeping the first T rows,
+  its attention in `num_heads` heads (the JAX twin's is one head at any
+  count).
 * `ddim_fused_plain`: `diffusion/sampling.py::ddim_sample` (eta 0,
   epsilon prediction, CFG mix) over `denoiser_apply_pure`, for either block
   type, with the per-window precompute of the kernels.
@@ -18,7 +19,8 @@
   steps, all layers, the CFG mix and the
   DDIM update in one kernel launched as clusters of `CLUSTER_CTAS` CTAs that
   split every weight matrix by columns (`csrc/ddim_common.cuh`; a width
-  that does not split is refused), after the per-window precompute
+  that does not split is refused; the token kernel splits a feed-forward
+  wider than the latent by depth), after the per-window precompute
   (`_window_precompute`: condition projection and every step's time token,
   plus `md_step_invariants` for the MD stack) in PyTorch, as the JAX
   package's `ddim_fused_grid` does in XLA. The TPU's grid variant differs
@@ -181,13 +183,19 @@ def _md_layer(sd: StateDict, name: str, x: torch.Tensor, inv: Dict,
     return x + _stylization_eo(sd, f"{ffn}.proj_out", h, ffn_eo)
 
 
-def _encoder_layer(sd: StateDict, name: str, x: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(sd: StateDict, name: str, x: torch.Tensor,
+                   num_heads: int = 1) -> torch.Tensor:
     """Post-norm GELU encoder layer over each sample's tokens (B, S, D),
-    single-head attention within the sample (`denoiser_fused.py:94-146`)."""
+    attention within the sample in `num_heads` heads, each over its slice of
+    the width (`denoiser_fused.py:94-146` at one head;
+    `nn/transformer.py::MultiHeadAttention`)."""
     (wq, bq), (wk, bk), (wv, bv) = _qkv(sd, f"{name}.self_attn")
-    q, k, v = F.linear(x, wq, bq), F.linear(x, wk, bk), F.linear(x, wv, bv)
-    attn = torch.softmax(q @ k.transpose(1, 2) / math.sqrt(x.shape[-1]), dim=-1)
-    x = _ln(sd, f"{name}.norm1", x + _lin(sd, f"{name}.self_attn.out_proj", attn @ v))
+    B, S, D = x.shape
+    heads = lambda t: t.view(B, S, num_heads, D // num_heads).transpose(1, 2)  # noqa: E731
+    q, k, v = (heads(F.linear(x, w, b)) for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+    attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(D // num_heads), dim=-1)
+    out = (attn @ v).transpose(1, 2).reshape(B, S, D)
+    x = _ln(sd, f"{name}.norm1", x + _lin(sd, f"{name}.self_attn.out_proj", out))
     h = _lin(sd, f"{name}.linear2", F.gelu(_lin(sd, f"{name}.linear1", x)))
     return _ln(sd, f"{name}.norm2", x + h)
 
@@ -224,18 +232,22 @@ def _project_cond(sd: StateDict, cond: torch.Tensor) -> torch.Tensor:
 def denoiser_apply_pure(sd: StateDict, x: torch.Tensor, timesteps: torch.Tensor | None,
                         cond: torch.Tensor | None, num_layers: int = 5, md_trans: bool = True,
                         md_invariants: Dict | None = None,
-                        time_token: torch.Tensor | None = None) -> torch.Tensor:
+                        time_token: torch.Tensor | None = None,
+                        num_heads: int = 1) -> torch.Tensor:
     """Plain twin of `Denoiser.forward` for x (B, T, D). md_invariants, from
     `md_step_invariants`, may carry the MD stack's condition invariants; then
     cond is unused. time_token (B, 1, D), or (1, 1, D) for every row, the
-    embedded time token, replaces the timestep MLP; then timesteps is unused."""
+    embedded time token, replaces the timestep MLP; then timesteps is unused.
+    num_heads: the token-concat stack's attention heads (the MD stack's
+    plain twin is one head, as kernel 3)."""
     T = x.shape[1]
     emb = time_token if time_token is not None else _time_tokens(sd, timesteps)[:, None]
     pe = sd["query_pos.pe"][:, 0]
     if not md_trans:
         xseq = torch.cat([x, emb.expand(x.shape[0], -1, -1), _project_cond(sd, cond)], dim=1)
         h = xseq + pe[: xseq.shape[1]][None]
-        return _uskip(sd, h, num_layers, lambda name, h: _encoder_layer(sd, name, h))[:, :T]
+        return _uskip(sd, h, num_layers,
+                      lambda name, h: _encoder_layer(sd, name, h, num_heads))[:, :T]
     inv = md_invariants
     if inv is None:
         inv = md_step_invariants(sd, _project_cond(sd, cond), num_layers)
@@ -258,12 +270,14 @@ def ddim_schedule_arrays(schedule, num_steps: int, device="cpu"):
 
 def ddim_fused_plain(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
                      schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
-                     guidance_scale: float = 1.0, md_trans: bool = True) -> torch.Tensor:
+                     guidance_scale: float = 1.0, md_trans: bool = True,
+                     num_heads: int = 1) -> torch.Tensor:
     """The `ddim_sample` loop over `denoiser_apply_pure`, with the kernels'
     per-window precompute (every step's time token; the condition
     projection; the MD stack's condition invariants) and, as the kernels
     make them, the time token's own projections once a step; cond is
-    [uncond; cond] (2B rows) when guidance_scale > 1."""
+    [uncond; cond] (2B rows) when guidance_scale > 1; num_heads as
+    `denoiser_apply_pure`'s."""
     with span("sample.precompute"):
         timesteps = ddim_schedule_arrays(schedule, num_steps, z_init.device)[0]
         cond_p, time_tokens = _window_precompute(sd, cond, timesteps)
@@ -275,7 +289,8 @@ def ddim_fused_plain(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
 
     def denoiser(x, t):
         token = tokens[int(t[0])].view(1, 1, -1)
-        return denoiser_apply_pure(sd_steps, x, None, cond_p, num_layers, md_trans, inv, token)
+        return denoiser_apply_pure(sd_steps, x, None, cond_p, num_layers, md_trans, inv, token,
+                                   num_heads)
 
     return ddim_sample(denoiser, schedule, tuple(z_init.shape), num_steps, guidance_scale,
                        z_init=z_init)
@@ -291,10 +306,12 @@ class KernelWeights:
     contiguous (in, out) f32 tensor, and a device table of their pointers in
     the order of the enum in `csrc/ddim_md.cuh` (md_trans=True, 32 per layer)
     or `csrc/ddim_tok.cuh` (md_trans=False, its first 16, per layer), then the
-    skip_linears, the final norm and query_pos row 0."""
+    skip_linears, the final norm and query_pos row 0; and the head count the
+    token kernel's attention takes (the MD kernel's is one head)."""
 
     @torch.no_grad()
-    def __init__(self, sd: StateDict, num_layers: int, md_trans: bool = True):
+    def __init__(self, sd: StateDict, num_layers: int, md_trans: bool = True,
+                 num_heads: int = 1):
         t = lambda x: x.detach().t().contiguous().clone()  # noqa: E731
         c = lambda x: x.detach().contiguous().clone()  # noqa: E731
 
@@ -336,6 +353,7 @@ class KernelWeights:
         self.tensors = tensors
         self.num_layers = num_layers
         self.md_trans = md_trans
+        self.num_heads = num_heads
         self.d_model = sd["encoder.norm.weight"].shape[0]
         first = layer_names(num_layers)[0]
         # FFN widths: an MD layer's sa_block ReLU FFN and stylized GELU FFN;
@@ -349,8 +367,9 @@ class KernelWeights:
 
 def _check_call(name: str, sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
                 num_layers: int, guidance_scale: float, weights: KernelWeights | None,
-                md_trans: bool) -> KernelWeights:
-    """Raise on any input the kernels do not take; return the weights."""
+                md_trans: bool, num_heads: int = 1) -> KernelWeights:
+    """Raise on any input the kernels do not take; return the weights (built
+    here at num_heads when none are given)."""
     B, T, D = z_init.shape
     if cond.dim() != 3 or cond.shape[0] != (2 * B if guidance_scale > 1.0 else B):
         raise ValueError(f"{name}: cond of shape {tuple(cond.shape)} for batch {B}"
@@ -359,7 +378,7 @@ def _check_call(name: str, sd: StateDict, cond: torch.Tensor, z_init: torch.Tens
         if x.device != z_init.device or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous float32 on {z_init.device}")
     if weights is None:
-        weights = KernelWeights(sd, num_layers, md_trans)
+        weights = KernelWeights(sd, num_layers, md_trans, num_heads)
     if (weights.num_layers != num_layers or weights.d_model != D
             or weights.md_trans != md_trans or weights.tensors[0].device != z_init.device):
         raise ValueError(f"{name}: kernel weights do not match the call")
@@ -393,7 +412,8 @@ def cluster_launch(md_trans: bool, batch: int, n_cond: int, weights: KernelWeigh
         err = lib.ddim_md_info(batch, tokens, n_cond, weights.d_model, weights.sa_ff, weights.ff,
                                weights.num_layers, cfg, info)
     else:
-        err = lib.ddim_tok_info(batch, tokens, n_cond, weights.ff, weights.num_layers, cfg, info)
+        err = lib.ddim_tok_info(batch, tokens, n_cond, weights.ff, weights.num_layers,
+                                weights.num_heads, cfg, info)
     _build.check(err, "ddim_md_info" if md_trans else "ddim_tok_info")
     return dict(zip(("cluster", "grid", "active_clusters", "smem_bytes", "samples"), info))
 
@@ -488,19 +508,24 @@ TOK_MAX_COND = 8  # condition tokens the token kernel takes, as the JAX fused ro
 
 def ddim_fused_tok(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
                    schedule: DiffusionSchedule, num_steps: int, num_layers: int = 5,
-                   guidance_scale: float = 1.0,
-                   weights: KernelWeights | None = None) -> torch.Tensor:
+                   guidance_scale: float = 1.0, weights: KernelWeights | None = None,
+                   num_heads: int = 1) -> torch.Tensor:
     """Whole DDIM reverse process over the plain token-concat stack
-    (md_trans=False, the JAX package's `ddim_fused(md_trans=False)`): as
-    `ddim_fused`, with cond (B or 2B, NC <= 8, text_dim); the kernel refuses
-    more than 30 token rows a sample (T + 1 + NC, twice that under CFG).
-    Launches `csrc/ddim_tok.cu` for CUDA tensors, counted in
+    (md_trans=False, the JAX package's `ddim_fused(md_trans=False)`, here
+    with the model's `num_heads`): as `ddim_fused`, with cond (B or 2B, NC
+    <= 8, text_dim); the kernel refuses more than 30 token rows a sample (T
+    + 1 + NC, twice that under CFG) and heads narrower than 32 columns or
+    not dividing 256; `_check_split` caps the feed-forward at 1024. The head
+    count is the weights'; num_heads only builds weights when none are
+    given. Launches `csrc/ddim_tok.cu` for CUDA tensors, counted in
     `ddim_fused_tok.launches`."""
+    if weights is not None:
+        num_heads = weights.num_heads
     if z_init.device.type == "cpu":
         return ddim_fused_plain(sd, cond, z_init, schedule, num_steps, num_layers,
-                                guidance_scale, md_trans=False)
+                                guidance_scale, md_trans=False, num_heads=num_heads)
     weights = _check_call("ddim_fused_tok", sd, cond, z_init, num_layers, guidance_scale,
-                          weights, False)
+                          weights, False, num_heads)
     dev = z_init.device
     B, T, D = z_init.shape
     NC = cond.shape[1]
@@ -511,8 +536,6 @@ def ddim_fused_tok(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
     if D != 256:
         raise ValueError(f"ddim_fused_tok: latent width {D} is not 256")
     _check_split("ddim_fused_tok", weights.ff)
-    if weights.ff > D:
-        raise ValueError(f"ddim_fused_tok: feed-forward width {weights.ff} is over {D}")
     lib = _build.load_library()
     with torch.no_grad(), span("sample.precompute"):
         timesteps, acp_t, acp_prev = ddim_schedule_arrays(schedule, num_steps, dev)
@@ -527,8 +550,8 @@ def ddim_fused_tok(sd: StateDict, cond: torch.Tensor, z_init: torch.Tensor,
         _build.check(lib.ddim_tok(
             z0.data_ptr(), z_out.data_ptr(), cond_in.data_ptr(), time_in.data_ptr(),
             weights.table.data_ptr(), acp_t.data_ptr(), acp_prev.data_ptr(), pe_lat.data_ptr(),
-            B, NC, weights.ff, num_layers, num_steps, T, float(guidance_scale), cfg,
-            _build.stream_ptr(dev)), "ddim_fused_tok", _tokens(T, NC, cfg))
+            B, NC, weights.ff, num_layers, weights.num_heads, num_steps, T, float(guidance_scale),
+            cfg, _build.stream_ptr(dev)), "ddim_fused_tok", _tokens(T, NC, cfg))
     _count(ddim_fused_tok, T)
     return z_out.reshape(B, T, D)
 

@@ -13,7 +13,11 @@ kernel at 1, 3 and 8 condition tokens (up to 20 token rows a cluster) and at
 the action-to-motion shape (text width 256, no emb_proj); both DDIM kernels
 at 2 and 10 latent tokens (their general instances) and the token counts
 they refuse; a SEE-ME model with the token-concat stack (`md_trans=False`,
-the stage-1 ego presets') through kernel 5 at 1-3 condition tokens; and widths that do not split into the cluster's column slices. A stage-2 train step on the
+the stage-1 ego presets') through kernel 5 at 1-3 condition tokens; kernel
+5 with 2, 4 and 8 heads and at feed-forward widths 512 and 1024 (MLD's
+published denoiser at batch 64: one wave of 13 clusters of 5 samples in
+its wide layout), its one-head launch plans as before the wide layout, the
+head counts it refuses; and widths that do not split into the cluster's column slices. A stage-2 train step on the
 card agrees with the same step on the CPU. Both PointNet kernels again at
 hidden width 256 (128 points a CTA), at batch 1, 3 and 64 and tiles filled
 partly or not at all, and the ProHMR-Scene and EgoHMR evaluation paths on
@@ -387,16 +391,103 @@ def test_multi_token_limits_raise(cuda):
 def test_cluster_launch(cuda):
     """Both DDIM kernels launch as clusters of 8 CTAs, and carry enough
     samples a cluster that a batch of 17 runs in one wave of the clusters
-    that fit on the card at once."""
+    that fit on the card at once; at MLD's widths (9 layers, 4 heads, ff
+    1024) and at each width kernel 5's wide layout takes, batch 64 under CFG
+    runs in one wave of 13 clusters of 5 samples (30 token rows)."""
     md = dfu.KernelWeights(seeded(Denoiser((1, 256), ff_size=128, num_layers=5), 3,
                                   cuda).state_dict(), 5)
     tok = dfu.KernelWeights(t2m_denoiser(cuda), 5, md_trans=False)
-    for md_trans, w, n_cond, guidance in ((True, md, 2, 1.0), (True, md, 2, 2.5),
-                                          (False, tok, 1, 1.0), (False, tok, 1, 7.5)):
-        info = dfu.cluster_launch(md_trans, 17, n_cond, w, guidance)
+    wide = [dfu.KernelWeights(mld_denoiser(cuda, heads, ff), 9, md_trans=False, num_heads=heads)
+            for heads, ff in ((4, 1024), (2, 512), (1, 1024))]
+    for md_trans, w, n_cond, guidance, batch in (
+            (True, md, 2, 1.0, 17), (True, md, 2, 2.5, 17), (False, tok, 1, 1.0, 17),
+            (False, tok, 1, 7.5, 17), *((False, w, 1, 7.5, 64) for w in wide)):
+        info = dfu.cluster_launch(md_trans, batch, n_cond, w, guidance)
         clusters = info["grid"] // info["cluster"]
         assert info["cluster"] == dfu.CLUSTER_CTAS == 8 and info["grid"] % 8 == 0
         assert 1 <= clusters <= info["active_clusters"] and info["smem_bytes"] <= 227 * 1024
+        if batch == 64:
+            assert info["samples"] == 5 and clusters == 13
+
+
+def mld_denoiser(device, heads=4, ff=1024, layers=9, text_dim=768):
+    """A token-concat denoiser at MLD's published HumanML3D widths by
+    default (latent 256, 9 layers, 4 heads, ff 1024, text 768)."""
+    den = Denoiser((1, 256), ff_size=ff, num_layers=layers, num_heads=heads,
+                   text_encoded_dim=text_dim, md_trans=False)
+    return seeded(den, 12, device).state_dict()
+
+
+# heads, ff, layers, batch, guidance, latent tokens, steps: MLD's published
+# denoiser at batch 64 (the wide layout, 13 clusters of 5 samples); 2 heads
+# at ff 512; one head at ff 1024; several heads in the narrow layout (ff <=
+# 256); 3 rows a cluster (batch 1 without CFG); the general instance (T = 2)
+HEAD_CASES = [(4, 1024, 9, 64, 7.5, 1, 50), (2, 512, 9, 64, 7.5, 1, 10),
+              (2, 512, 5, 17, 1.0, 1, 10), (1, 1024, 9, 5, 7.5, 1, 10),
+              (4, 128, 5, 17, 7.5, 1, 10), (8, 256, 5, 3, 7.5, 1, 10),
+              (4, 1024, 9, 1, 1.0, 1, 10), (4, 1024, 9, 3, 7.5, 2, 10)]
+
+
+@pytest.mark.parametrize("heads,ff,layers,batch,guidance,tokens,steps", HEAD_CASES)
+def test_ddim_tok_kernel_heads(cuda, heads, ff, layers, batch, guidance, tokens, steps):
+    """Kernel 5 with several heads, and with a feed-forward wider than the
+    latent (split by depth over the cluster), against its plain twin at the
+    same head count: one launch, within 1e-3 of max |z|."""
+    sd = mld_denoiser(cuda, heads, ff, layers)
+    g = torch.Generator().manual_seed(13)
+    z0 = torch.randn(batch, tokens, 256, generator=g).to(cuda)
+    cond = torch.randn((2 if guidance > 1 else 1) * batch, 1, 768, generator=g).to(cuda)
+    if guidance > 1:
+        cond[:batch] = 0.0
+    weights = dfu.KernelWeights(sd, layers, md_trans=False, num_heads=heads)
+    sched = (DiffusionSchedule(), steps)
+    before = dfu.ddim_fused_tok.launches
+    z = dfu.ddim_fused_tok(sd, cond, z0, *sched, num_layers=layers, guidance_scale=guidance,
+                           weights=weights)
+    assert dfu.ddim_fused_tok.launches == before + 1 and z.shape == z0.shape
+    ref = dfu.ddim_fused_plain(sd, cond, z0, *sched, num_layers=layers, guidance_scale=guidance,
+                               md_trans=False, num_heads=heads)
+    assert rel_err(z, ref) < 1e-3
+
+
+# (batch, latent tokens, condition tokens, guidance) -> (samples a cluster,
+# shared memory bytes a CTA) that kernel 5 planned at one head, 5 layers and
+# ff 128 before it took several heads and the wide layout (NVIDIA H100 80GB
+# HBM3, 15 clusters of 8 at once); the narrow layout keeps them
+ONE_HEAD_PLANS = {(1, 1, 1, 1.0): (1, 26672), (1, 1, 1, 7.5): (1, 52304),
+                  (1, 1, 3, 1.0): (1, 43120), (1, 1, 3, 7.5): (1, 85200),
+                  (1, 1, 8, 1.0): (1, 84368), (1, 1, 8, 7.5): (1, 147232),
+                  (1, 2, 1, 1.0): (1, 36928), (1, 2, 1, 7.5): (1, 71808),
+                  (1, 2, 3, 1.0): (1, 53392), (1, 2, 3, 7.5): (1, 104736),
+                  (1, 2, 8, 1.0): (1, 94704), (1, 2, 8, 7.5): (1, 164816),
+                  (1, 10, 1, 1.0): (1, 119360), (1, 10, 1, 7.5): (1, 203904),
+                  (1, 10, 3, 1.0): (1, 135952), (1, 10, 8, 1.0): (1, 158128),
+                  (17, 1, 1, 1.0): (2, 53328), (17, 1, 1, 7.5): (2, 104592),
+                  (17, 1, 3, 1.0): (2, 86224), (17, 1, 3, 7.5): (2, 149904),
+                  (17, 1, 8, 1.0): (2, 148256), (17, 1, 8, 7.5): (1, 147232),
+                  (17, 2, 1, 1.0): (2, 73856), (17, 2, 1, 7.5): (2, 143616),
+                  (17, 2, 3, 1.0): (2, 106784), (17, 2, 3, 7.5): (2, 184896),
+                  (17, 2, 8, 1.0): (2, 166864), (17, 2, 8, 7.5): (1, 164816),
+                  (17, 10, 1, 1.0): (2, 214144), (17, 10, 1, 7.5): (1, 203904),
+                  (17, 10, 3, 1.0): (1, 135952), (17, 10, 8, 1.0): (1, 158128),
+                  (64, 1, 1, 1.0): (5, 133312), (64, 1, 1, 7.5): (5, 230768),
+                  (64, 1, 3, 1.0): (5, 189952), (64, 1, 3, 7.5): (3, 224864),
+                  (64, 1, 8, 1.0): (3, 222384), (64, 1, 8, 7.5): (1, 147232),
+                  (64, 2, 1, 1.0): (5, 164160), (64, 2, 1, 7.5): (3, 190848),
+                  (64, 2, 3, 1.0): (4, 188992), (64, 2, 3, 7.5): (2, 184896),
+                  (64, 2, 8, 1.0): (2, 166864), (64, 2, 8, 7.5): (1, 164816),
+                  (64, 10, 1, 1.0): (2, 214144), (64, 10, 1, 7.5): (1, 203904),
+                  (64, 10, 3, 1.0): (1, 135952), (64, 10, 8, 1.0): (1, 158128)}
+
+
+def test_one_head_plans_unchanged(cuda):
+    """The narrow layout plans every one-head shape as before: the same
+    samples a cluster and shared memory a CTA."""
+    tok = dfu.KernelWeights(t2m_denoiser(cuda), 5, md_trans=False)
+    got = {(b, t, nc, g): (lambda i: (i["samples"], i["smem_bytes"]))(
+               dfu.cluster_launch(False, b, nc, tok, g, tokens=t))
+           for b, t, nc, g in ONE_HEAD_PLANS}
+    assert got == ONE_HEAD_PLANS
 
 
 def t2m_denoiser(device, text_dim=768):
@@ -496,6 +587,10 @@ def test_ddim_tok_refuses_bad_input(cuda):
     with pytest.raises(ValueError, match="do not match"):
         dfu.ddim_fused_tok(sd, torch.randn(2, 1, 768, device=cuda), z0, *sched, num_layers=5,
                            weights=dfu.KernelWeights(sd, 3, md_trans=False))
+    for heads in (3, 16):  # 256 / 3 is no whole width; 16 heads are 16 columns wide
+        with pytest.raises(ValueError, match="kernel 5 takes heads whose width"):
+            dfu.ddim_fused_tok(sd, torch.randn(2, 1, 768, device=cuda), z0, *sched,
+                               num_layers=5, num_heads=heads)
     assert dfu.ddim_fused_tok.launches == before
 
 

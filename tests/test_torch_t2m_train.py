@@ -178,8 +178,9 @@ def test_reconstruct_matches_jax(jdm):
 def test_sample_routes_match_jax(case, jdm, monkeypatch):
     """`sample(z_init=...)` against the JAX `sample(z_init=...)` (its scan
     on the CPU): the pooled VAE model through the token kernel's plain
-    version, the token mode (a mask doubled under CFG) and the
-    diffusion-only model through the loop; the route taken is counted."""
+    version (at 1, 2 and 4 heads, the multi-head cases with a feed-forward
+    wider than the latent), the token mode (a mask doubled under CFG) and
+    the diffusion-only model through the loop; the route taken is counted."""
     from seeme_tpu_torch.models import t2m as t2m_mod
 
     kw, tokens, kernel = SAMPLE_CASES[case]
@@ -204,9 +205,15 @@ def test_sample_routes_match_jax(case, jdm, monkeypatch):
 
 
 def test_more_than_eight_tokens_take_the_loop(jdm):
+    """The token kernel takes up to eight pooled condition tokens at any
+    head count; more tokens, or a mask, take the loop."""
     system, _, _ = build(jdm)
     assert system.takes_kernel(8, None) and not system.takes_kernel(9, None)
     assert not system.takes_kernel(1, torch.ones(B, 1, dtype=torch.bool))
+    for heads in (2, 4):
+        multi = T2MSystem(T2MConfig(**{**SMALL, "num_heads": heads}), jdm.mean, jdm.std,
+                          device="cpu")
+        assert multi.takes_kernel(8, None) and not multi.takes_kernel(9, None)
     out = system.sample(torch.randn(2, 12, TEXT), generator=torch.Generator().manual_seed(0))
     assert out.shape == (2, T, 263) and torch.isfinite(out).all()
 

@@ -140,6 +140,9 @@ LOSS_CASES = {
 SAMPLE_CASES = {
     "kernel-g1": ({"guidance_scale": 1.0}, False, True),
     "kernel-g7.5": ({}, False, True),
+    "kernel-heads2-ff64": ({"num_heads": 2, "ff_size": 2 * W}, False, True),
+    "kernel-heads4-ff128-g1": ({"num_heads": 4, "ff_size": 4 * W, "guidance_scale": 1.0}, False,
+                               True),
     "scan-tokens": ({}, True, False),
     "scan-novae-dec": ({"vae_type": "no", "arch": "trans_dec", "num_layers": 2, "num_heads": 2},
                        False, False),
