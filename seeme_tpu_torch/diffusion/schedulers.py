@@ -123,6 +123,7 @@ class DiffusionSchedule:
         """One ancestral DDPM update x_t -> x_{t-1} with the 'fixed_small'
         variance (`seeme_tpu/diffusion/schedulers.py:152-172`); no noise at
         t = 0. The coefficients are computed in f32, as the JAX package does."""
+        count("host_sync.ddpm_step_scalars", 2)   # two copies from the host, on the card waits
         acp_t = sample.new_tensor(float(self.alphas_cumprod[t]))
         acp_prev = sample.new_tensor(float(self.alphas_cumprod[t - 1]) if t > 0 else 1.0)
         beta_t = 1.0 - acp_t / acp_prev

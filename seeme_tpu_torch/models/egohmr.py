@@ -13,6 +13,12 @@ predictions are fused by visibility: visible joints keep the
 former, the others the latter (`egohmr.py:263-278`). A final `forward` at
 t = 0 gives the pose, the betas (from the unmasked features) and SMPL.
 
+Under a torch profiler `sample` records the port's spans
+(`utils/profiling.py`): `encode` (`encode.image`, the ResNet50;
+`encode.pointnet`), `sample` (`sample.denoise`, the steps) and `joints` (the
+final forward, its SMPL as `joints.fk`); the OpenPose index copy of each
+`visibility_mask` counts as `host_sync.visibility_index`.
+
 The scene encoder runs through the fused PointNet kernels on the card. The
 image and the scene are encoded once per `sample` call (the JAX package
 encodes them three times with identical results); the two predictions of a
@@ -50,6 +56,7 @@ from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
 from ..ops.pointnet_fused import FusedPointnet
+from ..utils.profiling import count, span
 from .prohmr import JOINTS_TO_IGN, SCENE_HIDDEN, SMPL_TO_OPENPOSE, cam_features
 
 # OpenPose-25 joint whose confidence gives each SMPL joint's visibility
@@ -184,14 +191,17 @@ class EgoHmr(nn.Module):
     # ------------------------------------------------------------- encoders
     def encode_scene(self, pcd: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) points -> (B, 512) through the fused PointNet blocks."""
-        return self._fused_scene(self.scene_enc, pcd)
+        with span("encode.pointnet"):
+            return self._fused_scene(self.scene_enc, pcd)
 
     def encode(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The timestep-independent features: image (B, 2048) and, in the
         conditioning's order, [scene | translation | camera] (B, 646 as shipped)."""
         rest = [self.encode_scene(batch["scene_pcd"]),
                 self.transl_enc(batch["smpl_params"]["transl"]), cam_features(batch, self.cfg)]
-        return {"img": self.backbone(batch["img"]), "rest": torch.cat(rest, dim=-1)}
+        with span("encode.image"):
+            img = self.backbone(batch["img"])
+        return {"img": img, "rest": torch.cat(rest, dim=-1)}
 
     # ----------------------------------------------------------- conditioning
     def visibility_mask(self, batch: Dict) -> torch.Tensor:
@@ -199,6 +209,7 @@ class EgoHmr(nn.Module):
         confidences; the pelvis always visible (`forward:209-213`)."""
         vis = batch["orig_keypoints_2d"][:, :, -1] > 0
         vis[:, 8] = True
+        count("host_sync.visibility_index")   # a copy from the host, on the card a wait
         return vis[:, torch.as_tensor(OPENPOSE_TO_SMPL, device=vis.device)]
 
     def conditioning(self, enc: Dict, vis_mask: torch.Tensor) -> torch.Tensor:
@@ -259,7 +270,9 @@ class EgoHmr(nn.Module):
         rotmats = rot6d_to_rotmat(pose_6d.reshape(-1, 6), mode="diffusion").reshape(B, 24, 3, 3)
         # betas from the unmasked image, scene, translation and camera features
         betas = self.beta_layer(torch.cat([enc["img"], enc["rest"]], dim=-1)) + self.init_betas
-        smpl_out = smpl_forward(self.smpl, betas, rotmats[:, 1:], rotmats[:, :1], pose2rot=False)
+        with span("joints.fk"):
+            smpl_out = smpl_forward(self.smpl, betas, rotmats[:, 1:], rotmats[:, :1],
+                                    pose2rot=False)
         return {
             "pred_x_start": pred_x0,
             "vis_mask_smpl": vis_mask,
@@ -365,21 +378,26 @@ class EgoHmr(nn.Module):
         B = batch["img"].shape[0]
         sched = self.sample_schedule
         S = sched.num_train_timesteps
-        enc = self.encode(batch)
-        vis_mask = self.visibility_mask(batch)
-        cond = self.conditioning(enc, vis_mask)
-        cond_uncond = self.mask_cond(cond)
-        vis6 = vis_mask.repeat_interleave(6, dim=-1)
+        with span("encode"):
+            enc = self.encode(batch)
         dev = self.device
 
         def draw():
             return torch.randn(B, 144, generator=generator, device=dev)
 
-        x = draw() if x_init is None else x_init
-        for i, t in enumerate(range(S - 1, -1, -1)):
-            model_t = torch.full((B,), int(self.timestep_map[t]), dtype=torch.long, device=dev)
-            pred = self._fused_x0(cond, cond_uncond, vis6, x, model_t)
-            eps = (noise[i] if noise is not None else draw()) if t > 0 else None
-            x = sched.ddpm_step(pred, t, x, eps)
+        with span("sample"):
+            vis_mask = self.visibility_mask(batch)
+            cond = self.conditioning(enc, vis_mask)
+            cond_uncond = self.mask_cond(cond)
+            vis6 = vis_mask.repeat_interleave(6, dim=-1)
+            x = draw() if x_init is None else x_init
+            with span("sample.denoise"):
+                for i, t in enumerate(range(S - 1, -1, -1)):
+                    model_t = torch.full((B,), int(self.timestep_map[t]), dtype=torch.long,
+                                         device=dev)
+                    pred = self._fused_x0(cond, cond_uncond, vis6, x, model_t)
+                    eps = (noise[i] if noise is not None else draw()) if t > 0 else None
+                    x = sched.ddpm_step(pred, t, x, eps)
         final_t = torch.zeros(B, dtype=torch.long, device=dev)
-        return self.forward(batch, x, final_t, eval_with_uncond=True, enc=enc)
+        with span("joints"):
+            return self.forward(batch, x, final_t, eval_with_uncond=True, enc=enc)

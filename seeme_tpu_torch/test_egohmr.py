@@ -9,7 +9,9 @@ visibility-guided fusion over the test split, and MPJPE / PA-MPJPE / V2V
 plus MPJPE over the visible and the invisible joints, in mm. The noise comes
 from one generator seeded with 1, drawn batch by batch: each batch's
 initial sample, then one draw a step for every step but the last.
-`--checkpoint` is a torch state dict with the reference's key names
+`evaluate_batch` is one batch's work (sampling, the ground truth, the
+read-backs and the metrics), which the benchmark's `egohmr.test` cell runs
+too. `--checkpoint` is a torch state dict with the reference's key names
 (`best_model_mpjpe_vis.pt`, or `python -m seeme_tpu_torch.train_egohmr`'s
 `model.pt`; `smpl.*` and `criterion.*` left out); without
 one the seeded random init is evaluated. It runs on the card unless
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ._device import full_float32, resolve_device
@@ -30,8 +33,28 @@ from .data.synthetic import to_torch
 from .eval.hmr_metrics import HmrMetrics
 from .models.egohmr import EgoHmr, EgoHmrConfig
 from .test_prohmr_scene import ground_truth, load_checkpoint, parse_args
+from .utils.profiling import count, span
 
 NOISE_SEED = 1
+
+
+def evaluate_batch(model: EgoHmr, batch: Dict, generator: Optional[torch.Generator],
+                   metrics: HmrMetrics, n_valid: int) -> Dict:
+    """One batch: `EgoHmr.sample` with `generator`'s draws, the ground truth's
+    SMPL, the first `n_valid` samples read back to the host, and
+    `metrics.update`. Returns `sample`'s output."""
+    out = model.sample(batch, generator=generator)
+    with span("joints"):
+        with span("joints.fk"):
+            gt_j, gt_v = ground_truth(model, batch)
+
+        def host(t: torch.Tensor) -> np.ndarray:
+            count("host_sync.hmr_readback")   # a read-back, on the card a wait
+            return t[:n_valid].cpu().numpy()
+
+        metrics.update(host(out["pred_keypoints_3d"][:, :24]), host(out["pred_vertices"]),
+                       host(gt_j), host(gt_v), host(out["vis_mask_smpl"]))
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -52,12 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     metrics = HmrMetrics()
     with torch.no_grad():
         for batch_np, n_valid in eval_batches(dm, "test", args.batch_size):
-            batch = to_torch(batch_np, dev)
-            out = model.sample(batch, generator=gen)
-            gt_j, gt_v = ground_truth(model, batch)
-            host = lambda t: t[:n_valid].cpu().numpy()  # noqa: E731
-            metrics.update(host(out["pred_keypoints_3d"][:, :24]), host(out["pred_vertices"]),
-                           host(gt_j), host(gt_v), host(out["vis_mask_smpl"]))
+            evaluate_batch(model, to_torch(batch_np, dev), gen, metrics, n_valid)
     result = metrics.compute()
     for k, v in result.items():
         print(f"{k}: {v:.2f} mm")
