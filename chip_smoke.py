@@ -295,6 +295,12 @@ Phases, each printing one line with its seconds as soon as it ends:
      kernel 1 once, never the `ddim_sample` loop), the kernel against its
      plain version (1e-3 of max|z|), its launch plan (13 clusters of 5
      samples, one wave), ms, plain ms and bound (it runs after phase 36);
+ 66. the GCN kernels (`csrc/gcn.cu`) at EgoHMR's widths (B=64, GCN 1024 x
+     4), on phase 19's model and batch: one step and the final prediction
+     against the plain path on the card (1e-4 of max |x|), one hidden conv's
+     ms beside its bound and the split-TF32 floor, its eager block's, a
+     whole step's (2 x 4 + 2 launches), the eager step's and the 50 steps'
+     with the final prediction (it runs after phase 19);
 Phases 6-8, 13-14, 47 and 55-57 time and gate the host route at one step a
 fetch (`HOST_ROUTE`, `HOST_ROUTE_CFG`); the other training phases take the
 card's default route.
@@ -308,7 +314,9 @@ and 5 at T = 2 and 10 as `ddim_md_t2`, `ddim_md_t10`, `ddim_tok_t2`,
 `ddim_tok_t10`, with guidance 2.5 / the preset's shape beside them and the
 T = 1 time of the same phase; their main paths are phases 34-35; kernel 5
 at MLD's widths as `ddim_tok_mld`, 4 heads and ff 1024, with 2 heads and ff
-512 beside it, whose main path is phase 65's `T2MSystem.sample`), the
+512 beside it, whose main path is phase 65's `T2MSystem.sample`; the GCN
+kernels as `gcn_fused`, one hidden conv's numbers with phase 66's step times
+beside them, whose main path is phase 19's `EgoHmr.sample`), the
 card's name and power limit, and, last, `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero at once. Random weights: the seeded init
 plus a seeded perturbation, so the zero-initialized output projections
@@ -333,6 +341,7 @@ BATCH = 64
 SEED = 0
 PEAK_FLOPS = 989e12      # H100 SXM, bf16 tensor cores, dense: what the card can do
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores (bound_f32_ms)
+PEAK_TF32_FLOPS = 494.5e12  # H100 SXM, TF32 tensor cores, dense: the GCN kernels' split scheme
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 SPLIT_PRODUCTS = 3       # the PointNet kernels' bf16 products per f32 product (floor_ms)
 POINTNET_RTOL = 1e-4     # max |kernel - plain| / max |plain|
@@ -412,6 +421,8 @@ def counter_table(pfu, dfu) -> dict:
     hidden width of a PointNet instantiation (the wrappers count launches by
     width too), or a DDIM kernel's latent token count ("tokens", T); None
     counts every launch of the wrapper."""
+    from seeme_tpu_torch.ops import gcn_fused as gfu
+
     return {"pointnet_input_block": (pfu.fused_input_block, 512),
             "pointnet_split_block": (pfu.fused_split_block, 512),
             "ddim_md_t1": (dfu.ddim_fused, ("tokens", 1)),
@@ -422,7 +433,8 @@ def counter_table(pfu, dfu) -> dict:
             "ddim_md_t2": (dfu.ddim_fused, ("tokens", 2)),
             "ddim_md_t10": (dfu.ddim_fused, ("tokens", 10)),
             "ddim_tok_t2": (dfu.ddim_fused_tok, ("tokens", 2)),
-            "ddim_tok_t10": (dfu.ddim_fused_tok, ("tokens", 10))}
+            "ddim_tok_t10": (dfu.ddim_fused_tok, ("tokens", 10)),
+            "gcn_fused": (gfu.gcn_fused, None)}
 
 
 def zero_counters(counters: dict, pfu) -> None:
@@ -1392,6 +1404,11 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
     pointnet_256 = {**none, "pointnet_input_block_h256": 1, "pointnet_split_block_h256": 3}
     smpl = synthetic_smpl(n_verts=6890, seed=SEED)
 
+    def egohmr_counts(cfg, steps):
+        """One EgoHMR `sample`: the scene encode, then 2 x gcn_layers + 2
+        GCN launches each step and for the final prediction."""
+        return {**pointnet_256, "gcn_fused": (2 * cfg.gcn_layers + 2) * (steps + 1)}
+
     def build(cls, cfg, device, seed):
         m = cls(cfg, smpl, device=device, seed=SEED)
         perturb_parameters_(m, torch.Generator().manual_seed(seed))
@@ -1578,8 +1595,9 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
 
     (out, means), counts = counted(egohmr_slice)
     wall = time.perf_counter() - t
-    require(counts == pointnet_256, f"EgoHMR slice launch counts {counts}")
+    require(counts == egohmr_counts(e_cfg, S), f"EgoHMR slice launch counts {counts}")
     record("egohmr_sampling", counts)
+    launches["gcn_fused"] = counts["gcn_fused"]
     check_outputs("EgoHMR", out, {"pred_vertices": (BATCH, 6890, 3),
                                   "pred_keypoints_3d": (BATCH, 45, 3),
                                   "pred_x_start": (BATCH, 144), "vis_mask_smpl": (BATCH, 24)})
@@ -1613,7 +1631,7 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
         parts = {
             "resnet50": lambda: model.backbone(batch["img"]),
             "pointnet": lambda: model.encode_scene(batch["scene_pcd"]),
-            f"gcn_{S}_steps": steps,
+            f"eager_gcn_{S}_steps": steps,
             "smpl": lambda: smpl_forward(model.smpl, rot["betas"], rot["body_pose"],
                                          rot["global_orient"], pose2rot=False),
             "sample": lambda: model.sample(batch, generator=gen),
@@ -1621,6 +1639,13 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
         split_ms = {name: time_ms(fn, 2) for name, fn in parts.items()}
     phase(f"EgoHMR time split (ms, CUDA events, each part alone): "
           f"{json.dumps({k: round(v, 3) for k, v in split_ms.items()})}", t)
+
+    # ---- 66. the GCN kernels at the model's widths, on this batch
+    t = time.perf_counter()
+    with torch.no_grad():
+        kernels.append(gcn_phase(dev, model, enc, vis, x0, gen))
+    phase("GCN kernels against the plain path on the card, timed (the kernels line's "
+          "`gcn_fused` row)", t)
 
     t = time.perf_counter()
     cpu, small_np = small_pair(model, EgoHmr, e_cfg)
@@ -1643,12 +1668,73 @@ def hmr_phases(dev, counted, counters, record, kernels: list, launches: dict) ->
         t = time.perf_counter()
         result, counts = counted(lambda: cli.main(["--batch_size", "16", "--scene_points",
                                                    str(HMR_POINTS)]))
-        require(counts == pointnet_256, f"{label} CLI launch counts {counts}")
+        expected = egohmr_counts(e_cfg, S) if cli is test_egohmr else pointnet_256
+        require(counts == expected, f"{label} CLI launch counts {counts}")
         require(all(math.isfinite(v) for v in result.values()) and "MPJPE" in result,
                 f"{label} CLI metrics {result}")
         record(f"{label}_cli", counts)
         phase(f"CLI {label} (full width, one batch of 16, {HMR_POINTS} points): launches "
               f"{counts}, {json.dumps({k: round(v, 3) for k, v in result.items()})} mm", t)
+
+
+def gcn_phase(dev, model, enc, vis, x0, gen) -> dict:
+    """Phase 66: the GCN kernels on `model`'s weights and a batch's encoded
+    features: one step and the final prediction against the plain path on
+    the card, and the times of one hidden conv, a step, the eager step and
+    the whole reverse process; returns the kernels line's `gcn_fused` row
+    (one hidden conv's operations and bytes)."""
+    import torch
+
+    from seeme_tpu_torch.ops import _build
+    from seeme_tpu_torch.ops import gcn_fused as gfu
+
+    cfg, S = model.cfg, model.sample_schedule.num_train_timesteps
+    B, H, L = x0.shape[0], cfg.gcn_hid_dim, cfg.gcn_layers
+    rb = model._fused_gcn.batch(model, enc, vis)
+    plain = gfu.ReverseBatch(model, None, enc, vis)
+    eps = torch.randn(B, 144, generator=gen, device=dev)
+    want = gfu.gcn_fused_plain(plain, x0, S - 1, eps)
+    err = compare("GCN step, kernels vs plain", gfu.gcn_fused(rb, x0, S - 1, eps), want,
+                  float(want.abs().max()), POINTNET_RTOL)
+    want = gfu.gcn_fused_plain(plain, x0)
+    err = max(err, compare("GCN final prediction, kernels vs plain", gfu.gcn_fused(rb, x0), want,
+                           float(want.abs().max()), POINTNET_RTOL))
+    w, (a, h) = rb.weights, rb.hl
+    lib, stream = _build.load_library(), _build.stream_ptr(dev)
+
+    def conv():
+        _build.check(lib.gcn_conv(
+            a.data_ptr(), w["conv1.w"].data_ptr(), w["conv1.m"].data_ptr(),
+            w["conv1.adj"].data_ptr(), w["conv1.scale"].data_ptr(), w["conv1.shift"].data_ptr(),
+            None, None, h.data_ptr(), a.shape[0], H, stream), "gcn_conv")
+
+    def reverse():
+        x = x0
+        for t in range(S - 1, -1, -1):
+            x = gfu.gcn_fused(rb, x, t, eps if t > 0 else None)
+        return gfu.gcn_fused(rb, x)
+
+    rows = 2 * B * 24
+    block = model.diffusion_model.gconv_layers[0].gconv1
+    f32_rows = rb.xf[:rows].reshape(2 * B, 24, H)
+    ms = time_ms(conv, 50)
+    plain_ms = time_ms(lambda: block(f32_rows), 5)
+    step_ms = time_ms(lambda: gfu.gcn_fused(rb, x0, S - 1, eps), 20)
+    eager_step_ms = time_ms(lambda: gfu.gcn_fused_plain(plain, x0, S - 1, eps), 5)
+    reverse_ms = time_ms(reverse, 3)
+    flops = 2.0 * rows * H * 2 * H
+    nbytes = tensor_bytes(a, h, w["conv1.w"])
+    # the split-TF32 scheme's least time: three TF32 products for each f32 one
+    floor = 1e3 * max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
+    print(f"    GCN (B={B}, H={H}, {L} residual blocks): hidden conv {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of its f32 count; bound {bound_ms(flops, nbytes):.4f} "
+          f"ms, split-TF32 floor {floor:.4f} ms), its eager block {plain_ms:.4f} ms; "
+          f"a step ({2 * L + 2} launches) {step_ms:.4f} ms, eager {eager_step_ms:.4f} ms; "
+          f"{S} steps and the final prediction {reverse_ms:.3f} ms", flush=True)
+    return dict(name="gcn_fused", route="cuda", source="seeme_tpu_torch/csrc/gcn.cu",
+                replaces="none: the JAX package leaves the GCN to XLA", hidden=H,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, floor_ms=floor, step_ms=step_ms,
+                eager_step_ms=eager_step_ms, reverse_ms=reverse_ms, bytes=nbytes, flops=flops)
 
 
 def t2m_phases(dev, counted, counters, record, work: str) -> None:
@@ -2048,7 +2134,10 @@ def hmr_train_phases(dev, counted, counters, record, kernels: list, work: str) -
     def cli_check(label, cli, ckpt):
         t = time.perf_counter()
         result, counts = counted(lambda: cli.main(["--batch_size", "16", "--checkpoint", ckpt]))
-        require(counts == per_width(256), f"{label} --checkpoint launch counts {counts}")
+        expected = per_width(256)
+        if cli is test_egohmr:   # 2 x 4 + 2 GCN launches a step, 50 steps and the final one
+            expected["gcn_fused"] = 10 * 51
+        require(counts == expected, f"{label} --checkpoint launch counts {counts}")
         require(all(math.isfinite(v) for v in result.values()) and "MPJPE" in result,
                 f"{label} --checkpoint metrics {result}")
         record(f"{label}_trained_cli", counts)

@@ -6,6 +6,7 @@
 #pragma once
 
 #define DDIM_TOK_MAX_ROWS 30  // token rows a cluster of kernel 5 holds
+#define GCN_CHANNELS 64       // channels a CTA of csrc/gcn.cu takes
 #define SEEME_STR2(x) #x
 #define SEEME_STR(x) SEEME_STR2(x)
 
@@ -13,6 +14,7 @@ enum Refusal : int {
   REFUSE_TOKEN_ROWS = 10001,   // kernel 5: one sample's token rows past DDIM_TOK_MAX_ROWS
   REFUSE_SAMPLE_SMEM = 10002,  // a DDIM kernel: one sample past a CTA's shared memory
   REFUSE_TOK_HEADS = 10003,    // kernel 5: a head width that is not whole warps
+  REFUSE_GCN_WIDTH = 10004,    // the GCN kernels: a width that is not whole CTA tiles
 };
 
 // The message of a refusal, or nullptr for any other code.
@@ -27,6 +29,9 @@ inline const char* refusal_string(int err) {
     case REFUSE_TOK_HEADS:
       return "kernel 5 takes heads whose width (256 / num_heads) is a whole number of "
              "32-column warp passes: 1, 2, 4 or 8 heads";
+    case REFUSE_GCN_WIDTH:
+      return "the GCN kernels take hidden widths that are a multiple of " SEEME_STR(GCN_CHANNELS)
+             " (the channels of one CTA, csrc/gcn.cu)";
     default:
       return nullptr;
   }

@@ -19,13 +19,16 @@ Under a torch profiler `sample` records the port's spans
 final forward, its SMPL as `joints.fk`); the OpenPose index copy of each
 `visibility_mask` counts as `host_sync.visibility_index`.
 
-The scene encoder runs through the fused PointNet kernels on the card. The
-image and the scene are encoded once per `sample` call (the JAX package
-encodes them three times with identical results); the two predictions of a
-step run as one GCN call over the stacked [cond; scene-only] rows. Module
-names follow the reference checkpoint (`backbone.*`, `scene_enc.*`,
-`transl_enc.layers.*`, `embed_timestep.time_embed.*`,
-`input_process.poseEmbedding`, `diffusion_model.*`, `beta_layer.layers.*`).
+The scene encoder runs through the fused PointNet kernels on the card, the
+reverse process through the GCN kernels (`ops/gcn_fused.py`, 2 x gcn_layers
++ 2 launches a step and for the final prediction); training's forward runs
+the eager `nn/gcn.py::ModulatedGCN`. The image and the scene are encoded
+once per `sample` call (the JAX package encodes them three times with
+identical results); the two predictions of a step run as one GCN pass over
+the stacked [cond; scene-only] rows. Module names follow the reference
+checkpoint (`backbone.*`, `scene_enc.*`, `transl_enc.layers.*`,
+`embed_timestep.time_embed.*`, `input_process.poseEmbedding`,
+`diffusion_model.*`, `beta_layer.layers.*`).
 
 Training (`python -m seeme_tpu_torch.train_egohmr`): `training_loss`, the
 x0-prediction MSE in the normalized rot6d space plus `compute_loss`'s
@@ -55,6 +58,7 @@ from ..nn.gcn import ModulatedGCN, smpl_adjacency
 from ..nn.init import init_parameters_
 from ..nn.pointnet import ResnetPointnet
 from ..nn.resnet import resnet50
+from ..ops.gcn_fused import FusedGcn, gcn_fused
 from ..ops.pointnet_fused import FusedPointnet
 from ..utils.profiling import count, span
 from .prohmr import JOINTS_TO_IGN, SCENE_HIDDEN, SMPL_TO_OPENPOSE, cam_features
@@ -187,6 +191,7 @@ class EgoHmr(nn.Module):
         self.sample_schedule, self.timestep_map = respaced_schedule(
             self.schedule, space_timesteps(cfg.num_train_timesteps, cfg.timestep_respacing))
         self._fused_scene = FusedPointnet()
+        self._fused_gcn = FusedGcn()
 
     # ------------------------------------------------------------- encoders
     def encode_scene(self, pcd: torch.Tensor) -> torch.Tensor:
@@ -251,21 +256,25 @@ class EgoHmr(nn.Module):
 
     def forward(self, batch: Dict, x_t: torch.Tensor, timesteps: torch.Tensor,
                 eval_with_uncond: bool = False, enc: Optional[Dict] = None,
-                drop: Optional[torch.Tensor] = None) -> Dict:
+                drop: Optional[torch.Tensor] = None,
+                pred_x0: Optional[torch.Tensor] = None) -> Dict:
         """One evaluation of the denoiser and SMPL (`seeme_tpu/models/egohmr.py:268`);
         `enc` reuses `encode(batch)`; `drop` (B,) bool is training's
-        condition drop (`mask_cond`). Gradients flow unless grad mode is off."""
+        condition drop (`mask_cond`); `pred_x0` (B, 144), a prediction
+        already made (`sample`'s), takes the denoiser's place. Gradients flow
+        unless grad mode is off."""
         B = x_t.shape[0]
         enc = self.encode(batch) if enc is None else enc
         vis_mask = self.visibility_mask(batch)
-        cond = self.conditioning(enc, vis_mask)
-        if drop is not None:
-            cond = self.mask_cond(cond, drop)
-        if eval_with_uncond:
-            vis6 = vis_mask.repeat_interleave(6, dim=-1)
-            pred_x0 = self._fused_x0(cond, self.mask_cond(cond), vis6, x_t, timesteps)
-        else:
-            pred_x0 = self.denoise(cond, x_t, timesteps)
+        if pred_x0 is None:
+            cond = self.conditioning(enc, vis_mask)
+            if drop is not None:
+                cond = self.mask_cond(cond, drop)
+            if eval_with_uncond:
+                vis6 = vis_mask.repeat_interleave(6, dim=-1)
+                pred_x0 = self._fused_x0(cond, self.mask_cond(cond), vis6, x_t, timesteps)
+            else:
+                pred_x0 = self.denoise(cond, x_t, timesteps)
         pose_6d = pred_x0 * self.body_rep_std + self.body_rep_mean
         rotmats = rot6d_to_rotmat(pose_6d.reshape(-1, 6), mode="diffusion").reshape(B, 24, 3, 3)
         # betas from the unmasked image, scene, translation and camera features
@@ -374,10 +383,11 @@ class EgoHmr(nn.Module):
         (`seeme_tpu/models/egohmr.py:432-471`). `x_init` (B, 144) and
         `noise[i]` (B, 144), the noise of the i-th step (timestep S-1-i of
         the S respaced ones; the last, t = 0, adds none), replace draws from
-        `generator`."""
+        `generator`. The steps and the final prediction run through
+        `ops/gcn_fused.py`: on the card its kernels, on the CPU the eager
+        module and `ddpm_step`."""
         B = batch["img"].shape[0]
-        sched = self.sample_schedule
-        S = sched.num_train_timesteps
+        S = self.sample_schedule.num_train_timesteps
         with span("encode"):
             enc = self.encode(batch)
         dev = self.device
@@ -387,17 +397,13 @@ class EgoHmr(nn.Module):
 
         with span("sample"):
             vis_mask = self.visibility_mask(batch)
-            cond = self.conditioning(enc, vis_mask)
-            cond_uncond = self.mask_cond(cond)
-            vis6 = vis_mask.repeat_interleave(6, dim=-1)
             x = draw() if x_init is None else x_init
             with span("sample.denoise"):
+                reverse = self._fused_gcn.batch(self, enc, vis_mask)
                 for i, t in enumerate(range(S - 1, -1, -1)):
-                    model_t = torch.full((B,), int(self.timestep_map[t]), dtype=torch.long,
-                                         device=dev)
-                    pred = self._fused_x0(cond, cond_uncond, vis6, x, model_t)
                     eps = (noise[i] if noise is not None else draw()) if t > 0 else None
-                    x = sched.ddpm_step(pred, t, x, eps)
+                    x = gcn_fused(reverse, x, t, eps)
         final_t = torch.zeros(B, dtype=torch.long, device=dev)
         with span("joints"):
-            return self.forward(batch, x, final_t, eval_with_uncond=True, enc=enc)
+            return self.forward(batch, x, final_t, eval_with_uncond=True, enc=enc,
+                                pred_x0=gcn_fused(reverse, x))

@@ -45,6 +45,10 @@ SIGNATURES = {
     "ddim_md_info": [_I] * 8 + [_P],
     "ddim_tok_info": [_I] * 7 + [_P],
     "pointnet_info": [_I, _I, _P],
+    "gcn_widths": [_I],
+    "gcn_input": [_P] * 12 + [_I] * 2 + [_P],
+    "gcn_conv": [_P] * 9 + [_I] * 2 + [_P],
+    "gcn_output": [_P] * 10 + [_I] * 2 + [_P],
 }
 BUILD_TIMEOUT = 600  # seconds for the compiles together, and again for the link
 REFUSED = 10000  # launchers' codes past this are refusals (csrc/refusals.cuh), not CUDA errors

@@ -35,7 +35,8 @@ PREFIX = "seeme."   # the profiler ranges of the program's spans
 # the kernel wrappers whose `.launches` `summary()` reports, by module
 LAUNCH_COUNTERS = {"seeme_tpu_torch.ops.pointnet_fused": ("fused_input_block", "fused_split_block"),
                    "seeme_tpu_torch.ops.denoiser_fused": ("ddim_fused", "ddim_fused_grid",
-                                                          "ddim_fused_tok")}
+                                                          "ddim_fused_tok"),
+                   "seeme_tpu_torch.ops.gcn_fused": ("gcn_fused",)}
 
 
 class StepTimer:

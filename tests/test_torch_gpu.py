@@ -17,7 +17,12 @@ the stage-1 ego presets') through kernel 5 at 1-3 condition tokens; kernel
 5 with 2, 4 and 8 heads and at feed-forward widths 512 and 1024 (MLD's
 published denoiser at batch 64: one wave of 13 clusters of 5 samples in
 its wide layout), its one-head launch plans as before the wide layout, the
-head counts it refuses; and widths that do not split into the cluster's column slices. A stage-2 train step on the
+head counts it refuses; and widths that do not split into the cluster's column slices. The GCN
+kernels: one hidden graph conv against its f32 version at the cell's width
+and at 128 and 192 (row tiles filled partly), and EgoHMR's `sample` through
+them against the plain path on the card at the CLI's tiny widths and at the
+cell's (B = 64, GCN 1024 x 4, 50 steps), their launch count, and the widths
+they refuse. A stage-2 train step on the
 card agrees with the same step on the CPU. Both PointNet kernels again at
 hidden width 256 (128 points a CTA), at batch 1, 3 and 64 and tiles filled
 partly or not at all, and the ProHMR-Scene and EgoHMR evaluation paths on
@@ -31,6 +36,7 @@ the host batches bitwise.
 
 import contextlib
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -50,8 +56,11 @@ from seeme_tpu_torch.models.a2m import A2MSystem
 from seeme_tpu_torch.models.t2m import T2MSystem
 from seeme_tpu_torch.nn.init import init_parameters_, perturb_parameters_
 from seeme_tpu_torch.nn.pointnet import ResnetPointnet
+from seeme_tpu_torch.ops import _build
 from seeme_tpu_torch.ops import denoiser_fused as dfu
+from seeme_tpu_torch.ops import gcn_fused as gfu
 from seeme_tpu_torch.ops import pointnet_fused as pfu
+from seeme_tpu_torch.ops import split_precision
 from seeme_tpu_torch.train.loop import train_step
 from seeme_tpu_torch.train.state import make_optimizer
 
@@ -229,6 +238,115 @@ def test_egohmr_sample_matches_cpu(cuda):
     assert torch.equal(cpu["vis_mask_smpl"], card["vis_mask_smpl"].cpu())
     for k in ("pred_x_start", "pred_keypoints_3d", "pred_vertices"):
         assert rel_err(card[k].cpu(), cpu[k]) < 1e-3, k
+
+
+GCN_TINY = dict(gcn_hid_dim=128, gcn_layers=1, num_train_timesteps=100,
+                timestep_respacing="ddim10")   # test_egohmr.py --tiny
+
+
+def tiled_batch(batch, n):
+    """`batch` with every tensor's rows repeated up to n."""
+    if isinstance(batch, dict):
+        return {k: tiled_batch(v, n) for k, v in batch.items()}
+    if torch.is_tensor(batch) and batch.ndim > 0:
+        reps = -(-n // batch.shape[0])
+        return batch.repeat(reps, *[1] * (batch.ndim - 1))[:n].contiguous()
+    return batch
+
+
+@pytest.mark.parametrize("batch,hidden", [(64, 1024), (3, 1024), (1, 128), (5, 192)])
+def test_gcn_conv_kernel(cuda, batch, hidden):
+    """One hidden graph conv launch (a residual block's second: residual
+    added, f32 rows kept) on rows laid out by `tile_rows` against the f32
+    conv, mix, scale, shift, ReLU and residual: within 1e-5 of max |out|
+    (split TF32); its hi/lo rows are `tile_rows` of its f32 rows bitwise."""
+    g = torch.Generator().manual_seed(batch + hidden)
+    H, tiles = hidden, gfu.row_tiles(2 * batch)
+    rows = tiles * gfu.TILE_ROWS
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=g)).to(cuda)
+
+    x, resid = draw(rows, H), draw(rows, H)
+    W = draw(2, H, H, scale=1 / math.sqrt(2 * H))
+    M, scale, shift = draw(24, H, scale=0.1, shift=1.0), draw(H, scale=0.1, shift=1.0), draw(H)
+    adj = (torch.rand(24, 24, generator=g) / 12).to(cuda)
+    eye = torch.eye(24, device=cuda)
+    diag, off = torch.diagonal(adj), adj * (1 - eye)
+    flat = torch.cat([off.reshape(-1), diag]).contiguous()
+    out = resid.clone()
+    out_hl = torch.empty(tiles, H // gfu.KS, 2 * gfu.TILE_ROWS, gfu.KS, device=cuda)
+    a, packed = gfu.tile_rows(x), gfu.pack_weight(W)
+    _build.check(_build.load_library().gcn_conv(
+        a.data_ptr(), packed.data_ptr(), M.data_ptr(), flat.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), out.data_ptr(), out.data_ptr(), out_hl.data_ptr(), tiles, H,
+        _build.stream_ptr(cuda)), "gcn_conv")
+    torch.cuda.synchronize()
+    h0, h1 = (x @ W[0]).reshape(-1, 24, H), (x @ W[1]).reshape(-1, 24, H)
+    mixed = diag[:, None] * (M * h0) + off @ (M * h1)
+    want = torch.relu(scale * mixed + shift).reshape(rows, H) + resid
+    assert rel_err(out, want) <= 1e-5
+    assert torch.equal(out_hl, gfu.tile_rows(out))
+
+
+@pytest.mark.parametrize("size", ["tiny", "cell"])
+def test_egohmr_gcn_kernels_match_the_plain_path(cuda, size):
+    """`EgoHmr.sample` through the GCN kernels against the plain path (the
+    eager module and `ddpm_step`, `gcn_fused_plain`) on the card from the
+    same state and noise, weights drawn as the cell draws them and rot6d
+    statistics about the rest pose: at the CLI's tiny widths (B = 4, GCN
+    128 x 1, 10 steps) and the cell's (B = 64, 1024 x 4, 50 steps), the pose
+    within 1e-4 of its max, joints and vertices within 2e-4 (the cell's
+    limits); (2 x gcn_layers + 2) launches a step and for the final
+    prediction."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = EgoHmrConfig(**GCN_TINY) if size == "tiny" else EgoHmrConfig()
+    B = 4 if size == "tiny" else 64
+    model = EgoHmr(cfg, synthetic_smpl(256), device=cuda)
+    split_precision.draw_like_the_cell_(model, 7)
+    batch = tiled_batch(hmr_batch(cuda), B)
+    S = model.sample_schedule.num_train_timesteps
+    g = torch.Generator().manual_seed(8)
+    x_init, noise = torch.randn(B, 144, generator=g).to(cuda), torch.randn(S, B, 144, generator=g)
+    noise = noise.to(cuda)
+    with torch.no_grad():
+        enc, vis = model.encode(batch), model.visibility_mask(batch)
+        plain = gfu.ReverseBatch(model, None, enc, vis)
+        x = x_init
+        for i, t in enumerate(range(S - 1, -1, -1)):
+            x = gfu.gcn_fused_plain(plain, x, t, noise[i] if t > 0 else None)
+        pose = gfu.gcn_fused_plain(plain, x)
+        model.body_rep_mean.copy_(torch.tensor([1.0, 0, 0, 1, 0, 0], device=cuda).repeat(24))
+        model.body_rep_std.fill_(0.15 / float(pose.pow(2).mean().sqrt()))
+        want = model(batch, x, torch.zeros(B, dtype=torch.long, device=cuda),
+                     eval_with_uncond=True, enc=enc, pred_x0=pose)
+    before = gfu.gcn_fused.launches
+    got = model.sample(batch, x_init=x_init, noise=noise)
+    assert gfu.gcn_fused.launches - before == (2 * cfg.gcn_layers + 2) * (S + 1)
+    for k, tol in (("pred_x_start", 1e-4), ("pred_keypoints_3d", 2e-4), ("pred_vertices", 2e-4)):
+        assert rel_err(got[k], want[k]) <= tol, k
+
+
+def test_gcn_kernels_refuse_bad_input(cuda):
+    """A hidden width that is not a multiple of 64 (96) is refused before any
+    launch, by the model's sampling and by the launcher; a state of another
+    type or shape by the wrapper."""
+    before = gfu.gcn_fused.launches
+    model = EgoHmr(EgoHmrConfig(**{**GCN_TINY, "gcn_hid_dim": 96}), synthetic_smpl(256),
+                   device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        model.sample(hmr_batch(cuda))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        _build.check(_build.load_library().gcn_conv(*[None] * 9, 1, 96,
+                                                    _build.stream_ptr(cuda)), "gcn_conv")
+    model = EgoHmr(EgoHmrConfig(**GCN_TINY), synthetic_smpl(256), device=cuda)
+    batch = hmr_batch(cuda)
+    with torch.no_grad():
+        rb = model._fused_gcn.batch(model, model.encode(batch), model.visibility_mask(batch))
+    for bad in (torch.randn(4, 144, device=cuda).double(), torch.randn(3, 144, device=cuda)):
+        with pytest.raises(ValueError, match=r"must be \(4, 144\) float32"):
+            gfu.gcn_fused(rb, bad, 5)
+    assert gfu.gcn_fused.launches == before
 
 
 BATCHES = [1, 3, 5, 17, 64]  # the last cluster of 4 samples partly filled or full

@@ -99,7 +99,7 @@ def test_no_library_kernel_or_torch_build_route():
                    "torch/extension.h", "import triton"):
         assert banned not in text, banned
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "ddim_md.cu", "ddim_md_t1.cu", "ddim_tok.cu", "ddim_tok_t1.cu", "pointnet.cu"]
+        "ddim_md.cu", "ddim_md_t1.cu", "ddim_tok.cu", "ddim_tok_t1.cu", "gcn.cu", "pointnet.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
